@@ -7,11 +7,13 @@ and a `.pt` snapshot with --save_pt.  Runs on the CUDA device unless
 `--device cpu` is given; without a GPU it raises.
 
 Flags whose features are not ported yet raise: --dwt, --sync, --aest,
---dualmod, --spatial, --mesh, --fleet, --profile, --persp mixed|exact,
-transforms other than fast/none and models other than ViT-B/32 and
-ViT-B/16 (ROADMAP.md lists them).
+--dualmod, --spatial, --mesh, --fleet, --profile and models other than
+ViT-B/32 and ViT-B/16 (ROADMAP.md lists them).
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --persp exact
+    APHANTASIA_PALLAS_SHIFT=1 python -m aphantasia_torch.cli.clip_fft \
+        -t "a lighthouse" -tf elastic
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, add_parallel_flags, apply_sample_budget, maybe_translate,
-    parse_size, resolve_dtype)
+    parse_size, resolve_dtype, resolve_persp)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import (AsyncFrameWriter, frames_to_video,
@@ -114,8 +116,6 @@ def check_ported(a) -> None:
         ('--dualmod', a.dualmod is not None), ('--spatial', a.spatial > 1),
         ('--mesh', a.mesh not in (None, '0', '1')), ('--fleet', a.fleet),
         ('--profile', a.profile),
-        ('--persp ' + str(a.persp), a.persp not in (None, 'affine')),
-        ('--transform ' + a.transform, a.transform not in ('fast', 'none')),
         ('--model ' + a.model, a.model not in PORTED_MODELS)) if on]
     if unported:
         raise NotImplementedError(
@@ -198,7 +198,7 @@ def run(a, on_step=None) -> RunResult:
     settings = StepSettings(
         sim=a.sim or 'cossim', sharp=a.sharp, aest=a.aest, enforce=a.enforce,
         expand=a.expand, noise=a.noise, sync=a.sync, transform=a.transform,
-        clip_dtype=dtype)
+        persp=resolve_persp(a.persp), clip_dtype=dtype)
     draw = build_draw_fn(sampler, settings, tuple(gen_params.shape))
     step = build_train_step(par, sampler, clip1.cfg, settings, optimizer)
     render = build_render(par)

@@ -2,6 +2,8 @@
 encoding, the sample-budget cascade, precision and device selection."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -107,14 +109,20 @@ def apply_sample_budget(samples: int, model: str, dualmod=None,
 
 
 def add_parallel_flags(parser):
-    """The JAX CLIs' shared flags.  Only --pallas is ported (the CUDA cutout
-    kernel); the others are accepted so that they can raise a clear error."""
+    """The JAX CLIs' shared flags.  --pallas (the CUDA cutout kernel) and
+    --persp are ported; the others are accepted so that they can raise a
+    clear error."""
     parser.add_argument('--mesh', default=None,
                         help='not ported: multi-device meshes (ROADMAP.md)')
     parser.add_argument('--persp', default=None,
                         choices=['affine', 'mixed', 'exact'],
-                        help="fast-pipeline perspective; only 'affine' (the "
-                             "default) is ported")
+                        help="fast-pipeline perspective: 'affine' (default; "
+                             "its least-squares affine fit), 'mixed' (the "
+                             "exact homography through the CUDA kernel, "
+                             "rotation as an affine warp) or 'exact' (both "
+                             "through the kernel).  Default: affine "
+                             "(equivalent env var: "
+                             "APHANTASIA_EXACT_PERSP=mixed|1)")
     parser.add_argument('--profile', default=None,
                         help='not ported: profiler traces (ROADMAP.md)')
     parser.add_argument('--pallas', action='store_true',
@@ -124,6 +132,19 @@ def add_parallel_flags(parser):
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default; raises without a GPU) or 'cpu'")
     return parser
+
+
+def resolve_persp(flag) -> str:
+    """The `fast` pipeline's perspective mode, with the JAX CLIs'
+    precedence: the --persp flag wins; without it,
+    APHANTASIA_EXACT_PERSP=mixed selects 'mixed', any other non-empty
+    value 'exact', and unset or empty 'affine'."""
+    if flag is not None:
+        return flag
+    mode = os.environ.get("APHANTASIA_EXACT_PERSP")
+    if not mode:
+        return "affine"
+    return "mixed" if mode == "mixed" else "exact"
 
 
 def maybe_translate(texts, enabled: bool, verbose=True):

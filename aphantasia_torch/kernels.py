@@ -28,7 +28,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "kernels")
-SOURCES = ("attention", "cutout")
+SOURCES = ("attention", "cutout", "persp", "shift")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,10 +1,23 @@
-"""Perspective draw and its affine fit (counterpart of
-aphantasia_tpu.ops.perspective, the part the default `fast` pipeline uses).
+"""Perspective draw, homography algebra and the exact warp's plain version
+(counterpart of aphantasia_tpu.ops.perspective).
 
 The `fast` augmentation draws a torchvision RandomPerspective(0.33, p=0.2)
-per cutout, solves its homography, and enters the affine warp as the
-least-squares affine FIT of that homography.  `homography_warp` (the exact
-warp) is not ported yet; it comes with the `--persp` kernel (ROADMAP.md).
+per cutout and solves its homography.  The default (`--persp affine`)
+enters the affine warp as the least-squares affine FIT of that homography;
+`--persp mixed|exact` applies the homography itself through the CUDA
+kernels of ops/persp.py, whose plain version is `homography_warp` here:
+torchvision's `F.perspective` / `F.affine` semantics (a grid over output
+pixel centres mapped through the rational transform, 4-tap bilinear with
+zero padding, and the whole pixel scaled by the sum of in-bounds tap
+weights, torchvision's fill-0 mask):
+
+    sx = (a*(x+.5) + b*(y+.5) + c) / (g*(x+.5) + h*(y+.5) + 1) - 0.5
+    sy = (d*(x+.5) + e*(y+.5) + f) / (same denominator)        - 0.5
+
+The JAX package gives `homography_warp` a custom VJP that gathers over a
+window around the inverse map (a way around XLA's slow TPU scatter); here
+the plain backward is autograd's exact transpose, and the windowed gather
+lives in the CUDA backward kernel (csrc/persp.cu).
 """
 from __future__ import annotations
 
@@ -117,3 +130,84 @@ def affine_fit_centered(coef, h: int, w: int, grid_n: int = 5):
     row_x = (srcx @ x_) @ inv.T
     row_y = (srcy @ x_) @ inv.T
     return torch.stack([row_x, row_y], 1)
+
+
+def affine_rotation_coeffs(angles_deg):
+    """[S] degrees -> [S,4] (cos, sin, -sin, cos): the inverse map
+    (output -> input) of a rotation about the frame centre."""
+    r = torch.deg2rad(angles_deg)
+    cos, sin = torch.cos(r), torch.sin(r)
+    return torch.stack([cos, sin, -sin, cos], -1)
+
+
+def rotation_coeffs_for(angles_deg, h: int, w: int):
+    """torchvision F.affine(angle, fill=0) rotation of an HxW frame as
+    8 homography coeffs [S,8]: src = R^-1 (p - ctr) + ctr with
+    ctr = (w/2, h/2) in the (x+0.5) pixel-centre frame."""
+    rc = affine_rotation_coeffs(angles_deg)
+    cos, sin = rc[:, 0], rc[:, 1]
+    cx, cy = w / 2.0, h / 2.0
+    a, b = cos, sin
+    d, e = -sin, cos
+    c = cx - a * cx - b * cy
+    f = cy - d * cx - e * cy
+    z = torch.zeros_like(a)
+    return torch.stack([a, b, c, d, e, f, z, z], -1)
+
+
+def _coef_matrix(coef):
+    s = coef.shape[0]
+    return torch.cat([coef, torch.ones((s, 1), dtype=coef.dtype,
+                                       device=coef.device)], -1).reshape(s, 3, 3)
+
+
+def compose_coeffs(c1, c2):
+    """Coeffs [S,8] of warp-by-c1 THEN warp-by-c2 as one homography (the
+    cut is sampled at M1 @ M2 @ p), normalized to m22 = 1."""
+    m = torch.bmm(_coef_matrix(c1), _coef_matrix(c2))
+    m = m / m[:, 2:3, 2:3]
+    return m.reshape(-1, 9)[:, :8]
+
+
+def _inverse_coeffs(coef):
+    """The inverse homography [S,3,3] (adjugate, normalized to m22 = 1):
+    maps an input pixel centre to the output position sampling it."""
+    adj = _adjugate3(_coef_matrix(coef))
+    return adj / adj[:, 2:3, 2:3]
+
+
+def _grids(h: int, w: int, device):
+    xg = torch.arange(w, dtype=torch.float32, device=device) + 0.5
+    yg = torch.arange(h, dtype=torch.float32, device=device) + 0.5
+    yy, xx = torch.meshgrid(yg, xg, indexing="ij")
+    return xx, yy
+
+
+def homography_warp(img, coef):
+    """img [S,C,H,W], coef [S,8] -> warped [S,C,H,W] in img's dtype:
+    torchvision bilinear + zeros padding + fill-0 mask.  Positions,
+    weights and sums are float32 (a bf16 image is read as float32 and
+    the result rounded once).  Differentiable in img through autograd."""
+    s, c, h, w = img.shape
+    xx, yy = _grids(h, w, img.device)
+    sx, sy = _src_positions(coef.float(), xx, yy)
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    tx = sx - x0
+    ty = sy - y0
+    flat = img.float().reshape(s, c, h * w)
+    out = torch.zeros((s, c, h, w), dtype=torch.float32, device=img.device)
+    mask = torch.zeros((s, h, w), dtype=torch.float32, device=img.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi = x0 + dx
+            yi = y0 + dy
+            wgt = (tx if dx else 1 - tx) * (ty if dy else 1 - ty)
+            ok = ((xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)).float()
+            idx = (torch.clamp(yi, 0, h - 1) * w
+                   + torch.clamp(xi, 0, w - 1)).long()
+            tap = torch.gather(flat, 2, idx.reshape(s, 1, h * w)
+                               .expand(s, c, h * w))
+            out = out + tap.reshape(s, c, h, w) * (wgt * ok)[:, None]
+            mask = mask + wgt * ok
+    return (out * mask[:, None]).to(img.dtype)

@@ -1,6 +1,9 @@
-"""Bicubic tap weights matching torch `F.interpolate(mode='bicubic',
-align_corners=True)` (counterpart of aphantasia_tpu.ops.resize): cubic
-convolution A=-0.75, taps clamped at the borders."""
+"""Cubic resampling (counterpart of aphantasia_tpu.ops.resize): the
+cutouts' bicubic tap weights, matching torch `F.interpolate(mode='bicubic',
+align_corners=True)` (cubic convolution A=-0.75, taps clamped at the
+borders), and the upsampling of `jax.image.resize(..., "cubic")` that the
+`elastic` pipeline's displacement tracks use (Keys A=-0.5 on half-pixel
+centres, out-of-range taps dropped and the rest renormalised)."""
 from __future__ import annotations
 
 import torch
@@ -43,3 +46,42 @@ def resize_axis_taps(out_size: int, in_size, offset=0):
     taps = torch.minimum(torch.clamp(taps, min=0.0), hi)
     idx = taps.to(torch.int32) + offset.to(torch.int32)[..., None, None]
     return idx, w
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel, A = -0.5, at |offset| x >= 0."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return torch.where(x >= 2.0, torch.zeros_like(x),
+                       torch.where(x >= 1.0, far, near))
+
+
+def cubic_resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """The [n_in, n_out] float32 weights of `jax.image.resize(x, ...,
+    "cubic")` along one axis when upsampling (n_out >= n_in): Keys A = -0.5
+    on half-pixel centres, src = (j + 0.5) * n_in / n_out - 0.5, with the
+    taps that fall outside [0, n_in) dropped and the rest renormalised to
+    sum to 1.  (Not the `align_corners=True`, A = -0.75 cubic above.)"""
+    if n_out < n_in:
+        raise ValueError("cubic_resize_matrix upsamples only "
+                         f"({n_in} -> {n_out}); downsampling antialiases")
+    inv_scale = 1.0 / (n_out / n_in)
+    src = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
+           * inv_scale - 0.5)
+    i = torch.arange(n_in, dtype=torch.float32, device=device)
+    wts = _keys_cubic(torch.abs(src[None, :] - i[:, None]))
+    total = wts.sum(0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    wts = torch.where(total.abs() > eps,
+                      wts / torch.where(total != 0, total, torch.ones_like(total)),
+                      torch.zeros_like(wts))
+    inside = (src >= -0.5) & (src <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, torch.zeros_like(wts))
+
+
+def resize_cubic_last(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """`jax.image.resize(x, x.shape[:-1] + (n_out,), "cubic")` for a
+    float32 x, upsampling its last axis (what the `elastic` pipeline's
+    smooth tracks need: [S, 9] -> [S, n])."""
+    m = cubic_resize_matrix(x.shape[-1], n_out, device=x.device)
+    return torch.matmul(x.float(), m)

@@ -9,16 +9,21 @@ matmuls plus two phase rotations (`_FusedWarp`).  Inputs are zero-padded
 in the DFT so wrap-around never reaches the output crop.
 
 These are plain large matmuls, not a TPU kernel: the JAX package left them
-to XLA, and here they go to `torch.einsum`.  `fractional_shift` (the only
-caller of the Pallas shift kernel) is reached only from the `elastic`
-pipeline, which is not ported yet.
+to XLA, and here they go to `torch.einsum`.  `fractional_shift` (one shear
+pass on its own, reached from the `elastic` pipeline) is two matmuls and a
+phase multiply as well, unless `APHANTASIA_PALLAS_SHIFT` is set: then a
+CUDA tensor goes through the hand-written kernel of ops/shift.py, forward
+and backward, as the JAX package's switch sends it to its Pallas kernel.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
+
+from aphantasia_torch.ops.shift import frac_shift_last
 
 
 @functools.lru_cache(maxsize=32)
@@ -188,3 +193,91 @@ def affine_warp(cuts, affines, pad: int = 64, fill: float = 0.0,
     if fill != 0.0:
         out = out + fill
     return out.to(cuts.dtype)
+
+
+def shift_kernel_enabled() -> bool:
+    """The JAX package's switch (pallas_shift.enabled), read at each call:
+    `APHANTASIA_PALLAS_SHIFT` set to a non-empty value."""
+    return bool(os.environ.get("APHANTASIA_PALLAS_SHIFT"))
+
+
+def fractional_shift(x, shift, axis: int, compute_dtype=None,
+                     n_total: int | None = None, in_offset: int = 0,
+                     out_window: tuple | None = None):
+    """Per-slice fractional translation along `axis` via DFT phase: out[i]
+    = in[i - shift] (positive shift moves content to higher indices).
+    `shift` broadcasts to x's shape without `axis`.  Windowed form:
+    `n_total` is the logical DFT length when x holds only the window
+    starting at `in_offset` (the rest is zero); `out_window = (start,
+    size)` keeps only those output positions.  Returns float32.
+
+    With `APHANTASIA_PALLAS_SHIFT` set, a CUDA tensor runs the CUDA kernel
+    (ops/shift.py) on the axis moved last (float32 only); otherwise the
+    pass is two matmuls in `compute_dtype` whose backward is one pass of
+    the cotangent at -shift with the windows swapped (`_FracShift`)."""
+    xm = x.movedim(axis, -1)
+    n_in = xm.shape[-1]
+    n = n_total if n_total is not None else n_in
+    out_window = tuple(out_window) if out_window is not None else (0, n)
+    dt = compute_dtype or torch.float32
+    if shift_kernel_enabled() and x.is_cuda:
+        if dt != torch.float32:
+            raise TypeError("the fractional-shift kernel computes in float32, "
+                            f"got compute_dtype {dt}")
+        lead = xm.shape[:-1]
+        sh = torch.broadcast_to(shift, lead).reshape(-1)
+        out = frac_shift_last(xm.contiguous().reshape(-1, n_in), sh, n,
+                              in_offset, out_window)
+        return out.reshape(lead + (out_window[1],)).movedim(-1, axis)
+    return _FracShift.apply(x, shift, axis, dt, n, in_offset, out_window)
+
+
+def _frac_shift_impl(x, shift, axis, dt, phase=None, n_total=None,
+                     in_offset=0, out_window=None):
+    """analysis matmul -> phase rotation -> synthesis matmul along `axis`;
+    returns (out float32, (cos, sin)) so the backward reuses the phase."""
+    x = x.movedim(axis, -1)
+    n_in = x.shape[-1]
+    n = n_total if n_total is not None else n_in
+    nf = n // 2 + 1
+    analysis, synthesis = _packed_tensors(n, dt, str(x.device))
+    if n_in != n or in_offset:
+        analysis = analysis[in_offset:in_offset + n_in]
+    if out_window is not None and tuple(out_window) != (0, n):
+        synthesis = synthesis[:, out_window[0]:out_window[0] + out_window[1]]
+    f = torch.matmul(x.to(dt), analysis)                          # [..., 2nf]
+    fr, fi = f[..., :nf], f[..., nf:]
+    if phase is None:
+        k = torch.arange(nf, dtype=torch.float32, device=x.device)
+        phi = -2.0 * np.pi * k * shift.float()[..., None] / n
+        c, s = torch.cos(phi).to(dt), torch.sin(phi).to(dt)
+    else:
+        c, s = phase
+    g = torch.cat([fr * c - fi * s, fr * s + fi * c], dim=-1)
+    out = torch.matmul(g, synthesis).float()
+    return out.movedim(-1, axis), (c, s)
+
+
+class _FracShift(torch.autograd.Function):
+    """The plain shift pass with the JAX package's custom VJP
+    (sep_warp._fs_bwd): linear in x, S(shift)^T = S(-shift) with the row
+    and column windows exchanged, so the backward reuses the forward's
+    phase conjugated; the shift gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shift, axis, dt, n, in_offset, out_window):
+        out, (c, s) = _frac_shift_impl(x, shift, axis, dt, n_total=n,
+                                       in_offset=in_offset,
+                                       out_window=out_window)
+        ctx.save_for_backward(c, s)
+        ctx.geom = (axis, dt, n, in_offset, out_window, x.shape[axis], x.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        c, s = ctx.saved_tensors
+        axis, dt, n, in_offset, out_window, in_size, x_dtype = ctx.geom
+        gx, _ = _frac_shift_impl(g, None, axis, dt, phase=(c, -s), n_total=n,
+                                 in_offset=out_window[0],
+                                 out_window=(in_offset, in_size))
+        return gx.to(x_dtype), None, None, None, None, None, None

@@ -39,6 +39,7 @@ class StepSettings:
     noise: float = 0.0
     sync: float = 0.0
     transform: str = "fast"
+    persp: str = "affine"          # the `fast` perspective: affine|mixed|exact
     clip_dtype: Any = torch.float32
 
 
@@ -82,7 +83,7 @@ def _check_ported(settings: StepSettings):
 
 def build_draw_fn(sampler, settings: StepSettings, param_shape):
     """Returns draw(generator) -> StepDraws on the generator's device."""
-    transform = get_transform(settings.transform)
+    transform = get_transform(settings.transform, settings.persp)
     m = sampler.modsize
 
     def draw_cuts(gen):
@@ -106,7 +107,7 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
     step_i) -> (loss, out_enc detached).  `prompts` is a sequence of
     (embs [K,D], wts [K], coeff) groups."""
     _check_ported(settings)
-    transform = get_transform(settings.transform)
+    transform = get_transform(settings.transform, settings.persp)
     dt = settings.clip_dtype
 
     def encode_cuts(clip_params, cut_draws: CutDraws, img):

@@ -13,18 +13,26 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            PyTorch library call that computes the same function.
   main     `aphantasia_torch.cli.clip_fft.run` at full width (ViT-B/32 with
            random weights, 1280x720, 200 samples, `--pallas`), then the same
-           run without `--pallas` (the default einsum cutout).  The launch
-           counts are set to 0 just before each run and read just after.
-           Steps/s is the median of the steps after the first.
+           run without `--pallas` (the default einsum cutout), then with
+           `--pallas` and each augmentation path of the exact perspective
+           and fractional-shift kernels: `--persp mixed`, `--persp exact`,
+           `-tf elastic` with APHANTASIA_PALLAS_SHIFT=1 and without it.
+           The launch counts are set to 0 just before each run and read just
+           after, and must equal the counts the path implies.  Steps/s is
+           the median of the steps after the first.
   parity   the train step on the card against the same step on the CPU,
-           from the same weights and the same random draws, at a small size.
+           from the same weights and the same random draws, at a small size,
+           for the `none`, `fast` (affine, mixed and exact) and `elastic`
+           (kernel shift) transforms.
   profile  (only when asked for) torch.profiler over steady steps of both
-           cutout paths: device time by kernel and the device busy share.
+           cutout paths and the four augmentation paths of `main`: device
+           time by kernel and the device busy share.
 
-The last two lines of standard output are one JSON object describing every
-kernel and `{"ok": true, "device": {...}}`.  Without a CUDA device, or
-without the `aphantasia_torch` package beside it, the script exits non-zero
-and prints no result.
+The last three lines of standard output are one JSON object describing
+every kernel, the card's name and power limit as nvidia-smi reports them,
+and `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
+`aphantasia_torch` package beside it, the script exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -55,6 +63,12 @@ KERNELS = {
                    "aphantasia_tpu/ops/pallas_cutout.py:109"),
     "cutout_bwd": ("aphantasia_torch/csrc/cutout.cu",
                    "aphantasia_tpu/ops/pallas_cutout.py:139"),
+    "persp_fwd": ("aphantasia_torch/csrc/persp.cu",
+                  "aphantasia_tpu/ops/pallas_persp.py:394"),
+    "persp_bwd": ("aphantasia_torch/csrc/persp.cu",
+                  "aphantasia_tpu/ops/pallas_persp.py:439"),
+    "frac_shift": ("aphantasia_torch/csrc/shift.cu",
+                   "aphantasia_tpu/ops/pallas_shift.py:73"),
 }
 
 
@@ -223,6 +237,171 @@ def check_cutout(seed=0):
     return res
 
 
+def persp_case(kind, s, h, w, seed=0):
+    """(coef [S,8], flags [S]) of one warp case on the card: "persp" the
+    `fast` draw (RandomPerspective(0.33), here with p = 0.7 so both kinds
+    of sample are many; p = 0.2 as on the main path with "persp-main"),
+    "rotate" +-30 deg rotations (every tenth angle 0, flag 0), "corners"
+    the extreme integer corner draws of the distortion-0.33 family (the
+    perspective window test of the JAX package, all flagged)."""
+    import itertools
+    import numpy as np
+    import torch
+    from aphantasia_torch.ops.perspective import (perspective_coeffs,
+                                                  perspective_endpoints,
+                                                  rotation_coeffs_for)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind in ("persp", "persp-main"):
+        start, end = perspective_endpoints(g, s, h, w, 0.33,
+                                           0.2 if kind == "persp-main" else 0.7)
+        flags = (end - start[None]).abs().amax((1, 2)) > 0
+        return perspective_coeffs(start, end), flags.to(torch.int32)
+    if kind == "rotate":
+        ang = torch.linspace(-30.0, 30.0, s, device="cuda")
+        ang[::10] = 0.0
+        return rotation_coeffs_for(ang, h, w), (ang != 0).to(torch.int32)
+    dw, dh = int(0.33 * (w // 2)), int(0.33 * (h // 2))
+    los_his = [(0, dw), (0, dh), (w - dw - 1, w - 1), (0, dh),
+               (w - dw - 1, w - 1), (h - dh - 1, h - 1),
+               (0, dw), (h - dh - 1, h - 1)]
+    pts = np.array(list(itertools.product(*los_his)), np.float32)
+    pick = pts[np.random.RandomState(seed).choice(len(pts), s, replace=False)]
+    end = torch.tensor(pick, device="cuda").reshape(s, 4, 2)
+    start = torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
+                         dtype=torch.float32, device="cuda")
+    return (perspective_coeffs(start, end),
+            torch.ones((s,), dtype=torch.int32, device="cuda"))
+
+
+def _grid_sample_warp(img, coef):
+    """The library yardstick: torchvision's own route, grid_sample (bilinear,
+    zeros, align_corners=False) of the image with a ones channel appended,
+    times the sampled mask.  Returns a function of the image."""
+    import torch
+    import torch.nn.functional as F
+    from aphantasia_torch.ops.perspective import _grids, _src_positions
+    s, c, h, w = img.shape
+    xx, yy = _grids(h, w, img.device)
+    sx, sy = _src_positions(coef, xx, yy)
+    # float32 grid and image: a bf16 grid cannot hold the positions
+    grid = torch.stack([(sx + 0.5) / w * 2 - 1, (sy + 0.5) / h * 2 - 1], -1)
+    ones = torch.ones((s, 1, h, w), device=img.device)
+
+    def warp(x):
+        out = F.grid_sample(torch.cat([x.float(), ones], 1), grid,
+                            mode="bilinear", padding_mode="zeros",
+                            align_corners=False)
+        return (out[:, :c] * out[:, c:]).to(x.dtype)
+    return warp
+
+
+def check_persp(kind, s, h, w, dtype, timed=False, seed=0):
+    """Kernels A and B against `perspective_warp_plain` (forward) and
+    autograd's transpose of it (d_img), at [S,3,H,W] in `dtype`."""
+    import torch
+    from aphantasia_torch.ops import persp as P
+    coef, flags = persp_case(kind, s, h, w, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    img = torch.rand((s, 3, h, w), generator=g, device="cuda").to(dtype)
+    gout = torch.randn((s, 3, h, w), generator=g, device="cuda").to(dtype)
+    out = P.persp_fwd_kernel(img, coef, flags)
+    dimg = P.persp_bwd_kernel(gout, coef, flags)
+    i_req = img.clone().requires_grad_(True)
+    ref = P.perspective_warp_plain(i_req, coef, flags)
+    (dref,) = torch.autograd.grad(ref, i_req, gout)
+    torch.cuda.synchronize()
+    fe, fs = max_err(out, ref.detach())
+    ge, gs = max_err(dimg, dref)
+    keep = flags == 0
+    copied = bool(torch.equal(out[keep], img[keep])
+                  and torch.equal(dimg[keep], gout[keep]))
+    # float32: the positions and the forward's sums are the plain version's
+    # operations in its order; the backward sums in another order.  bf16:
+    # both sides compute in float32 from the same bf16 inputs and round once
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    res = {"fwd_err": fe, "fwd_scale": fs, "grad_err": ge, "grad_scale": gs,
+           "tol_rel": tol, "flagged": int(flags.sum().item())}
+    check(copied, f"persp {kind} {dtype}: a flag-0 sample was not copied")
+    check(math.isfinite(fe) and fe <= tol * max(fs, 1.0),
+          f"persp fwd {kind} {dtype} {h}x{w}: max |err| {fe:.3g}")
+    check(math.isfinite(ge) and ge <= tol * max(gs, 1.0),
+          f"persp grad {kind} {dtype} {h}x{w}: max |err| {ge:.3g}")
+    if not timed:
+        return res
+    del ref, dref
+    lib = _grid_sample_warp(img, coef)
+    res["lib_err"] = max_err(torch.where(keep[:, None, None, None], img,
+                                         lib(img)), out)[0]
+    res["ms_fwd"] = cuda_ms(lambda: P.persp_fwd_kernel(img, coef, flags))
+    res["ms_bwd"] = cuda_ms(lambda: P.persp_bwd_kernel(gout, coef, flags))
+    res["plain_fwd"] = cuda_ms(lambda: P.perspective_warp_plain(
+        img, coef, flags), iters=5)
+    plain_fb = cuda_ms(lambda: torch.autograd.grad(P.perspective_warp_plain(
+        i_req, coef, flags), i_req, gout), iters=5)
+    res["plain_bwd"] = max(plain_fb - res["plain_fwd"], 0.0)
+    res["lib_fwd"] = cuda_ms(lambda: lib(img), iters=5)
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(lib(i_req), i_req, gout),
+                     iters=5)
+    res["lib_bwd"] = max(lib_fb - res["lib_fwd"], 0.0)
+    torch.cuda.empty_cache()
+    nbytes = 2 * img.numel() * img.element_size() + s * 9 * 4
+    # the function's float32 work per drawn pixel: the position (~14), the
+    # four tap weights and the mask (~12) and 3 x (4 multiply-adds + 1)
+    ops = res["flagged"] * h * w * (26 + 3 * 9)
+    res["bound_fwd"] = bound(nbytes, ops, "f32")
+    res["bound_bwd"] = bound(nbytes, ops, "f32")
+    return res
+
+
+def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
+    """Kernel C against `frac_shift_plain` (forward) and autograd's
+    transpose of it (d_x), float32, at random shifts of +-6 px."""
+    import numpy as np
+    import torch
+    from aphantasia_torch.ops import shift as SH
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, n_in), generator=g, device="cuda")
+    sh = (torch.rand((rows,), generator=g, device="cuda") * 2 - 1) * 6.0
+    gout = torch.randn((rows, out_window[1]), generator=g, device="cuda")
+    out = SH.frac_shift_kernel(x, sh, n, in_offset, out_window)
+    x_req = x.clone().requires_grad_(True)
+    fn = SH._FracShiftFn.apply
+    (dx,) = torch.autograd.grad(fn(x_req, sh, n, in_offset, out_window),
+                                x_req, gout)
+    ref = SH.frac_shift_plain(x_req, sh, n, in_offset, out_window)
+    (dref,) = torch.autograd.grad(ref, x_req, gout)
+    torch.cuda.synchronize()
+    fe, fs = max_err(out, ref.detach())
+    ge, gs = max_err(dx, dref)
+    # float32 sums of ~2n products in another order than cuBLAS's, and the
+    # phase's sin/cos in another library
+    tol = 1e-4
+    res = {"fwd_err": fe, "fwd_scale": fs, "grad_err": ge, "grad_scale": gs,
+           "tol_rel": tol}
+    check(math.isfinite(fe) and fe <= tol * max(fs, 1.0),
+          f"frac_shift fwd {rows}x{n_in} n={n}: max |err| {fe:.3g}")
+    check(math.isfinite(ge) and ge <= tol * max(gs, 1.0),
+          f"frac_shift grad {rows}x{n_in} n={n}: max |err| {ge:.3g}")
+    if not timed:
+        return res
+    del ref, dref
+    res["ms"] = cuda_ms(lambda: SH.frac_shift_kernel(x, sh, n, in_offset,
+                                                     out_window))
+    res["plain"] = cuda_ms(lambda: SH.frac_shift_plain(x, sh, n, in_offset,
+                                                       out_window))
+    # not one library call: the rfft -> phase -> irfft route, for scale only
+    k = torch.arange(n // 2 + 1, dtype=torch.float32, device="cuda")
+    phase = torch.polar(torch.ones((), device="cuda"),
+                        -2.0 * np.pi * k * sh[:, None] / n)
+    res["fft"] = cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(x, n=n)
+                                                 * phase, n=n))
+    nf2 = 2 * (n // 2 + 1)
+    ops = 2 * rows * (n_in * nf2 + nf2 * out_window[1]) + 6 * rows * nf2
+    nbytes = 4 * rows * (n_in + out_window[1] + 1) + 4 * 2 * n * nf2
+    res["bound"] = bound(nbytes, ops, "f32")
+    return res
+
+
 def phase_kernels(report):
     import torch
     from aphantasia_torch import kernels
@@ -278,16 +457,70 @@ def phase_kernels(report):
               f"{cut['ms_' + k]:.4f} ms, plain {cut['plain_' + k]:.4f} ms, "
               f"einsum {cut['lib_' + k]:.4f} ms, bound "
               f"{cut['bound_' + k][0]:.4f} ms ({cut['bound_' + k][1]})")
+    persp, persp_err = None, {"fwd": 0.0, "bwd": 0.0}
+    for kind, h, w, dtype, timed in (
+            ("persp-main", 224, 224, torch.bfloat16, True),
+            ("persp", 224, 224, torch.bfloat16, False),
+            ("persp", 224, 224, torch.float32, False),
+            ("rotate", 224, 224, torch.bfloat16, True),
+            ("rotate", 224, 224, torch.float32, False),
+            ("corners", 224, 224, torch.bfloat16, False),
+            ("corners", 224, 224, torch.float32, False),
+            ("persp", 200, 216, torch.bfloat16, False),
+            ("persp", 200, 216, torch.float32, False)):
+        r = check_persp(kind, 200, h, w, dtype, timed=timed)
+        print(f"[kernels] persp {kind} {h}x{w} {str(dtype)[6:]} "
+              f"({r['flagged']} of 200 flagged): fwd max|err| "
+              f"{r['fwd_err']:.3g} (|ref| {r['fwd_scale']:.3g}), grad max|err| "
+              f"{r['grad_err']:.3g} (|ref| {r['grad_scale']:.3g}), tol "
+              f"{r['tol_rel']:.3g} rel")
+        persp_err["fwd"] = max(persp_err["fwd"], r["fwd_err"])
+        persp_err["bwd"] = max(persp_err["bwd"], r["grad_err"])
+        if not timed:
+            continue
+        for k in ("fwd", "bwd"):
+            print(f"[kernels] persp {k} {kind} [200,3,{h},{w}] bf16: kernel "
+                  f"{r['ms_' + k]:.4f} ms, plain {r['plain_' + k]:.4f} ms, "
+                  f"grid_sample {r['lib_' + k]:.4f} ms (|err| vs kernel "
+                  f"{r['lib_err']:.3g}), bound {r['bound_' + k][0]:.4f} ms "
+                  f"({r['bound_' + k][1]})")
+        persp = persp or r
+    shift = None
+    for rows, n_in, n, off, win, timed in (
+            (134400, 224, 224, 0, (0, 224), True),
+            (96, 16, 24, 4, (0, 24), False),
+            (96, 24, 24, 0, (4, 16), False),
+            (40, 12, 12, 0, (0, 12), False)):
+        r = check_shift(rows, n_in, n, off, win, timed=timed)
+        print(f"[kernels] frac_shift [{rows},{n_in}] n={n} in_offset={off} "
+              f"out_window={win}: fwd max|err| {r['fwd_err']:.3g} (|ref| "
+              f"{r['fwd_scale']:.3g}), grad max|err| {r['grad_err']:.3g} "
+              f"(|ref| {r['grad_scale']:.3g}), tol {r['tol_rel']:.3g} rel")
+        if timed:
+            shift = r
+            print(f"[kernels] frac_shift [{rows},{n_in}] float32: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
+                  f"rfft/irfft route {r['fft']:.4f} ms, bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     for name, r, k, err in (("attn_fwd", att, "fwd", att["fwd_err"]),
                             ("attn_bwd", att, "bwd", att["grad_err"]),
                             ("cutout_fwd", cut, "fwd", cut["fwd_err"]),
-                            ("cutout_bwd", cut, "bwd", cut["grad_err"])):
+                            ("cutout_bwd", cut, "bwd", cut["grad_err"]),
+                            ("persp_fwd", persp, "fwd", persp_err["fwd"]),
+                            ("persp_bwd", persp, "bwd", persp_err["bwd"])):
         src, rep = KERNELS[name]
         report[name] = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": 0, "max_abs_err": err, "ms": r["ms_" + k],
             "plain_ms": r["plain_" + k], "bound_ms": r["bound_" + k][0],
             "bound_by": r["bound_" + k][1], "library_ms": r["lib_" + k]}
+    src, rep = KERNELS["frac_shift"]
+    report["frac_shift"] = {
+        "name": "frac_shift", "route": "cuda", "source": src, "replaces": rep,
+        "launches": 0, "max_abs_err": max(shift["fwd_err"], shift["grad_err"]),
+        "ms": shift["ms"], "plain_ms": shift["plain"],
+        "bound_ms": shift["bound"][0], "bound_by": shift["bound"][1],
+        "library_ms": None}
 
 
 # ---------------------------------------------------------------- main path
@@ -314,7 +547,7 @@ def phase_main(report, steps: int):
     losses = res.losses
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
           f"main path losses not finite: {losses}")
-    for k in KERNELS:
+    for k in ("attn_fwd", "attn_bwd", "cutout_fwd", "cutout_bwd"):
         check(launches.get(k, 0) > 0, f"main path never launched {k}")
         if k in report:
             report[k]["launches"] = launches[k]
@@ -361,6 +594,56 @@ def phase_main(report, steps: int):
           f"{1.0 / steady2[len(steady2) // 2]:.3f} steps/s on {name}; "
           f"losses {[round(x, 5) for x in res2.losses]}")
 
+    # the augmentation paths of the perspective and shift kernels, each
+    # with --pallas: every step launches the slice-1 kernels as above, and
+    #   --persp mixed: one perspective warp forward and backward;
+    #   --persp exact: two each (the perspective and the rotate stage);
+    #   elastic + switch: two shift passes forward, two backward;
+    #   elastic alone: the plain shift (no kernel).
+    base = {"attn_fwd": 12 * steps + 12, "attn_bwd": 12 * steps,
+            "cutout_fwd": steps, "cutout_bwd": steps}
+    for label, extra, env, more in (
+            ("--persp mixed", ["--persp", "mixed"], None,
+             {"persp_fwd": steps, "persp_bwd": steps}),
+            ("--persp exact", ["--persp", "exact"], None,
+             {"persp_fwd": 2 * steps, "persp_bwd": 2 * steps}),
+            ("-tf elastic, APHANTASIA_PALLAS_SHIFT=1", ["-tf", "elastic"], "1",
+             {"frac_shift": 4 * steps}),
+            ("-tf elastic", ["-tf", "elastic"], None, {})):
+        argv3 = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+                 "--samples", "200", "--steps", str(steps), "--pallas",
+                 "--out_dir", os.path.join(OUT_DIR, "augs"), "-nv",
+                 "--seed", "1"] + extra
+        if env:
+            os.environ["APHANTASIA_PALLAS_SHIFT"] = env
+        try:
+            kernels.reset_launches()
+            res3 = _run_cli(argv3)
+            torch.cuda.synchronize()
+            got = dict(kernels.LAUNCHES)
+        finally:
+            os.environ.pop("APHANTASIA_PALLAS_SHIFT", None)
+        print(f"[main] {label} run: launches {got}")
+        check(len(res3.losses) == steps
+              and all(math.isfinite(x) for x in res3.losses),
+              f"{label} losses not finite: {res3.losses}")
+        check(tuple(res3.params.shape) == (1, 3, 720, 641, 2)
+              and bool(torch.isfinite(res3.params).all()),
+              f"{label}: bad final params")
+        run_dir = os.path.join(OUT_DIR, "augs", res3.out_name)
+        frames = [f for f in os.listdir(run_dir) if f.endswith(".jpg")]
+        check(len(frames) == steps, f"{label}: {len(frames)} frames")
+        want = dict(base, **more)
+        check(got == want, f"{label}: launches {got} != expected {want}")
+        for k in more:
+            if k in report:
+                report[k]["launches"] = got[k]
+        steady3 = sorted(res3.step_seconds[1:] or res3.step_seconds)
+        print(f"[main] {label}: {steps} steps, {res3.samples} cutouts, first "
+              f"step {res3.step_seconds[0]:.3f} s, steady "
+              f"{1.0 / steady3[len(steady3) // 2]:.3f} steps/s on {name}; "
+              f"losses {[round(x, 5) for x in res3.losses]}")
+
 
 # ---------------------------------------------------------------- profile
 
@@ -372,28 +655,46 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+PROFILE_PATHS = (
+    ("--pallas", ["--pallas"], None),
+    ("default", [], None),
+    ("--pallas --persp mixed", ["--pallas", "--persp", "mixed"], None),
+    ("--pallas --persp exact", ["--pallas", "--persp", "exact"], None),
+    ("--pallas -tf elastic, shift kernel", ["--pallas", "-tf", "elastic"],
+     "1"),
+    ("--pallas -tf elastic", ["--pallas", "-tf", "elastic"], None),
+)
+
+
 def phase_profile(steps: int = 6, active: int = 3):
-    """Where a steady step's device time goes, for both cutout paths:
-    torch.profiler over `active` steps after `steps - active` warm ones;
-    the kernels by self device time per step, and the device busy share
-    (kernel time over the host wall time of those steps)."""
+    """Where a steady step's device time goes, for both cutout paths and
+    the augmentation kernels' paths: torch.profiler over `active` steps
+    after `steps - active` warm ones; the kernels by self device time per
+    step, and the device busy share (kernel time over the host wall time
+    of those steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     name = torch.cuda.get_device_name(0)
-    for label, extra in (("--pallas", ["--pallas"]), ("default", [])):
+    for label, extra, shift_env in PROFILE_PATHS:
         argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
                 "--samples", "200", "--steps", str(steps), "-nv", "--seed",
                 "1", "--out_dir", os.path.join(OUT_DIR, "profile")] + extra
         marks = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=steps - active,
-                                       active=active, repeat=1)) as prof:
-            def on_step(i):
-                torch.cuda.synchronize()
-                marks.append(time.perf_counter())
-                prof.step()
-            _run_cli(argv, on_step)
+        if shift_env:
+            os.environ["APHANTASIA_PALLAS_SHIFT"] = shift_env
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=steps - active,
+                                           active=active, repeat=1)) as prof:
+                def on_step(i):
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                    prof.step()
+                _run_cli(argv, on_step)
+        finally:
+            os.environ.pop("APHANTASIA_PALLAS_SHIFT", None)
         wall = marks[-1] - marks[-1 - active]
         evts = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
@@ -415,7 +716,7 @@ def phase_profile(steps: int = 6, active: int = 3):
 PARITY_LR = 0.05
 
 
-def _parity_setup(device, use_pallas, transform):
+def _parity_setup(device, use_pallas, transform, persp="affine"):
     """A small float32 step (tiny ViT, 96x64 frame, 6 cutouts at 64) with
     the same weights, start and prompts on either device."""
     import torch
@@ -436,8 +737,9 @@ def _parity_setup(device, use_pallas, transform):
                 torch.tensor([1.0, 0.5], device=device), -1.0),)
     sampler = CutoutSampler((64, 96), 6, 64, "uniform", 0.4,
                             use_pallas=use_pallas)
-    settings = StepSettings(sim="mix", transform=transform, noise=0.1,
-                            sharp=0.2, expand=0.5, clip_dtype=torch.float32)
+    settings = StepSettings(sim="mix", transform=transform, persp=persp,
+                            noise=0.1, sharp=0.2, expand=0.5,
+                            clip_dtype=torch.float32)
     opt = build_optimizer("adam_custom", PARITY_LR, 2)
     return dict(clip=clip, p0=p0, prompts=prompts, opt=opt,
                 draw=build_draw_fn(sampler, settings, tuple(p0.shape)),
@@ -459,10 +761,11 @@ def phase_parity():
     transform two free-running steps: losses within 1e-4, params within
     2e-3 of the learning rate in the mean and 5e-2 at the worst element
     (Adam with b1 = 0 turns float32 noise in a near-zero gradient element
-    into a full-size update of that element).  The `fast` transform warps
-    in bf16 on both devices, so it is held at one step: loss within 2e-3
-    relative, gradient within 2e-2 relative L2 error."""
+    into a full-size update of that element).  The `fast` transform (its
+    affine, mixed and exact perspective) and `elastic` with the shift
+    kernel are held at one step (`_parity_one_step`)."""
     import torch
+    from aphantasia_torch import kernels
     from aphantasia_torch.step import to_device
     for use_pallas in (True, False):
         runs = {}
@@ -488,22 +791,49 @@ def phase_parity():
         check(err.mean().item() <= 2e-3 * PARITY_LR
               and err.max().item() <= 5e-2 * PARITY_LR,
               "card vs CPU params differ")
-        grads = {}
-        for dev in ("cpu", "cuda"):
-            c = _parity_setup(dev, use_pallas, "fast")
+        _parity_one_step(use_pallas, "fast", "affine", None)
+    # the augmentation kernels' paths: the perspective kernels (mixed,
+    # exact) and the shift kernel (elastic with its switch on the card)
+    for transform, persp, kernel, env in (
+            ("fast", "mixed", "persp_bwd", None),
+            ("fast", "exact", "persp_bwd", None),
+            ("elastic", "affine", "frac_shift", "1")):
+        kernels.reset_launches()
+        _parity_one_step(True, transform, persp, env)
+        check(kernels.LAUNCHES[kernel] > 0,
+              f"parity {transform}/{persp}: the card never launched {kernel}")
+
+
+def _parity_one_step(use_pallas, transform, persp, shift_env):
+    """One step's loss and gradient on the CPU and on the card from the
+    same draws.  The `fast` and `elastic` pipelines warp in bf16 on both
+    devices, so: loss within 2e-3 relative, gradient within 2e-2 relative
+    L2 error.  `shift_env` sets APHANTASIA_PALLAS_SHIFT for the card run."""
+    import torch
+    from aphantasia_torch.step import to_device
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        if shift_env and dev == "cuda":
+            os.environ["APHANTASIA_PALLAS_SHIFT"] = shift_env
+        try:
+            c = _parity_setup(dev, use_pallas, transform, persp)
             x = c["p0"].clone().requires_grad_(True)
             d = to_device(c["draw"](torch.Generator().manual_seed(2)), dev)
             loss, _ = c["loss"](x, c["clip"], c["prompts"],
                                 torch.zeros((6, 64), device=dev), d, 0)
             (gr,) = torch.autograd.grad(loss, x)
-            grads[dev] = (loss.item(), gr.cpu())
-        lr_ = abs(grads["cpu"][0] - grads["cuda"][0]) / abs(grads["cpu"][0])
-        ge = ((grads["cpu"][1] - grads["cuda"][1]).norm()
-              / grads["cpu"][1].norm()).item()
-        print(f"[parity] fast, pallas={use_pallas}: loss cpu "
-              f"{grads['cpu'][0]:.6f} cuda {grads['cuda'][0]:.6f}, grad "
-              f"relative L2 error {ge:.3g}")
-        check(lr_ <= 2e-3 and ge <= 2e-2, "card vs CPU fast-step differs")
+        finally:
+            os.environ.pop("APHANTASIA_PALLAS_SHIFT", None)
+        grads[dev] = (loss.item(), gr.cpu())
+    lr_ = abs(grads["cpu"][0] - grads["cuda"][0]) / abs(grads["cpu"][0])
+    ge = ((grads["cpu"][1] - grads["cuda"][1]).norm()
+          / grads["cpu"][1].norm()).item()
+    print(f"[parity] {transform}/{persp}, pallas={use_pallas}"
+          f"{', shift kernel' if shift_env else ''}: loss cpu "
+          f"{grads['cpu'][0]:.6f} cuda {grads['cuda'][0]:.6f}, grad "
+          f"relative L2 error {ge:.3g}")
+    check(lr_ <= 2e-3 and ge <= 2e-2,
+          f"card vs CPU {transform}/{persp} step differs")
 
 
 def main(argv=None) -> int:

@@ -1,15 +1,21 @@
-"""The port's `fast` augmentation (aphantasia_torch/ops/{augs,perspective,
-sep_warp}.py) against the JAX package, with the JAX-made draws fed to both.
+"""The port's augmentation pipelines (aphantasia_torch/ops/{augs,
+perspective,sep_warp,resize}.py) against the JAX package, with the
+JAX-made draws fed to both.
 
 Tolerances: the perspective fit and the affine maps 1e-4 (float32 closed
 forms); the float32 warp 1e-4 on values in [0, 1] and its gradient 1e-4
-relative; the erasing is exact.  The `fast` pipeline runs its warp in bf16
-in both packages (augs.py:164), and the two round at the same products
-but not always the same way, so the pipeline is held to 3e-2 on
-CLIP-normalized values of magnitude up to ~3.8 (a few bf16 steps of
-2^-8 relative; twice the largest difference seen), and its mean error
-against the same pipeline in float32 may exceed the JAX package's own by
-at most a quarter.
+relative; the erasing is exact; the cubic resize 1e-5 (float32 sums of
+four taps).  The affine warps of `fast`, `custom`, `elastic`, `lucent`,
+`openai` and the rotation of `fast` + `mixed` run in bf16 in both packages
+(augs.py:164), and the two round at the same products but not always the
+same way, so those pipelines are held to 3e-2 on CLIP-normalized values of
+magnitude up to ~3.8 (a few bf16 steps of 2^-8 relative; twice the
+largest difference seen), their gradient to 2e-2 relative L2 error, and
+their mean error against the same pipeline in float32 may exceed the JAX
+package's own by at most a quarter.  `fast` + `exact` is float32 from end
+to end: 1e-4, and 1e-4 relative on the gradient.  The frames are 40 px
+high, not a multiple of 16, so the JAX package's exact warp runs its
+plain reference (`homography_warp`) instead of the Pallas kernel.
 """
 import numpy as np
 import jax
@@ -24,7 +30,7 @@ from aphantasia_torch.ops import augs as taugs
 from aphantasia_torch.ops import perspective as tpersp
 from aphantasia_torch.ops import sep_warp as twarp
 
-from _torch_parity import jax_fast_draws, t
+from _torch_parity import JAX_DRAWS, jax_fast_draws, t
 
 
 def _affines(s, h, w, seed=0):
@@ -125,6 +131,89 @@ def test_get_transform():
     x = torch.rand(2, 3, 8, 8)
     torch.testing.assert_close(none.apply(none.draw(g, 2, 8, 8), x),
                                taugs.clip_normalize(x))
-    for name in ("custom", "elastic", "lucent", "openai"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            taugs.get_transform(name)
+    # every name (and every perspective mode of `fast`) builds a transform
+    for name in taugs.TRANSFORMS:
+        for persp in taugs.PERSP_MODES:
+            tf = taugs.get_transform(name, persp)
+            out = tf.apply(tf.draw(g, 3, 24, 24), torch.rand(3, 3, 24, 24))
+            assert out.shape == (3, 3, 24, 24) and torch.isfinite(out).all()
+    assert taugs.get_transform("fast", "mixed").apply is \
+        taugs.transforms_fast_mixed
+    with pytest.raises(ValueError):
+        taugs.get_transform("fast", "tilted")
+    with pytest.raises(ValueError):
+        taugs.get_transform("swirl")
+
+
+# (JAX pipeline, port pipeline, draw family, float32 end to end)
+PIPELINES = {
+    "fast-affine": (jaugs.transforms_fast_affine, taugs.transforms_fast_affine,
+                    "fast", False),
+    "fast-mixed": (jaugs.transforms_fast_mixed, taugs.transforms_fast_mixed,
+                   "fast", False),
+    "fast-exact": (jaugs.transforms_fast, taugs.transforms_fast, "fast", True),
+    "custom": (jaugs.transforms_custom, taugs.transforms_custom, "custom",
+               False),
+    "elastic": (jaugs.transforms_elastic, taugs.transforms_elastic, "elastic",
+                False),
+    "lucent": (jaugs.transforms_lucent, taugs.transforms_lucent, "lucent",
+               False),
+    "openai": (jaugs.transforms_openai, taugs.transforms_openai, "openai",
+               False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PIPELINES))
+def test_pipeline_matches_jax(name):
+    """Each pipeline, forward and gradient, on the JAX pipeline's own
+    draws; p = 0.2 draws leave some samples unperturbed, and the seed
+    gives at least one drawn perspective in the 8 cuts."""
+    jfn, tfn, family, exact = PIPELINES[name]
+    s, c, m = 8, 3, 40
+    key = jax.random.PRNGKey(11)
+    cuts = np.random.RandomState(7).rand(s, c, m, m).astype(np.float32)
+    co = np.random.RandomState(8).randn(s, c, m, m).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda x: jfn(key, x), jnp.asarray(cuts))
+    (g_j,) = vjp(jnp.asarray(co))
+    out_j, g_j = np.asarray(out_j), np.asarray(g_j)
+    draws = JAX_DRAWS[family](key, s, m, m)
+    if family == "fast":
+        assert 0 < int((draws.endpoints.reshape(s, -1)
+                        != draws.endpoints[:1].reshape(1, -1)).any(1).sum())
+    xt = torch.tensor(cuts, requires_grad=True)
+    out_t = tfn(draws, xt)
+    (g_t,) = torch.autograd.grad(out_t, xt, torch.tensor(co))
+    out_t, g_t = out_t.detach().numpy(), g_t.numpy()
+    g_err = np.linalg.norm(g_t - g_j) / np.linalg.norm(g_j)
+    if exact:
+        np.testing.assert_allclose(out_t, out_j, atol=1e-4)
+        assert g_err <= 1e-4, g_err
+        return
+    assert np.abs(out_t - out_j).max() <= 3e-2
+    assert g_err <= 2e-2, g_err
+    ref32 = tfn(draws, torch.tensor(cuts),
+                compute_dtype=torch.float32).numpy()
+    assert (np.abs(out_t - ref32).mean()
+            <= 1.25 * np.abs(out_j - ref32).mean())
+
+
+@pytest.mark.parametrize("n_out", [9, 13, 40, 224])
+def test_cubic_resize_matches_jax_image_resize(n_out):
+    """The elastic tracks' upsampling [S, 9] -> [S, n], including the two
+    edge samples at each end (where JAX drops the taps outside the input
+    and renormalises the rest), and its gradient."""
+    from aphantasia_torch.ops.resize import resize_cubic_last
+    x = np.random.RandomState(3).uniform(-1, 1, (6, 9)).astype(np.float32)
+    co = np.random.RandomState(4).randn(6, n_out).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda a: jax.image.resize(a, (6, n_out), "cubic"),
+                         jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(co))
+    xt = torch.tensor(x, requires_grad=True)
+    out_t = resize_cubic_last(xt, n_out)
+    (g_t,) = torch.autograd.grad(out_t, xt, torch.tensor(co))
+    out_j = np.asarray(out_j)
+    np.testing.assert_allclose(out_t.detach().numpy(), out_j, atol=1e-5)
+    for cols in ([0, 1], [-2, -1]):
+        np.testing.assert_allclose(out_t.detach().numpy()[:, cols],
+                                   out_j[:, cols], atol=1e-5)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=1e-5)

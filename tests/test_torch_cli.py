@@ -1,6 +1,6 @@
 """The port's clip_fft CLI on the CPU (`--device cpu`) at a tiny size, its
-outputs, the flags it does not port yet, and the package's isolation from
-JAX and from aphantasia_tpu."""
+outputs, every augmentation option, the flags it does not port yet, and
+the package's isolation from JAX and from aphantasia_tpu."""
 import os
 import re
 import subprocess
@@ -68,11 +68,38 @@ def test_clip_fft_resume_from_pt(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--dwt"], ["--sync", "0.5"], ["--aest", "1"], ["--dualmod", "2"],
     ["--spatial", "2"], ["--mesh", "2"], ["--fleet", "0/2"],
-    ["--profile", "p"], ["--persp", "exact"], ["-tf", "custom"],
-    ["-tf", "elastic"], ["-m", "RN50"]])
+    ["--profile", "p"], ["-m", "RN50"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--persp", "mixed"], ["--persp", "exact"], ["-tf", "custom"],
+    ["-tf", "elastic"], ["-tf", "lucent"], ["-tf", "openai"]])
+def test_clip_fft_cpu_augmentations(tmp_path, flags):
+    """Each augmentation pipeline and perspective mode runs end to end."""
+    out = str(tmp_path / "out")
+    res = _run(["-t", "x", "--out_dir", out] + TINY + flags)
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    assert torch.isfinite(res.params).all()
+    frames = [f for f in os.listdir(os.path.join(out, res.out_name))
+              if f.endswith(".jpg")]
+    assert len(frames) == 2
+
+
+def test_persp_flag_wins_over_the_environment(monkeypatch):
+    """--persp wins; without it APHANTASIA_EXACT_PERSP=mixed selects
+    mixed, any other non-empty value exact, unset or empty affine (the
+    JAX CLIs' apply_persp)."""
+    from aphantasia_torch.cli.common import resolve_persp
+    monkeypatch.delenv("APHANTASIA_EXACT_PERSP", raising=False)
+    assert resolve_persp(None) == "affine"
+    assert resolve_persp("exact") == "exact"
+    for env, want in (("mixed", "mixed"), ("1", "exact"), ("", "affine")):
+        monkeypatch.setenv("APHANTASIA_EXACT_PERSP", env)
+        assert resolve_persp(None) == want
+        assert resolve_persp("affine") == "affine"
 
 
 def test_cuda_entry_point_raises_without_gpu(monkeypatch, tmp_path):

@@ -11,14 +11,24 @@ on the gradient, float32 sum orders); bf16 attention 2^-7 (both sides
 compute in float32 from the same bf16 inputs and round once, so they part
 by a rounding step of 2^-8) and five times that on the gradient; cutout
 1e-5 forward and 1e-4 relative on the gradient (float32 atomics add in a
-run-dependent order).
+run-dependent order); perspective warp 1e-5 relative in float32 and 2^-7
+in bf16, forward and gradient (the same float32 arithmetic, the gradient
+summed in another order, each side rounding once); fractional shift 1e-4
+relative (float32 DFT products summed in another order than cuBLAS's).
 """
+import itertools
+
 import pytest
 import torch
 
 from aphantasia_torch import kernels
 from aphantasia_torch.ops import attention as A
 from aphantasia_torch.ops import cutout as C
+from aphantasia_torch.ops import persp as P
+from aphantasia_torch.ops import shift as SH
+from aphantasia_torch.ops.perspective import (perspective_coeffs,
+                                              perspective_endpoints,
+                                              rotation_coeffs_for)
 from aphantasia_torch.ops.sampler import CutoutSampler
 
 pytestmark = pytest.mark.gpu
@@ -84,3 +94,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         A.attention_bwd_kernel(*(4 * [torch.zeros((2 * 420, 3 * 1024),
                                                   device="cuda")]), 16, 420)
+
+
+def _persp_coeffs(kind, s, h, w, gen):
+    if kind == "persp":
+        start, end = perspective_endpoints(gen, s, h, w, 0.33, 0.5)
+        flags = (end - start[None]).abs().amax((1, 2)) > 0
+        return perspective_coeffs(start, end), flags.to(torch.int32)
+    if kind == "rotate":
+        ang = torch.linspace(-30.0, 30.0, s, device="cuda")
+        ang[::4] = 0.0
+        return rotation_coeffs_for(ang, h, w), (ang != 0).to(torch.int32)
+    dw, dh = int(0.33 * (w // 2)), int(0.33 * (h // 2))
+    los_his = [(0, dw), (0, dh), (w - dw - 1, w - 1), (0, dh),
+               (w - dw - 1, w - 1), (h - dh - 1, h - 1),
+               (0, dw), (h - dh - 1, h - 1)]
+    pts = torch.tensor(list(itertools.product(*los_his)), dtype=torch.float32,
+                       device="cuda")[::256 // s][:s]
+    start = torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
+                         dtype=torch.float32, device="cuda")
+    return (perspective_coeffs(start, pts.reshape(s, 4, 2)),
+            torch.ones((s,), dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("kind,h,w", [("persp", 224, 224),
+                                      ("rotate", 224, 224),
+                                      ("corners", 224, 224),
+                                      ("persp", 40, 56)])
+def test_persp_kernels_match_plain(cuda, dtype, tol, kind, h, w):
+    """Kernels A and B through the autograd wrapper: the extreme corner
+    draws, +-30 deg rotations and a frame whose H is not a multiple of 16;
+    flag-0 samples are copied exactly both ways."""
+    s = 16
+    coef, flags = _persp_coeffs(kind, s, h, w, cuda)
+    img = torch.rand((s, 3, h, w), generator=cuda, device="cuda").to(dtype)
+    co = torch.randn((s, 3, h, w), generator=cuda, device="cuda").to(dtype)
+    before = kernels.LAUNCHES["persp_fwd"], kernels.LAUNCHES["persp_bwd"]
+    xk = img.clone().requires_grad_(True)
+    out = P.perspective_warp(xk, coef, flags, family=(
+        "rotate" if kind == "rotate" else "persp"))
+    (gk,) = torch.autograd.grad(out, xk, co)
+    assert (kernels.LAUNCHES["persp_fwd"], kernels.LAUNCHES["persp_bwd"]) == (
+        before[0] + 1, before[1] + 1)
+    xp = img.clone().requires_grad_(True)
+    ref = P.perspective_warp_plain(xp, coef, flags)
+    (gp,) = torch.autograd.grad(ref, xp, co)
+    assert out.dtype == dtype and gk.dtype == dtype
+    assert _rel(out, ref) <= tol and _rel(gk, gp) <= tol
+    keep = flags == 0
+    assert torch.equal(out[keep], img[keep]) and torch.equal(gk[keep], co[keep])
+
+
+@pytest.mark.parametrize("rows,n_in,n,off,win", [
+    (4096, 224, 224, 0, (0, 224)), (96, 16, 24, 4, (0, 24)),
+    (96, 24, 24, 0, (4, 16)), (40, 12, 12, 0, (0, 12))])
+def test_shift_kernel_matches_plain(cuda, rows, n_in, n, off, win):
+    """Kernel C forward, and its backward (the same kernel at -shift with
+    the windows exchanged) against autograd's transpose of the plain
+    version."""
+    x = torch.randn((rows, n_in), generator=cuda, device="cuda")
+    sh = (torch.rand((rows,), generator=cuda, device="cuda") * 2 - 1) * 6.0
+    co = torch.randn((rows, win[1]), generator=cuda, device="cuda")
+    before = kernels.LAUNCHES["frac_shift"]
+    xk = x.clone().requires_grad_(True)
+    out = SH.frac_shift_last(xk, sh, n, off, win)
+    (gk,) = torch.autograd.grad(out, xk, co)
+    assert kernels.LAUNCHES["frac_shift"] == before + 2
+    xp = x.clone().requires_grad_(True)
+    ref = SH.frac_shift_plain(xp, sh, n, off, win)
+    (gp,) = torch.autograd.grad(ref, xp, co)
+    assert _rel(out, ref) <= 1e-4 and _rel(gk, gp) <= 1e-4
+
+
+def test_elastic_switch_routes_the_shift_through_the_kernel(cuda,
+                                                            monkeypatch):
+    from aphantasia_torch.ops.sep_warp import fractional_shift
+    x = torch.rand((4, 3, 64, 64), generator=cuda, device="cuda")
+    sh = torch.rand((4, 1, 64), generator=cuda, device="cuda") * 4 - 2
+    plain = fractional_shift(x, sh, axis=-2)
+    monkeypatch.setenv("APHANTASIA_PALLAS_SHIFT", "1")
+    before = kernels.LAUNCHES["frac_shift"]
+    got = fractional_shift(x, sh, axis=-2)
+    assert kernels.LAUNCHES["frac_shift"] == before + 1
+    assert _rel(got, plain) <= 1e-4

@@ -37,17 +37,19 @@ CFG_KW = dict(name="tiny", embed_dim=32, image_resolution=32,
               transformer_width=64, transformer_heads=2, transformer_layers=2)
 
 
-def _setup(kw, h=48, w=64, s=4):
-    jcfg, tcfg = jm.CLIPConfig(**CFG_KW), tm.CLIPConfig(**CFG_KW)
+def _setup(kw, h=48, w=64, s=4, res=32, tkw=None):
+    cfg_kw = dict(CFG_KW, image_resolution=res)
+    jcfg, tcfg = jm.CLIPConfig(**cfg_kw), tm.CLIPConfig(**cfg_kw)
     jclip = jm.clip_init(jax.random.PRNGKey(0), jcfg)
     p0 = (0.07 * np.random.RandomState(1).randn(1, 3, h, w // 2 + 1, 2)
           ).astype(np.float32)
     embs = np.random.RandomState(2).randn(2, 32).astype(np.float32)
     wts = np.asarray([1.0, 0.5], np.float32)
     jset = jstep.StepSettings(sim="mix", clip_dtype=jnp.float32, **kw)
-    tset = tstep.StepSettings(sim="mix", clip_dtype=torch.float32, **kw)
-    jsam = JSampler((h, w), s, 32, "uniform", 0.4)
-    tsam = CutoutSampler((h, w), s, 32, "uniform", 0.4)
+    tset = tstep.StepSettings(sim="mix", clip_dtype=torch.float32, **kw,
+                              **(tkw or {}))
+    jsam = JSampler((h, w), s, res, "uniform", 0.4)
+    tsam = CutoutSampler((h, w), s, res, "uniform", 0.4)
     return dict(
         jcfg=jcfg, tcfg=tcfg, jclip=jclip,
         tclip=clip_params_from_numpy(tree_np(jclip)), p0=p0, jset=jset,
@@ -88,6 +90,39 @@ def test_fast_transform_loss_and_grad_match_jax():
         assert (np.linalg.norm(gt.numpy() - gj) / np.linalg.norm(gj)) <= 2e-2
         jp, js, jprev, _ = jtrain(jp, js, jprev, c["jclip"], None, None,
                                   c["jprompts"], k, jnp.int32(i))
+
+
+def test_mixed_perspective_step_matches_jax(monkeypatch):
+    """One step with persp="mixed" against the JAX step built under
+    APHANTASIA_EXACT_PERSP=mixed (its get_transform reads the variable when
+    the loss is built), on the JAX step's draws.  The cutouts are 40 px,
+    not a multiple of 16, so the JAX exact warp runs its plain reference
+    instead of the Pallas kernel in interpret mode.  The rotation warps in
+    bf16 on both sides, so the `fast` case's tolerances hold: loss 2e-3
+    relative, gradient 2e-2 relative L2 error."""
+    from aphantasia_tpu.ops import augs as jaugs
+    monkeypatch.setenv("APHANTASIA_EXACT_PERSP", "mixed")
+    assert jaugs.get_transform("fast") is jaugs.transforms_fast_mixed
+    c = _setup(dict(transform="fast"), s=6, res=40, tkw=dict(persp="mixed"))
+    s = c["jsam"].count
+    jloss = jstep.build_loss_fn(c["jpar"], c["jsam"], c["jcfg"], c["jset"])
+    tloss = tstep.build_loss_fn(c["tpar"], c["tsam"], c["tcfg"], c["tset"])
+    key = jax.random.PRNGKey(5)
+    jprev = jnp.zeros((s, 32))
+    vg = jax.jit(jax.value_and_grad(jloss, has_aux=True),
+                 static_argnums=(2, 3, 7))
+    (lj, _), gj = vg(jnp.asarray(c["p0"]), c["jclip"], None, None,
+                     c["jprompts"], jprev, key, 0)
+    draws = jax_step_draws(key, c["jsam"], c["jset"], c["p0"].shape)
+    assert int((draws.cuts.aug.endpoints.reshape(s, -1)
+                != draws.cuts.aug.endpoints[:1].reshape(1, -1)).any(1).sum())
+    x = torch.tensor(c["p0"], requires_grad=True)
+    lt, _ = tloss(x, c["tclip"], c["tprompts"], torch.zeros((s, 32)), draws,
+                  0)
+    (gt,) = torch.autograd.grad(lt, x)
+    np.testing.assert_allclose(lt.item(), float(lj), rtol=2e-3)
+    gj = np.asarray(gj)
+    assert (np.linalg.norm(gt.numpy() - gj) / np.linalg.norm(gj)) <= 2e-2
 
 
 def test_three_steps_match_jax():
