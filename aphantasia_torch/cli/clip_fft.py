@@ -8,9 +8,12 @@ and a `.pt` snapshot with --save_pt.  Runs on the CUDA device unless
 
 Flags whose features are not ported yet raise: --dwt, --sync, --aest,
 --dualmod, --spatial, --mesh, --fleet, --profile and models other than
-ViT-B/32 and ViT-B/16 (ROADMAP.md lists them).
+ViT-B/32, ViT-B/16 and ViT-L/14 (ROADMAP.md lists them).
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m ViT-L/14
+    APHANTASIA_WIN_CUTOUT=1 APHANTASIA_PALLAS_LN=1 \
+        python -m aphantasia_torch.cli.clip_fft -t "a lighthouse"
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --persp exact
     APHANTASIA_PALLAS_SHIFT=1 python -m aphantasia_torch.cli.clip_fft \
         -t "a lighthouse" -tf elastic
@@ -42,7 +45,10 @@ from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
                                    build_train_step)
 from aphantasia_torch.utils import save_cfg, txt_clean
 
-CLIP_MODELS = ["ViT-B/16", "ViT-B/32", "RN101", "RN50x16", "RN50x4", "RN50"]
+# the JAX CLI's list and ViT-L/14, which the JAX package's illustra and
+# cppn CLIs offer and this port's towers run
+CLIP_MODELS = ["ViT-B/16", "ViT-B/32", "ViT-L/14", "RN101", "RN50x16",
+               "RN50x4", "RN50"]
 
 
 def get_args(argv=None):

@@ -28,7 +28,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "kernels")
-SOURCES = ("attention", "cutout", "persp", "shift")
+SOURCES = ("attention", "cutout", "persp", "shift", "cutout_win", "ln")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -110,6 +110,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def aligned(tensor):
+    """`tensor` contiguous and starting on a 16-byte boundary (copied if it
+    does not), for kernels that read 16 bytes a load."""
+    tensor = tensor.contiguous()
+    return tensor if tensor.data_ptr() % 16 == 0 else tensor.clone()
+
+
 def stream_ptr(tensor) -> int:
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
@@ -118,3 +125,4 @@ def stream_ptr(tensor) -> int:
 # ctypes argument shorthands for the kernel modules
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+FLOAT = ctypes.c_float

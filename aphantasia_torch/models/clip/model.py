@@ -18,12 +18,14 @@ The ModifiedResNet towers are not ported yet (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
 import torch
 
 from aphantasia_torch.ops.attention import attention_core, attention_core_flat
+from aphantasia_torch.ops import ln
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,15 +73,26 @@ CLIP_CONFIGS = {
 XMEM = {"ViT-B/16": 0.25, "ViT-L/14": 0.04, "RN50": 0.5, "RN50x4": 0.16,
         "RN50x16": 0.06, "RN50x64": 0.01, "RN101": 0.33}
 
-# the models the port runs; the others wait for later slices (ROADMAP.md)
-PORTED_MODELS = ("ViT-B/32", "ViT-B/16")
+# the models the port runs; the others wait for later slices (ROADMAP.md).
+# ViT-L/14@336px is not among them: at t = 577 tokens the attention kernel
+# needs more shared memory than a block has (ops/attention.py:_smem_ok)
+PORTED_MODELS = ("ViT-B/32", "ViT-B/16", "ViT-L/14")
 
 
 # ------------------------------------------------------------------ layers
 
 def layer_norm(x, p, eps=1e-5):
     """Row LayerNorm in float32 with one-pass moments (E[x^2] - E[x]^2),
-    as the JAX package computes it; returns x's dtype."""
+    as the JAX package computes it; returns x's dtype.
+
+    With APHANTASIA_PALLAS_LN=1 an eligible LayerNorm (the flat [rows, D]
+    stream of the vision blocks: D % 128 == 0, at least 1024 rows) runs the
+    hand-written CUDA kernel pair of ops/ln.py on the card.  The variable
+    is read at each call (the JAX package binds it at import, for its jit
+    cache; here nothing is traced, so a process may switch it)."""
+    if (os.environ.get("APHANTASIA_PALLAS_LN") == "1"
+            and ln.eligible(x, p["g"])):
+        return ln.layer_norm_fused(x, p["g"], p["b"], eps)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True) - mu * mu

@@ -6,11 +6,14 @@ align_corners=True)` on the cropped view).  The draw (`sample_boxes`) and
 the apply (`cut`) are separate, so tests can feed both frameworks the same
 boxes.
 
-Two apply paths, as in the JAX package:
-* default: per-sample dense interpolation matrices, `cut[s] = Wy[s] @ img
-  @ Wx[s]^T`, as two large batched matmuls (`_contract`);
+Three apply paths, chosen in the JAX package's order:
 * `use_pallas` (`--pallas`): the hand-written CUDA cutout kernel
-  (ops/cutout.py), a direct 16-tap gather with a scatter backward.
+  (ops/cutout.py), a direct 16-tap gather with a scatter backward;
+* windowed (APHANTASIA_WIN_CUTOUT=1, `_win_eligible`): the hand-written
+  CUDA windowed forward (ops/cutout_win.py) over each sample's tier
+  window, with the dense transpose as backward (`_WinCut`);
+* default: per-sample dense interpolation matrices, `cut[s] = Wy[s] @ img
+  @ Wx[s]^T`, as two large batched matmuls (`_contract`).
 
 The `overscan`/`overmax` tile padding is folded into the tap indices
 through static index maps (ops/tile.py).
@@ -18,21 +21,57 @@ through static index maps (ops/tile.py).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import torch
 
+from aphantasia_torch.ops.cutout_win import (tier_plan, window_bases,
+                                             windowed_cut_fwd)
 from aphantasia_torch.ops.resize import resize_axis_taps
 from aphantasia_torch.ops.tile import pad_maps
 
 
+def _mm_f32(a, b):
+    """a @ b (mm or bmm) summed and returned in float32 from operands in
+    the compute dtype, as the JAX einsums' preferred_element_type=float32:
+    cuBLAS writes float32 directly on the card; the CPU has no such kernel,
+    so there the operands are widened (exact) first."""
+    mm = torch.bmm if a.ndim == 3 else torch.mm
+    if a.dtype == torch.float32:
+        return mm(a, b)
+    if a.is_cuda:
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
+def _contract_bwd(g, wy, wx, dt, w_first):
+    """d_img [C,H,W] float32 of the dense contraction: the first product
+    (d_tmp) in the compute dtype, the second summed in float32."""
+    s, m, h = wy.shape
+    w = wx.shape[2]
+    c = g.shape[1]
+    g = g.to(dt)
+    if w_first:
+        d_tmp = torch.einsum("scmn,smh->scnh", g, wy)          # [S,C,N,H]
+        # d_img[c,h,w] = sum_{s,n} d_tmp[s,c,n,h] wx[s,n,w]
+        a = d_tmp.permute(1, 3, 0, 2).reshape(c * h, s * m)
+        return _mm_f32(a, wx.reshape(s * m, w)).reshape(c, h, w)
+    d_tmp = torch.einsum("scmn,snw->scmw", g, wx)              # [S,C,M,W]
+    # d_img[c,h,w] = sum_{s,m} wy[s,m,h] d_tmp[s,c,m,w]
+    b = d_tmp.permute(0, 2, 1, 3).reshape(s * m, c * w)
+    out = _mm_f32(wy.reshape(s * m, h).t(), b)                 # [H, C*W]
+    return out.reshape(h, c, w).permute(1, 0, 2).contiguous()
+
+
 class _Contract(torch.autograd.Function):
-    """cuts[s,c,m,n] = wy[s,m,h] . img[c,h,w] . wx[s,n,w], with the
-    intermediate and the backward chain held in the compute dtype `dt` and
-    float32 output.  The contraction order keeps the materialized
-    [S,C,M,*] intermediate at min(H, W): W is contracted first when H < W
-    (the 1280x720 case), H first otherwise.  wy/wx are constants of the
-    random draw and get no gradient."""
+    """cuts[s,c,m,n] = wy[s,m,h] . img[c,h,w] . wx[s,n,w], with the first
+    product of each direction (the forward intermediate, the backward's
+    d_tmp) rounded to the compute dtype `dt` and the second summed and
+    returned in float32, as the JAX einsums ask.  The contraction order
+    keeps the materialized [S,C,M,*] intermediate at min(H, W): W is
+    contracted first when H < W (the 1280x720 case), H first otherwise.
+    wy/wx are constants of the random draw and get no gradient."""
 
     @staticmethod
     def forward(ctx, img, wy, wx, dt):
@@ -40,27 +79,50 @@ class _Contract(torch.autograd.Function):
         ctx.dt = dt
         ctx.w_first = img.shape[1] < img.shape[2]
         x = img.to(dt)
+        s, m, _ = wy.shape
+        c = x.shape[0]
         if ctx.w_first:
-            tmp = torch.einsum("snw,chw->scnh", wx, x)
-            return torch.einsum("smh,scnh->scmn", wy, tmp).float()
-        tmp = torch.einsum("smh,chw->scmw", wy, x)
-        return torch.einsum("scmw,snw->scmn", tmp, wx).float()
+            tmp = torch.einsum("snw,chw->scnh", wx, x)         # [S,C,N,H]
+            b = tmp.reshape(s, c * m, -1).transpose(1, 2)      # [S,H,C*N]
+            out = _mm_f32(wy, b).reshape(s, m, c, m)           # [S,M,C,N]
+            return out.permute(0, 2, 1, 3).contiguous()
+        tmp = torch.einsum("smh,chw->scmw", wy, x)             # [S,C,M,W]
+        out = _mm_f32(tmp.reshape(s, c * m, -1), wx.transpose(1, 2))
+        return out.reshape(s, c, m, m)
 
     @staticmethod
     def backward(ctx, g):
         wy, wx = ctx.saved_tensors
-        g = g.to(ctx.dt)
-        if ctx.w_first:
-            d_tmp = torch.einsum("scmn,smh->scnh", g, wy)
-            d_img = torch.einsum("snw,scnh->chw", wx, d_tmp)
-        else:
-            d_tmp = torch.einsum("scmn,snw->scmw", g, wx)
-            d_img = torch.einsum("smh,scmw->chw", wy, d_tmp)
-        return d_img.float(), None, None, None
+        return (_contract_bwd(g, wy, wx, ctx.dt, ctx.w_first),
+                None, None, None)
 
 
 def _contract(img, wy, wx, dt):
     return _Contract.apply(img, wy, wx, dt)
+
+
+class _WinCut(torch.autograd.Function):
+    """The windowed forward (ops/cutout_win.py) with the dense transpose
+    as backward: the forward builds only the window-rebased weights, the
+    backward rebuilds the dense matrices from the boxes, so neither rides
+    from one to the other (aphantasia_tpu.ops.sampler._win_cut)."""
+
+    @staticmethod
+    def forward(ctx, img, sampler, dt, csize, offx, offy):
+        boxes = Boxes(csize, offx, offy)
+        ctx.save_for_backward(csize, offx, offy)
+        ctx.sampler, ctx.dt = sampler, dt
+        ctx.w_first = img.shape[1] < img.shape[2]
+        wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dt)
+        return windowed_cut_fwd(img.to(dt), boxes, wyw, wxt,
+                                sampler.modsize, compute_dtype=dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        boxes = Boxes(*ctx.saved_tensors)
+        wy, wx = ctx.sampler.weight_matrices(boxes, dtype=ctx.dt)
+        return (_contract_bwd(g, wy, wx, ctx.dt, ctx.w_first),
+                None, None, None, None, None)
 
 
 class Boxes(NamedTuple):
@@ -89,6 +151,18 @@ def _dense_w(idx, wts, n, dtype):
     for a in range(4):
         acc = acc + torch.where(iota == idx[:, :, a:a + 1],
                                 wts[:, :, a:a + 1], 0.0)
+    return acc.to(dtype)
+
+
+def _dense_w_t(idx, wts, n, dtype):
+    """Transposed build: [S,M,4] taps -> [S,n,M] (the windowed kernel's
+    pre-transposed Wx operand)."""
+    iota = torch.arange(n, dtype=torch.int32, device=idx.device)[None, :, None]
+    acc = torch.zeros((idx.shape[0], n, idx.shape[1]), dtype=torch.float32,
+                      device=idx.device)
+    for a in range(4):
+        acc = acc + torch.where(iota == idx[:, None, :, a],
+                                wts[:, None, :, a], 0.0)
     return acc.to(dtype)
 
 
@@ -169,7 +243,41 @@ class CutoutSampler:
         yidx, yw, xidx, xw = self.tap_indices(boxes)
         return _dense_w(yidx, yw, h, dtype), _dense_w(xidx, xw, w, dtype)
 
+    def weight_matrices_windowed(self, boxes: Boxes, dtype=torch.float32):
+        """Window-rebased weights of the windowed forward: Wy [S,M,KHmax]
+        with the y-taps rebased to the sample's row base, and Wx
+        pre-transposed [S,KWmax,M] with the x-taps rebased to its column
+        base (ops/cutout_win.py:window_bases).  The same taps as
+        weight_matrices."""
+        h, w = self.frame_size
+        yidx, yw, xidx, xw = self.tap_indices(boxes)
+        _, rb, cb = window_bases(boxes, h, w, self.modsize)
+        plan = tier_plan(h, w, self.modsize)
+        wyw = _dense_w(yidx - rb[:, None, None], yw, plan[-1][1], dtype)
+        wxt = _dense_w_t(xidx - cb[:, None, None], xw, plan[-1][2], dtype)
+        return wyw, wxt
+
     # ---------------- the apply -------------------------------------------
+
+    def _win_eligible(self, img, compute_dtype=None) -> bool:
+        """The windowed path's gate, with the JAX package's conditions:
+        APHANTASIA_WIN_CUTOUT=1 (read at each call), an exact frame (the
+        overscan tile maps break the window rebasing), no chunking (the
+        dense backward would rebuild the intermediate chunking bounds),
+        and the frame in the compute dtype, padded to a multiple of 128
+        columns, within 6.5 MB.  That budget is the TPU kernel's VMEM
+        bound, not the card's; it is kept so that the same configurations
+        take the same path in both packages."""
+        if os.environ.get("APHANTASIA_WIN_CUTOUT") != "1":
+            return False
+        if self.padded_size != tuple(self.frame_size):
+            return False
+        if self.chunk and self.count > self.chunk:
+            return False
+        h, w = self.frame_size
+        wp = -(-w // 128) * 128
+        itemsize = (compute_dtype or torch.float32).itemsize
+        return img.shape[0] * h * wp * itemsize <= 6_500_000
 
     def cut(self, img: torch.Tensor, boxes: Boxes,
             compute_dtype=None) -> torch.Tensor:
@@ -180,6 +288,8 @@ class CutoutSampler:
             from aphantasia_torch.ops.cutout import cutout
             return cutout(img, *self.tap_indices(boxes))
         dt = compute_dtype or torch.float32
+        if self._win_eligible(img, dt):
+            return _WinCut.apply(img, self, dt, *boxes)
         wy, wx = self.weight_matrices(boxes, dtype=dt)
         if self.chunk and self.count > self.chunk:
             b = self.chunk

@@ -16,17 +16,21 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            run without `--pallas` (the default einsum cutout), then with
            `--pallas` and each augmentation path of the exact perspective
            and fractional-shift kernels: `--persp mixed`, `--persp exact`,
-           `-tf elastic` with APHANTASIA_PALLAS_SHIFT=1 and without it.
-           The launch counts are set to 0 just before each run and read just
-           after, and must equal the counts the path implies.  Steps/s is
-           the median of the steps after the first.
+           `-tf elastic` with APHANTASIA_PALLAS_SHIFT=1 and without it; then
+           the windowed-cutout and LayerNorm kernels' paths: ViT-B/32 with
+           APHANTASIA_WIN_CUTOUT=1 and APHANTASIA_PALLAS_LN=1, ViT-L/14 with
+           both and ViT-L/14 without them.  The launch counts are set to 0
+           just before each run and read just after, and must equal the
+           counts the path implies.  Steps/s is the median of the steps
+           after the first.
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
-           (kernel shift) transforms.
+           (kernel shift) transforms, and for `none` under both switches.
   profile  (only when asked for) torch.profiler over steady steps of both
-           cutout paths and the four augmentation paths of `main`: device
-           time by kernel and the device busy share.
+           cutout paths, the four augmentation paths of `main` and the
+           switches' paths on ViT-B/32 and ViT-L/14: device time by kernel,
+           kernel launches per step and the device busy share.
 
 The last three lines of standard output are one JSON object describing
 every kernel, the card's name and power limit as nvidia-smi reports them,
@@ -52,7 +56,7 @@ OUT_DIR = os.path.join(ROOT, "build", "smoke")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 
-# the four kernels of the slice: the C wrapper name in kernels.LAUNCHES ->
+# every kernel of the port: the C wrapper name in kernels.LAUNCHES ->
 # (source in the repo, the TPU kernel it replaces)
 KERNELS = {
     "attn_fwd": ("aphantasia_torch/csrc/attention.cu",
@@ -69,7 +73,34 @@ KERNELS = {
                   "aphantasia_tpu/ops/pallas_persp.py:439"),
     "frac_shift": ("aphantasia_torch/csrc/shift.cu",
                    "aphantasia_tpu/ops/pallas_shift.py:73"),
+    "win_cut_fwd": ("aphantasia_torch/csrc/cutout_win.cu",
+                    "aphantasia_tpu/ops/pallas_cutout_win.py:128"),
+    "ln_fwd": ("aphantasia_torch/csrc/ln.cu",
+               "aphantasia_tpu/ops/pallas_ln.py:88"),
+    "ln_bwd": ("aphantasia_torch/csrc/ln.cu",
+               "aphantasia_tpu/ops/pallas_ln.py:114"),
 }
+
+# the switches of the windowed cutout and the fused LayerNorm
+SWITCHES = {"APHANTASIA_WIN_CUTOUT": "1", "APHANTASIA_PALLAS_LN": "1"}
+
+
+class env_set:
+    """Set environment variables for a `with` block, then restore them."""
+
+    def __init__(self, env):
+        self.env = env or {}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 class SmokeFailure(RuntimeError):
@@ -402,6 +433,127 @@ def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
     return res
 
 
+def win_case(kind, dtype, seed=0):
+    """(frame, boxes, sampler) of a windowed-cutout case on the card:
+    "main" the main path's sampler (190 cutouts at 224 of 720x1280, the
+    three tiers), "narrow" a 200x300 frame (not a multiple of 128 columns),
+    "edge" 720x1280 boxes pushed to the bottom-right corner (windows
+    clipped there)."""
+    import torch
+    from aphantasia_torch.ops.sampler import Boxes, CutoutSampler
+    h, w, s = (200, 300, 40) if kind == "narrow" else (720, 1280, 190)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sampler = CutoutSampler((h, w), s, 224, "uniform", 0.4)
+    boxes = sampler.sample_boxes(g)
+    if kind == "edge":
+        boxes = Boxes(boxes.csize, w - boxes.csize, h - boxes.csize)
+    img = torch.rand((3, h, w), generator=g, device="cuda").to(dtype)
+    return img, boxes, sampler
+
+
+def check_win_cutout(kind, dtype, timed=False, seed=0):
+    """The windowed-cutout kernel against `windowed_cut_fwd_plain`, and,
+    when `timed`, its time beside the plain version, the port's dense
+    bf16 contraction (`_contract` forward) and the bound."""
+    import torch
+    from aphantasia_torch.ops import cutout_win as W
+    from aphantasia_torch.ops.sampler import _contract
+    img, boxes, sampler = win_case(kind, dtype, seed)
+    c, h, w = img.shape
+    m = sampler.modsize
+    wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dtype)
+    out = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, m, dtype)
+    ref = W.windowed_cut_fwd_plain(img, boxes, wyw, wxt, m, dtype)
+    torch.cuda.synchronize()
+    fe, fs = max_err(out, ref)
+    tier = W.window_bases(boxes, h, w, m)[0]
+    tiers = torch.bincount(tier.long(), minlength=3).tolist()
+    # float32: the same products summed in another order; bf16: both sides
+    # sum in float32 and round the intermediate to bf16, where a sum near a
+    # rounding boundary may round the other way: one bf16 step
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    res = {"fwd_err": fe, "fwd_scale": fs, "tol_rel": tol, "tiers": tiers}
+    check(math.isfinite(fe) and fe <= tol * max(fs, 1.0),
+          f"win_cut_fwd {kind} {dtype}: max |err| {fe:.3g}")
+    if not timed:
+        return res
+    del ref
+    res["ms"] = cuda_ms(lambda: W.windowed_cut_fwd_kernel(
+        img, boxes, wyw, wxt, m, dtype))
+    res["plain"] = cuda_ms(lambda: W.windowed_cut_fwd_plain(
+        img, boxes, wyw, wxt, m, dtype), iters=5)
+    wy, wx = sampler.weight_matrices(boxes, dtype=dtype)
+    res["lib"] = cuda_ms(lambda: _contract(img, wy, wx, dtype), iters=5)
+    torch.cuda.empty_cache()
+    plan = W.tier_plan(h, w, m)
+    ops = sum(n * (2 * c * kh * kw * m + 2 * c * m * kh * m)
+              for n, (_, kh, kw) in zip(tiers, plan))
+    es = img.element_size()
+    nbytes = (img.numel() + wyw.numel() + wxt.numel()) * es \
+        + out.numel() * 4 + 3 * 4 * len(tier)
+    res["bound"] = bound(nbytes, ops, "bf16" if es == 2 else "f32")
+    res["gflop"] = ops / 1e9
+    return res
+
+
+def check_ln(rows, d, dtype, timed=False, seed=0):
+    """The LayerNorm kernels against `ln_fwd_plain` / `ln_bwd_plain` (y,
+    stat, dx, dg, db), and, when `timed`, their times beside the plain
+    versions, `F.layer_norm` and its autograd backward, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from aphantasia_torch.ops import ln as L
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, d), generator=g_, device="cuda") * 2
+         + 0.5).to(dtype)
+    g = torch.randn((d,), generator=g_, device="cuda") * 0.5 + 1.0
+    b = torch.randn((d,), generator=g_, device="cuda") * 0.1
+    dy = torch.randn((rows, d), generator=g_, device="cuda").to(dtype)
+    y, stat = L.ln_fwd_kernel(x, g, b)
+    dx, dg, db = L.ln_bwd_kernel(x, g, stat, dy)
+    yr, sr = L.ln_fwd_plain(x, g, b)
+    dxr, dgr, dbr = L.ln_bwd_plain(x, g, sr, dy)
+    again = L.ln_bwd_kernel(x, g, stat, dy)
+    torch.cuda.synchronize()
+    # y and dx: one rounding to the output dtype on each side (bf16: one
+    # step); stat, dg, db: float32 sums in another order
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    errs = {k: max_err(a, r) for k, a, r in (
+        ("y", y, yr), ("stat", stat, sr), ("dx", dx, dxr), ("dg", dg, dgr),
+        ("db", db, dbr))}
+    for k, (e, sc) in errs.items():
+        lim = (tol if k in ("y", "dx") else 1e-5) * max(sc, 1.0)
+        check(math.isfinite(e) and e <= lim,
+              f"ln {k} [{rows},{d}] {dtype}: max |err| {e:.3g} > {lim:.3g}")
+    check(all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dg, db))),
+          f"ln_bwd [{rows},{d}] {dtype}: two runs differ")
+    res = {"errs": errs, "tol_rel": tol,
+           "fwd_err": max(errs["y"][0], errs["stat"][0]),
+           "bwd_err": max(errs[k][0] for k in ("dx", "dg", "db"))}
+    if not timed:
+        return res
+    res["ms_fwd"] = cuda_ms(lambda: L.ln_fwd_kernel(x, g, b))
+    res["ms_bwd"] = cuda_ms(lambda: L.ln_bwd_kernel(x, g, stat, dy))
+    res["plain_fwd"] = cuda_ms(lambda: L.ln_fwd_plain(x, g, b))
+    res["plain_bwd"] = cuda_ms(lambda: L.ln_bwd_plain(x, g, stat, dy))
+    xr, gr, br = (t.clone().requires_grad_(True) for t in (x, g, b))
+    gl, bl = gr.to(dtype), br.to(dtype)
+    res["lib_fwd"] = cuda_ms(lambda: F.layer_norm(x, (d,), gl, bl, 1e-5))
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(
+        F.layer_norm(xr, (d,), gr.to(dtype), br.to(dtype), 1e-5),
+        (xr, gr, br), dy))
+    res["lib_bwd"] = max(lib_fb - res["lib_fwd"], 0.0)
+    es = x.element_size()
+    n = rows * d
+    # forward: x in, y out, g/b in, (mu, rstd) out; ~8 float32 operations
+    # per element (square-add, add, subtract, two multiplies, add, cast);
+    # backward: x and dy in, dx out, g and stat in, dg/db out; ~14 each
+    res["bound_fwd"] = bound(2 * n * es + 2 * d * 4 + rows * 8, 8 * n, "f32")
+    res["bound_bwd"] = bound(3 * n * es + d * 4 + rows * 8 + 2 * d * 4,
+                             14 * n, "f32")
+    return res
+
+
 def phase_kernels(report):
     import torch
     from aphantasia_torch import kernels
@@ -502,7 +654,45 @@ def phase_kernels(report):
                   f"{r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
                   f"rfft/irfft route {r['fft']:.4f} ms, bound "
                   f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    for name, r, k, err in (("attn_fwd", att, "fwd", att["fwd_err"]),
+    wcut, win_err = None, 0.0
+    for kind, dtype, timed in (("main", torch.bfloat16, True),
+                               ("main", torch.float32, False),
+                               ("narrow", torch.bfloat16, False),
+                               ("narrow", torch.float32, False),
+                               ("edge", torch.bfloat16, False),
+                               ("edge", torch.float32, False)):
+        r = check_win_cutout(kind, dtype, timed=timed)
+        print(f"[kernels] win_cut_fwd {kind} {str(dtype)[6:]} (tiers "
+              f"{r['tiers']}): max|err| {r['fwd_err']:.3g} (|ref| "
+              f"{r['fwd_scale']:.3g}), tol {r['tol_rel']:.3g} rel")
+        win_err = max(win_err, r["fwd_err"])
+        if timed:
+            wcut = r
+            print(f"[kernels] win_cut_fwd S=190 M=224 720x1280 bf16 "
+                  f"({r['gflop']:.1f} GFLOP): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain']:.4f} ms, dense einsum {r['lib']:.4f} ms, bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    lnr, ln_err = None, {"fwd": 0.0, "bwd": 0.0}
+    for rows, d, dtype, timed in ((9500, 768, torch.bfloat16, True),
+                                  (1799, 1024, torch.bfloat16, True),
+                                  (9500, 768, torch.float32, False),
+                                  (1201, 256, torch.float32, False),
+                                  (1201, 256, torch.bfloat16, False)):
+        r = check_ln(rows, d, dtype, timed=timed)
+        print(f"[kernels] ln [{rows},{d}] {str(dtype)[6:]}: " + ", ".join(
+            f"{k} max|err| {e:.3g} (|ref| {sc:.3g})"
+            for k, (e, sc) in r["errs"].items()))
+        if timed:
+            lnr = lnr or r
+            for k in ("fwd", "bwd"):
+                print(f"[kernels] ln {k} [{rows},{d}] bf16: kernel "
+                      f"{r['ms_' + k]:.4f} ms, plain {r['plain_' + k]:.4f} "
+                      f"ms, F.layer_norm {r['lib_' + k]:.4f} ms, bound "
+                      f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
+        ln_err = {k: max(ln_err[k], r[k + "_err"]) for k in ln_err}
+    for name, r, k, err in (("ln_fwd", lnr, "fwd", ln_err["fwd"]),
+                            ("ln_bwd", lnr, "bwd", ln_err["bwd"]),
+                            ("attn_fwd", att, "fwd", att["fwd_err"]),
                             ("attn_bwd", att, "bwd", att["grad_err"]),
                             ("cutout_fwd", cut, "fwd", cut["fwd_err"]),
                             ("cutout_bwd", cut, "bwd", cut["grad_err"]),
@@ -521,6 +711,13 @@ def phase_kernels(report):
         "ms": shift["ms"], "plain_ms": shift["plain"],
         "bound_ms": shift["bound"][0], "bound_by": shift["bound"][1],
         "library_ms": None}
+    src, rep = KERNELS["win_cut_fwd"]
+    report["win_cut_fwd"] = {
+        "name": "win_cut_fwd", "route": "cuda", "source": src,
+        "replaces": rep, "launches": 0, "max_abs_err": win_err,
+        "ms": wcut["ms"], "plain_ms": wcut["plain"],
+        "bound_ms": wcut["bound"][0], "bound_by": wcut["bound"][1],
+        "library_ms": wcut["lib"]}
 
 
 # ---------------------------------------------------------------- main path
@@ -607,22 +804,18 @@ def phase_main(report, steps: int):
              {"persp_fwd": steps, "persp_bwd": steps}),
             ("--persp exact", ["--persp", "exact"], None,
              {"persp_fwd": 2 * steps, "persp_bwd": 2 * steps}),
-            ("-tf elastic, APHANTASIA_PALLAS_SHIFT=1", ["-tf", "elastic"], "1",
-             {"frac_shift": 4 * steps}),
+            ("-tf elastic, APHANTASIA_PALLAS_SHIFT=1", ["-tf", "elastic"],
+             {"APHANTASIA_PALLAS_SHIFT": "1"}, {"frac_shift": 4 * steps}),
             ("-tf elastic", ["-tf", "elastic"], None, {})):
         argv3 = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
                  "--samples", "200", "--steps", str(steps), "--pallas",
                  "--out_dir", os.path.join(OUT_DIR, "augs"), "-nv",
                  "--seed", "1"] + extra
-        if env:
-            os.environ["APHANTASIA_PALLAS_SHIFT"] = env
-        try:
+        with env_set(env):
             kernels.reset_launches()
             res3 = _run_cli(argv3)
             torch.cuda.synchronize()
             got = dict(kernels.LAUNCHES)
-        finally:
-            os.environ.pop("APHANTASIA_PALLAS_SHIFT", None)
         print(f"[main] {label} run: launches {got}")
         check(len(res3.losses) == steps
               and all(math.isfinite(x) for x in res3.losses),
@@ -643,6 +836,61 @@ def phase_main(report, steps: int):
               f"step {res3.step_seconds[0]:.3f} s, steady "
               f"{1.0 / steady3[len(steady3) // 2]:.3f} steps/s on {name}; "
               f"losses {[round(x, 5) for x in res3.losses]}")
+    phase_main_switches(report, steps)
+
+
+def phase_main_switches(report, steps: int):
+    """The windowed-cutout and LayerNorm kernels' paths, at full width
+    without --pallas (the windowed forward replaces the dense one only
+    there), each with its exact launch counts:
+      (a) ViT-B/32 with both switches: one windowed cut a step, the 12
+          vision blocks' two LayerNorms (9500 flat rows) fused each way;
+      (b) ViT-L/14 with both switches: 7 cutouts of 257 tokens (1799
+          rows), 24 blocks, so 48 fused LayerNorms each way;
+      (c) ViT-L/14 without them: no windowed cut, no fused LayerNorm.
+    The text tower (12 layers, [1, 77, D]) runs the attention kernel
+    forward before the loop and no fused LayerNorm (3-D input)."""
+    import torch
+    from aphantasia_torch import kernels
+    name = torch.cuda.get_device_name(0)
+    for label, model, env, layers, samples in (
+            ("(a) ViT-B/32, both switches", "ViT-B/32", SWITCHES, 12, 190),
+            ("(b) ViT-L/14, both switches", "ViT-L/14", SWITCHES, 24, 7),
+            ("(c) ViT-L/14", "ViT-L/14", None, 24, 7)):
+        argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+                "--samples", "200", "--steps", str(steps), "-m", model,
+                "--out_dir", os.path.join(OUT_DIR, "switches"), "-nv",
+                "--seed", "1"]
+        with env_set(env):
+            kernels.reset_launches()
+            res = _run_cli(argv)
+            torch.cuda.synchronize()
+            got = dict(kernels.LAUNCHES)
+        print(f"[main] {label} run: launches {got}")
+        want = {"attn_fwd": layers * steps + 12, "attn_bwd": layers * steps}
+        if env:
+            want.update(win_cut_fwd=steps, ln_fwd=2 * layers * steps,
+                        ln_bwd=2 * layers * steps)
+        check(res.samples == samples, f"{label}: {res.samples} cutouts")
+        check(len(res.losses) == steps
+              and all(math.isfinite(x) for x in res.losses),
+              f"{label} losses not finite: {res.losses}")
+        check(tuple(res.params.shape) == (1, 3, 720, 641, 2)
+              and bool(torch.isfinite(res.params).all()),
+              f"{label}: bad final params")
+        run_dir = os.path.join(OUT_DIR, "switches", res.out_name)
+        frames = [f for f in os.listdir(run_dir) if f.endswith(".jpg")]
+        check(len(frames) == steps, f"{label}: {len(frames)} frames")
+        check(got == want, f"{label}: launches {got} != expected {want}")
+        if model == "ViT-B/32":
+            for k in ("win_cut_fwd", "ln_fwd", "ln_bwd"):
+                if k in report:
+                    report[k]["launches"] = got[k]
+        steady = sorted(res.step_seconds[1:] or res.step_seconds)
+        print(f"[main] {label}: {steps} steps, {res.samples} cutouts, first "
+              f"step {res.step_seconds[0]:.3f} s, steady "
+              f"{1.0 / steady[len(steady) // 2]:.3f} steps/s on {name}; "
+              f"losses {[round(x, 5) for x in res.losses]}")
 
 
 # ---------------------------------------------------------------- profile
@@ -655,35 +903,39 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+WIN_ONLY = {"APHANTASIA_WIN_CUTOUT": "1"}
 PROFILE_PATHS = (
     ("--pallas", ["--pallas"], None),
     ("default", [], None),
     ("--pallas --persp mixed", ["--pallas", "--persp", "mixed"], None),
     ("--pallas --persp exact", ["--pallas", "--persp", "exact"], None),
     ("--pallas -tf elastic, shift kernel", ["--pallas", "-tf", "elastic"],
-     "1"),
+     {"APHANTASIA_PALLAS_SHIFT": "1"}),
     ("--pallas -tf elastic", ["--pallas", "-tf", "elastic"], None),
+    ("(a) default, both switches", [], SWITCHES),
+    ("(a) default, windowed cut only", [], WIN_ONLY),
+    ("(b) ViT-L/14, both switches", ["-m", "ViT-L/14"], SWITCHES),
+    ("(b) ViT-L/14, windowed cut only", ["-m", "ViT-L/14"], WIN_ONLY),
 )
 
 
 def phase_profile(steps: int = 6, active: int = 3):
-    """Where a steady step's device time goes, for both cutout paths and
-    the augmentation kernels' paths: torch.profiler over `active` steps
-    after `steps - active` warm ones; the kernels by self device time per
-    step, and the device busy share (kernel time over the host wall time
-    of those steps)."""
+    """Where a steady step's device time goes, for both cutout paths, the
+    augmentation kernels' paths and the switches' paths with and without
+    the fused LayerNorm: torch.profiler over `active` steps after
+    `steps - active` warm ones; the kernels by self device time per step,
+    kernel launches per step, and the device busy share (kernel time over
+    the host wall time of those steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     name = torch.cuda.get_device_name(0)
-    for label, extra, shift_env in PROFILE_PATHS:
+    for label, extra, env in PROFILE_PATHS:
         argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
                 "--samples", "200", "--steps", str(steps), "-nv", "--seed",
                 "1", "--out_dir", os.path.join(OUT_DIR, "profile")] + extra
         marks = []
-        if shift_env:
-            os.environ["APHANTASIA_PALLAS_SHIFT"] = shift_env
-        try:
+        with env_set(env):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=steps - active,
@@ -693,16 +945,16 @@ def phase_profile(steps: int = 6, active: int = 3):
                     marks.append(time.perf_counter())
                     prof.step()
                 _run_cli(argv, on_step)
-        finally:
-            os.environ.pop("APHANTASIA_PALLAS_SHIFT", None)
         wall = marks[-1] - marks[-1 - active]
         evts = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and not e.key.startswith("ProfilerStep")]
         total = sum(_device_us(e) for e in evts) / 1e3 / active
+        launches = sum(e.count for e in evts) / active
         check(total > 0, "the profiler saw no device time")
         print(f"[profile] {label}: {wall / active * 1e3:.2f} ms/step host "
-              f"wall, {total:.2f} ms/step device kernels, busy share "
+              f"wall, {total:.2f} ms/step device kernels, {launches:.0f} "
+              f"kernel launches/step, busy share "
               f"{total / (wall / active * 1e3):.3f} on {name}")
         for e in sorted(evts, key=_device_us, reverse=True)[:15]:
             ms = _device_us(e) / 1e3 / active
@@ -716,9 +968,10 @@ def phase_profile(steps: int = 6, active: int = 3):
 PARITY_LR = 0.05
 
 
-def _parity_setup(device, use_pallas, transform, persp="affine"):
-    """A small float32 step (tiny ViT, 96x64 frame, 6 cutouts at 64) with
-    the same weights, start and prompts on either device."""
+def _parity_setup(device, use_pallas, transform, persp="affine", count=6):
+    """A small float32 step (tiny ViT of width 128 and 17 tokens, 96x64
+    frame, `count` cutouts at 64) with the same weights, start and prompts
+    on either device."""
     import torch
     from aphantasia_torch.models.clip.model import CLIPConfig, clip_init
     from aphantasia_torch.ops.optim import build_optimizer
@@ -735,7 +988,7 @@ def _parity_setup(device, use_pallas, transform, persp="affine"):
     p0 = par.init(g, sd=0.07).to(device)
     prompts = ((torch.randn((2, 64), generator=g).to(device),
                 torch.tensor([1.0, 0.5], device=device), -1.0),)
-    sampler = CutoutSampler((64, 96), 6, 64, "uniform", 0.4,
+    sampler = CutoutSampler((64, 96), count, 64, "uniform", 0.4,
                             use_pallas=use_pallas)
     settings = StepSettings(sim="mix", transform=transform, persp=persp,
                             noise=0.1, sharp=0.2, expand=0.5,
@@ -791,48 +1044,56 @@ def phase_parity():
         check(err.mean().item() <= 2e-3 * PARITY_LR
               and err.max().item() <= 5e-2 * PARITY_LR,
               "card vs CPU params differ")
-        _parity_one_step(use_pallas, "fast", "affine", None)
+        _parity_one_step(use_pallas, "fast", "affine")
     # the augmentation kernels' paths: the perspective kernels (mixed,
     # exact) and the shift kernel (elastic with its switch on the card)
     for transform, persp, kernel, env in (
             ("fast", "mixed", "persp_bwd", None),
             ("fast", "exact", "persp_bwd", None),
-            ("elastic", "affine", "frac_shift", "1")):
+            ("elastic", "affine", "frac_shift",
+             {"APHANTASIA_PALLAS_SHIFT": "1"})):
         kernels.reset_launches()
-        _parity_one_step(True, transform, persp, env)
+        _parity_one_step(True, transform, persp, cuda_env=env)
         check(kernels.LAUNCHES[kernel] > 0,
               f"parity {transform}/{persp}: the card never launched {kernel}")
+    # both switches on both devices: 61 cutouts of 17 tokens put 1037 rows
+    # on the width-128 flat stream, so both gates open; on the card the
+    # windowed cut runs once and the 2 blocks' 4 LayerNorms fuse each way
+    kernels.reset_launches()
+    _parity_one_step(False, "none", "affine", cuda_env=SWITCHES,
+                     cpu_env=SWITCHES, count=61, tol=(1e-4, 1e-3))
+    want = {"win_cut_fwd": 1, "ln_fwd": 4, "ln_bwd": 4}
+    got = {k: kernels.LAUNCHES[k] for k in want}
+    check(got == want, f"parity under the switches: launches {got} != {want}")
 
 
-def _parity_one_step(use_pallas, transform, persp, shift_env):
+def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
+                     cpu_env=None, count=6, tol=(2e-3, 2e-2)):
     """One step's loss and gradient on the CPU and on the card from the
-    same draws.  The `fast` and `elastic` pipelines warp in bf16 on both
-    devices, so: loss within 2e-3 relative, gradient within 2e-2 relative
-    L2 error.  `shift_env` sets APHANTASIA_PALLAS_SHIFT for the card run."""
+    same draws, with `cpu_env` / `cuda_env` set for each device's run.  The
+    `fast` and `elastic` pipelines warp in bf16 on both devices, so the
+    default `tol`: loss within 2e-3 relative, gradient within 2e-2 relative
+    L2 error; a float32 `none` step is held tighter by its caller."""
     import torch
     from aphantasia_torch.step import to_device
     grads = {}
-    for dev in ("cpu", "cuda"):
-        if shift_env and dev == "cuda":
-            os.environ["APHANTASIA_PALLAS_SHIFT"] = shift_env
-        try:
-            c = _parity_setup(dev, use_pallas, transform, persp)
+    for dev, env in (("cpu", cpu_env), ("cuda", cuda_env)):
+        with env_set(env):
+            c = _parity_setup(dev, use_pallas, transform, persp, count)
             x = c["p0"].clone().requires_grad_(True)
             d = to_device(c["draw"](torch.Generator().manual_seed(2)), dev)
             loss, _ = c["loss"](x, c["clip"], c["prompts"],
-                                torch.zeros((6, 64), device=dev), d, 0)
+                                torch.zeros((count, 64), device=dev), d, 0)
             (gr,) = torch.autograd.grad(loss, x)
-        finally:
-            os.environ.pop("APHANTASIA_PALLAS_SHIFT", None)
         grads[dev] = (loss.item(), gr.cpu())
     lr_ = abs(grads["cpu"][0] - grads["cuda"][0]) / abs(grads["cpu"][0])
     ge = ((grads["cpu"][1] - grads["cuda"][1]).norm()
           / grads["cpu"][1].norm()).item()
-    print(f"[parity] {transform}/{persp}, pallas={use_pallas}"
-          f"{', shift kernel' if shift_env else ''}: loss cpu "
+    print(f"[parity] {transform}/{persp}, pallas={use_pallas}, {count} "
+          f"cutouts, env {sorted(cuda_env or {})}: loss cpu "
           f"{grads['cpu'][0]:.6f} cuda {grads['cuda'][0]:.6f}, grad "
           f"relative L2 error {ge:.3g}")
-    check(lr_ <= 2e-3 and ge <= 2e-2,
+    check(lr_ <= tol[0] and ge <= tol[1],
           f"card vs CPU {transform}/{persp} step differs")
 
 

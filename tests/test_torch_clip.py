@@ -92,9 +92,65 @@ def test_init_shapes_match_jax(towers):
     assert got == ref
 
 
+def test_image_tower_under_the_ln_switch_matches_jax(towers, monkeypatch):
+    """61 cutouts of 17 tokens at width 128 put 1037 rows on the flat
+    stream, so under APHANTASIA_PALLAS_LN=1 the port's four block
+    LayerNorms take the fused function (ops/ln.py; its plain versions on
+    the CPU).  The JAX tower runs under the same switch, but on the CPU it
+    keeps its [B, T, D] stream, where its gate does not fire, so it is the
+    plain reference here (tests/test_torch_ln.py holds the fused function
+    against pallas_ln itself).  Forward and image gradient, 1e-4
+    relative."""
+    from aphantasia_torch.ops import ln as tln
+    jcfg, jp, tcfg, tp = towers
+    calls = []
+    fused = tln.layer_norm_fused
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return fused(*a, **k)
+    monkeypatch.setattr(tln, "layer_norm_fused", counted)
+    monkeypatch.setattr(jm, "_PALLAS_LN", True)
+    monkeypatch.setenv("APHANTASIA_PALLAS_LN", "1")
+    x = np.random.RandomState(3).randn(61, 3, 32, 32).astype(np.float32)
+    co = np.random.RandomState(4).randn(61, 32).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda im: jm.encode_image(jp, jcfg, im),
+                         jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(co))
+    xt = torch.tensor(x, requires_grad=True)
+    out_t = tm.encode_image(tp, tcfg, xt)
+    (g_t,) = torch.autograd.grad(out_t, xt, torch.tensor(co))
+    assert calls == [(61 * 17, 128)] * 4
+    _close(out_t.detach().numpy(), out_j)
+    _close(g_t.numpy(), g_j)
+
+
+def test_vit_l14_shapes_match_jax(monkeypatch):
+    """ViT-L/14 is a ported model: its parameter tree has the JAX
+    `clip_init` shapes (from jax.eval_shape; the port's tree is built on
+    the meta device, so neither side allocates its 1.7 GB), and the CLI's
+    sample budget leaves 7 cutouts of 257 tokens (1799 flat rows)."""
+    from aphantasia_torch.cli.common import apply_sample_budget
+    assert "ViT-L/14" in tm.PORTED_MODELS
+    assert "ViT-L/14@336px" not in tm.PORTED_MODELS
+    name = "ViT-L/14"
+    ref = jax.eval_shape(lambda k: jm.clip_init(k, jm.CLIP_CONFIGS[name]),
+                         jax.random.PRNGKey(0))
+    monkeypatch.setattr(torch, "randn", lambda shape, generator=None,
+                        device=None: torch.empty(shape, device="meta"))
+    mine = tm.clip_init(torch.Generator(), tm.CLIP_CONFIGS[name])
+    assert (jax.tree.map(lambda a: tuple(a.shape), mine)
+            == jax.tree.map(lambda a: tuple(a.shape), ref))
+    assert apply_sample_budget(200, name) == 7
+    cfg = tm.CLIP_CONFIGS[name]
+    assert (cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1 == 257
+
+
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.load_clip("RN50")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.load_clip("ViT-L/14@336px")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.load_clip("ViT-B/32", weights_path="/nonexistent.pt")
     assert tm.input_resolution("RN50x4") == 288

@@ -89,6 +89,33 @@ def test_gather_plain_matches_pallas_interpret():
     np.testing.assert_allclose(g_t, g_j, atol=1e-4)
 
 
+@pytest.mark.parametrize("h,w", [(48, 80), (80, 48)])
+def test_contract_bf16_sums_in_float32_as_jax(h, w):
+    """The dense contraction at bf16 against JAX's `_contract(...,
+    "bfloat16")`, both contraction orders: the first product of each
+    direction rounds to bf16 and the second is summed and returned in
+    float32 (preferred_element_type=float32).  Held to 1e-5 relative to the
+    largest entry, float32 summation-order noise; a second product rounded
+    to bf16 (the image gradient then holds only bf16 values) misses by
+    about 3e-3."""
+    from aphantasia_tpu.ops.sampler import _contract as jcontract
+    from aphantasia_torch.ops.sampler import _contract
+    s, m, c = 6, 32, 3
+    rs = np.random.RandomState(0)
+    img = rs.rand(c, h, w).astype(np.float32)
+    wy = jnp.asarray(rs.rand(s, m, h) - 0.3, jnp.bfloat16)
+    wx = jnp.asarray(rs.rand(s, m, w) - 0.3, jnp.bfloat16)
+    co = rs.randn(s, c, m, m).astype(np.float32)
+    out_j, g_j = _jax_vjp(lambda x: jcontract(x, wy, wx, "bfloat16"), img, co)
+    twy, twx = (torch.tensor(np.asarray(a, np.float32)).bfloat16()
+                for a in (wy, wx))
+    out_t, g_t = _torch_vjp(lambda x: _contract(x, twy, twx, torch.bfloat16),
+                            img, co)
+    assert out_t.dtype == np.float32 and g_t.dtype == np.float32
+    np.testing.assert_allclose(out_t, out_j, atol=1e-5 * np.abs(out_j).max())
+    np.testing.assert_allclose(g_t, g_j, atol=1e-5 * np.abs(g_j).max())
+
+
 def test_in_frame_drops_outside_taps():
     idx = torch.tensor([[[-1, 0, 3, 4]]], dtype=torch.int32)
     wts = torch.ones((1, 1, 4))

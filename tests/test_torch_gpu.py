@@ -14,7 +14,13 @@ by a rounding step of 2^-8) and five times that on the gradient; cutout
 run-dependent order); perspective warp 1e-5 relative in float32 and 2^-7
 in bf16, forward and gradient (the same float32 arithmetic, the gradient
 summed in another order, each side rounding once); fractional shift 1e-4
-relative (float32 DFT products summed in another order than cuBLAS's).
+relative (float32 DFT products summed in another order than cuBLAS's);
+windowed cutout 1e-5 relative in float32 and 2^-7 in bf16 (both sides
+sum in float32 and round the intermediate to bf16 once, so a sum near a
+rounding boundary may round the other way: one bf16 step); LayerNorm
+1e-5 relative in float32 and 2^-7 in bf16 on y and dx (one rounding of
+the output each), 1e-5 relative on dg and db (float32 sums in another
+order).
 """
 import itertools
 
@@ -24,12 +30,14 @@ import torch
 from aphantasia_torch import kernels
 from aphantasia_torch.ops import attention as A
 from aphantasia_torch.ops import cutout as C
+from aphantasia_torch.ops import cutout_win as W
+from aphantasia_torch.ops import ln as L
 from aphantasia_torch.ops import persp as P
 from aphantasia_torch.ops import shift as SH
 from aphantasia_torch.ops.perspective import (perspective_coeffs,
                                               perspective_endpoints,
                                               rotation_coeffs_for)
-from aphantasia_torch.ops.sampler import CutoutSampler
+from aphantasia_torch.ops.sampler import Boxes, CutoutSampler
 
 pytestmark = pytest.mark.gpu
 
@@ -179,3 +187,96 @@ def test_elastic_switch_routes_the_shift_through_the_kernel(cuda,
     got = fractional_shift(x, sh, axis=-2)
     assert kernels.LAUNCHES["frac_shift"] == before + 1
     assert _rel(got, plain) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("h,w,s,m,edge", [
+    (720, 1280, 24, 224, False), (200, 300, 12, 224, False),
+    (96, 200, 16, 32, True)])
+def test_windowed_cutout_kernel_matches_plain(cuda, dtype, tol, h, w, s, m,
+                                              edge):
+    """The 720x1280 draw spans the three tiers; 300 and 200 columns are not
+    multiples of 128 (the window reads zeros past W); `edge` pushes every
+    box to the bottom-right corner, so the windows are clipped there."""
+    sampler = CutoutSampler((h, w), s, m, "uniform", 0.4)
+    boxes = sampler.sample_boxes(cuda)
+    if edge:
+        boxes = Boxes(boxes.csize, w - boxes.csize, h - boxes.csize)
+    img = torch.rand((3, h, w), generator=cuda, device="cuda").to(dtype)
+    wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dtype)
+    before = kernels.LAUNCHES["win_cut_fwd"]
+    out = W.windowed_cut_fwd(img, boxes, wyw, wxt, m, dtype)
+    assert kernels.LAUNCHES["win_cut_fwd"] == before + 1
+    ref = W.windowed_cut_fwd_plain(img, boxes, wyw, wxt, m, dtype)
+    assert out.dtype == torch.float32 and out.shape == (s, 3, m, m)
+    assert _rel(out, ref) <= tol
+
+
+def test_windowed_switch_routes_the_cut_through_the_kernel(cuda,
+                                                           monkeypatch):
+    """APHANTASIA_WIN_CUTOUT=1 sends a bf16 cut through the kernel; its
+    gradient is the dense transpose, equal to the dense path's."""
+    sampler = CutoutSampler((720, 1280), 16, 224, "uniform", 0.4)
+    boxes = sampler.sample_boxes(cuda)
+    img = torch.rand((3, 720, 1280), generator=cuda, device="cuda",
+                     requires_grad=True)
+    co = torch.randn((16, 3, 224, 224), generator=cuda, device="cuda")
+    dense = sampler.cut(img, boxes, compute_dtype=torch.bfloat16)
+    (g_dense,) = torch.autograd.grad(dense, img, co)
+    monkeypatch.setenv("APHANTASIA_WIN_CUTOUT", "1")
+    before = kernels.LAUNCHES["win_cut_fwd"]
+    win = sampler.cut(img, boxes, compute_dtype=torch.bfloat16)
+    (g_win,) = torch.autograd.grad(win, img, co)
+    assert kernels.LAUNCHES["win_cut_fwd"] == before + 1
+    assert _rel(win, dense) <= 2 ** -7
+    assert _rel(g_win, g_dense) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("rows,d", [(9500, 768), (1799, 1024), (1201, 256)])
+def test_ln_kernels_match_plain(cuda, dtype, tol, rows, d):
+    """Forward and backward through layer_norm_fused; 1201 and 1799 rows
+    are not multiples of the backward's row block.  The backward is
+    deterministic: a second run gives the same bits."""
+    x = (torch.randn((rows, d), generator=cuda, device="cuda") * 2
+         + 0.5).to(dtype)
+    g = torch.randn((d,), generator=cuda, device="cuda") * 0.5 + 1.0
+    b = torch.randn((d,), generator=cuda, device="cuda") * 0.1
+    co = torch.randn((rows, d), generator=cuda, device="cuda").to(dtype)
+    before = kernels.LAUNCHES["ln_fwd"], kernels.LAUNCHES["ln_bwd"]
+    xk, gk, bk = (t.clone().requires_grad_(True) for t in (x, g, b))
+    y = L.layer_norm_fused(xk, gk, bk)
+    grads = torch.autograd.grad(y, (xk, gk, bk), co)
+    assert (kernels.LAUNCHES["ln_fwd"], kernels.LAUNCHES["ln_bwd"]) == (
+        before[0] + 1, before[1] + 1)
+    yr, stat = L.ln_fwd_plain(x, g, b)
+    ref = L.ln_bwd_plain(x, g, stat, co)
+    assert y.dtype == dtype and grads[0].dtype == dtype
+    assert _rel(y, yr) <= tol and _rel(grads[0], ref[0]) <= tol
+    assert _rel(grads[1], ref[1]) <= 1e-5 and _rel(grads[2], ref[2]) <= 1e-5
+    again = L.ln_bwd_kernel(x, g, L.ln_fwd_kernel(x, g, b)[1], co)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, grads))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1024, 256), device="cuda")
+    g = torch.ones((256,), device="cuda")
+    with pytest.raises(TypeError):
+        L.ln_fwd_kernel(x.half(), g, g)
+    with pytest.raises(ValueError):
+        L.ln_fwd_kernel(torch.zeros((1024, 260), device="cuda"),
+                        torch.ones((260,), device="cuda"),
+                        torch.ones((260,), device="cuda"))
+    with pytest.raises(ValueError):
+        L.ln_bwd_kernel(x, g, torch.zeros((1000, 2), device="cuda"), x)
+    sampler = CutoutSampler((96, 160), 4, 32, "uniform", 0.4)
+    boxes = sampler.sample_boxes(cuda)
+    img = torch.zeros((3, 96, 160), device="cuda")
+    wyw, wxt = sampler.weight_matrices_windowed(boxes)
+    with pytest.raises(TypeError):
+        W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, 32, torch.float16)
+    with pytest.raises(ValueError):
+        W.windowed_cut_fwd_kernel(img, boxes, wyw[:, :, :8], wxt, 32,
+                                  torch.float32)

@@ -125,6 +125,48 @@ def test_mixed_perspective_step_matches_jax(monkeypatch):
     assert (np.linalg.norm(gt.numpy() - gj) / np.linalg.norm(gj)) <= 2e-2
 
 
+def test_step_under_the_window_and_ln_switches_matches_jax(monkeypatch):
+    """One step with APHANTASIA_WIN_CUTOUT=1 and APHANTASIA_PALLAS_LN=1 in
+    both packages, on the JAX step's draws: 61 cutouts (61 x 17 = 1037
+    flat rows, so the port's block LayerNorms take the fused function)
+    through the windowed forward and its dense transpose (the JAX package's
+    Pallas windowed kernel in interpret mode).  The `none` transform keeps
+    the step float32: loss 1e-4 relative, gradient 1e-3 relative L2
+    error."""
+    from aphantasia_torch.ops import ln as tln
+    calls = []
+    fused = tln.layer_norm_fused
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return fused(*a, **k)
+    monkeypatch.setattr(tln, "layer_norm_fused", counted)
+    monkeypatch.setenv("APHANTASIA_WIN_CUTOUT", "1")
+    monkeypatch.setenv("APHANTASIA_PALLAS_LN", "1")
+    monkeypatch.setattr(jm, "_PALLAS_LN", True)
+    c = _setup(dict(transform="none"), s=61)
+    s = c["jsam"].count
+    assert c["jsam"]._win_eligible(jnp.zeros((3, 48, 64)), jnp.float32)
+    assert c["tsam"]._win_eligible(torch.zeros((3, 48, 64)), torch.float32)
+    jloss = jstep.build_loss_fn(c["jpar"], c["jsam"], c["jcfg"], c["jset"])
+    tloss = tstep.build_loss_fn(c["tpar"], c["tsam"], c["tcfg"], c["tset"])
+    key = jax.random.PRNGKey(8)
+    jprev = jnp.zeros((s, 32))
+    vg = jax.jit(jax.value_and_grad(jloss, has_aux=True),
+                 static_argnums=(2, 3, 7))
+    (lj, _), gj = vg(jnp.asarray(c["p0"]), c["jclip"], None, None,
+                     c["jprompts"], jprev, key, 0)
+    draws = jax_step_draws(key, c["jsam"], c["jset"], c["p0"].shape)
+    x = torch.tensor(c["p0"], requires_grad=True)
+    lt, _ = tloss(x, c["tclip"], c["tprompts"], torch.zeros((s, 32)), draws,
+                  0)
+    (gt,) = torch.autograd.grad(lt, x)
+    assert calls == [(61 * 17, 128)] * 4
+    np.testing.assert_allclose(lt.item(), float(lj), rtol=1e-4)
+    gj = np.asarray(gj)
+    assert (np.linalg.norm(gt.numpy() - gj) / np.linalg.norm(gj)) <= 1e-3
+
+
 def test_three_steps_match_jax():
     """All float32 loss terms (noise, sharpness, expand, enforce) with the
     `none` transform, three free-running steps on both sides."""
