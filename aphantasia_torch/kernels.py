@@ -5,7 +5,8 @@ nvcc into its own shared library under `build/kernels/` at the root of the
 checkout (listed in .gitignore), at first use; the libraries are loaded
 with ctypes.  `build_all()` starts one nvcc per source, all at once, so the
 sources compile in parallel.  A library's file name carries a hash of its
-source, so an edited source is rebuilt and a stale one never loads.
+source and of the shared headers (`csrc/*.cuh`), so an edited source or
+header is rebuilt and a stale library never loads.
 
 Every C entry point returns the `cudaError_t` of `cudaGetLastError()` right
 after its launch; `check()` raises on anything but success.  `LAUNCHES`
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -28,7 +30,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "kernels")
-SOURCES = ("attention", "cutout", "persp", "shift", "cutout_win", "ln")
+SOURCES = ("attention", "cutout", "persp", "shift", "cutout_win", "ln",
+           "block")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,9 +57,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and of every
+    header in csrc/ (the sources include them)."""
+    digest = hashlib.sha1()
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all(names=SOURCES) -> dict:

@@ -12,6 +12,9 @@ The vision tower always runs the flat [b*t, d] stream and the text tower
 runs unpadded at t=77: the JAX package pads tokens (`_pad_tokens`,
 `_padded_t`) and picks a flat or padded path (`flat_geometry`) only to fit
 the TPU's (8, 128) tiles, and the CUDA kernel takes any token count.
+Under APHANTASIA_FUSED_BLOCK=1 the vision blocks run as the fused
+half-block kernels of ops/block.py where that geometry gate opens
+(ViT-B/32), so the switch reaches the same models in both packages.
 
 The ModifiedResNet towers are not ported yet (ROADMAP.md).
 """
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from aphantasia_torch.ops.attention import attention_core, attention_core_flat
-from aphantasia_torch.ops import ln
+from aphantasia_torch.ops import block, ln
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +143,16 @@ def resblock(x, p, n_heads, causal=False):
 
 
 def transformer_flat(x, blocks, n_heads, t):
+    """The vision blocks over the flat stream.  With
+    APHANTASIA_FUSED_BLOCK=1 (read at each call, as the JAX package reads
+    it) and the JAX geometry gate open (`block.flat_geometry`: t = 50 of
+    ViT-B/32, not ViT-B/16's 197 or ViT-L/14's 257), each block runs as the
+    two fused half-block kernels of ops/block.py."""
+    fused = (os.environ.get("APHANTASIA_FUSED_BLOCK") == "1"
+             and block.flat_geometry(t, x.dtype) is not None)
     for p in blocks:
-        x = resblock_flat(x, p, n_heads, t)
+        x = (block.resblock_flat_fused if fused else resblock_flat)(
+            x, p, n_heads, t)
     return x
 
 

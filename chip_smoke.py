@@ -19,17 +19,21 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            `-tf elastic` with APHANTASIA_PALLAS_SHIFT=1 and without it; then
            the windowed-cutout and LayerNorm kernels' paths: ViT-B/32 with
            APHANTASIA_WIN_CUTOUT=1 and APHANTASIA_PALLAS_LN=1, ViT-L/14 with
-           both and ViT-L/14 without them.  The launch counts are set to 0
+           both and ViT-L/14 without them; then the fused half blocks'
+           path: ViT-B/32 with APHANTASIA_FUSED_BLOCK=1, alone and with the
+           other two switches.  The launch counts are set to 0
            just before each run and read just after, and must equal the
            counts the path implies.  Steps/s is the median of the steps
            after the first.
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
-           (kernel shift) transforms, and for `none` under both switches.
+           (kernel shift) transforms, and for `none` under the cutout and
+           LayerNorm switches and under the block switch.
   profile  (only when asked for) torch.profiler over steady steps of both
            cutout paths, the four augmentation paths of `main` and the
-           switches' paths on ViT-B/32 and ViT-L/14: device time by kernel,
+           switches' paths on ViT-B/32 and ViT-L/14, and the fused-block
+           path on ViT-B/32: device time by kernel,
            kernel launches per step and the device busy share.
 
 The last three lines of standard output are one JSON object describing
@@ -79,10 +83,22 @@ KERNELS = {
                "aphantasia_tpu/ops/pallas_ln.py:88"),
     "ln_bwd": ("aphantasia_torch/csrc/ln.cu",
                "aphantasia_tpu/ops/pallas_ln.py:114"),
+    "block_attn_fwd": ("aphantasia_torch/csrc/block.cu",
+                       "aphantasia_tpu/ops/pallas_block.py:273"),
+    "block_attn_bwd": ("aphantasia_torch/csrc/block.cu",
+                       "aphantasia_tpu/ops/pallas_block.py:298"),
+    "block_mlp_fwd": ("aphantasia_torch/csrc/block.cu",
+                      "aphantasia_tpu/ops/pallas_block.py:333"),
+    "block_mlp_bwd": ("aphantasia_torch/csrc/block.cu",
+                      "aphantasia_tpu/ops/pallas_block.py:358"),
 }
+BLOCK_KERNELS = ("block_attn_fwd", "block_attn_bwd", "block_mlp_fwd",
+                 "block_mlp_bwd")
 
-# the switches of the windowed cutout and the fused LayerNorm
+# the switches of the windowed cutout and the fused LayerNorm, and of the
+# fused half blocks
 SWITCHES = {"APHANTASIA_WIN_CUTOUT": "1", "APHANTASIA_PALLAS_LN": "1"}
+FUSED = {"APHANTASIA_FUSED_BLOCK": "1"}
 
 
 class env_set:
@@ -554,6 +570,115 @@ def check_ln(rows, d, dtype, timed=False, seed=0):
     return res
 
 
+def block_case(rows, d, dtype, seed=0):
+    """x, dy [rows, d] in `dtype` and one block's params on the card, at
+    the JAX `_block_init` scales with non-zero biases and LayerNorm
+    affines (g, b float32; the rest cast to `dtype`, as `cast_weights`)."""
+    import torch
+    from aphantasia_torch.models.clip.model import cast_weights
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    def ln():
+        return {"g": 1.0 + n(d, std=0.1), "b": n(d, std=0.1)}
+    p = {"ln_1": ln(), "ln_2": ln(),
+         "attn": {"in_w": n(d, 3 * d, std=d ** -0.5),
+                  "in_b": n(3 * d, std=0.02),
+                  "out_w": n(d, d, std=d ** -0.5), "out_b": n(d, std=0.02)},
+         "mlp": {"fc_w": n(d, 4 * d, std=(2 * d) ** -0.5),
+                 "fc_b": n(4 * d, std=0.02),
+                 "proj_w": n(4 * d, d, std=d ** -0.5),
+                 "proj_b": n(d, std=0.02)}}
+    return n(rows, d).to(dtype), n(rows, d).to(dtype), cast_weights(p, dtype)
+
+
+def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
+    """The four half-block kernels against their plain versions (y and
+    inv forward, dx backward from the same inv), and, when `timed`, their
+    times beside the plain versions, the port's unfused half (cuBLAS
+    products, the attention kernel, plain LayerNorms; forward and
+    autograd backward) and the bounds."""
+    import torch
+    from aphantasia_torch.models.clip import model as M
+    from aphantasia_torch.ops import block as B
+    x, dy, p = block_case(rows, d, dtype, seed)
+    a, m = p["attn"], p["mlp"]
+    aw = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"], a["out_w"])
+    mw = (p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"], m["fc_b"], m["proj_w"])
+    runs = {
+        "block_attn_fwd": (
+            lambda: B.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t),
+            lambda: B.attn_half_fwd_plain(x, *aw, a["out_b"], heads, t)),
+        "block_mlp_fwd": (
+            lambda: B.mlp_half_fwd_kernel(x, *mw, m["proj_b"]),
+            lambda: B.mlp_half_fwd_plain(x, *mw, m["proj_b"]))}
+    (y, inv), (yr, invr) = (f() for f in runs["block_attn_fwd"])
+    runs["block_attn_bwd"] = (
+        lambda: B.attn_half_bwd_kernel(x, dy, invr, *aw, heads, t),
+        lambda: B.attn_half_bwd_plain(x, dy, invr, *aw, heads, t))
+    runs["block_mlp_bwd"] = (
+        lambda: B.mlp_half_bwd_kernel(x, dy, *mw),
+        lambda: B.mlp_half_bwd_plain(x, dy, *mw))
+    outs = {"block_attn_fwd": (y, yr), "block_attn_inv": (inv, invr)}
+    for k in ("block_mlp_fwd", "block_attn_bwd", "block_mlp_bwd"):
+        outs[k] = tuple(f() for f in runs[k])
+    torch.cuda.synchronize()
+    # float32: the same operations, products summed in another order
+    # through a chain of up to six products; bf16: both sides round at the
+    # same points, but a float32 sum in another order can put an
+    # intermediate on the other side of a bf16 rounding boundary, and the
+    # output's own rounding may show that once more: two bf16 steps
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    errs = {k: max_err(*v) for k, v in outs.items()}
+    for k, (e, sc) in errs.items():
+        check(math.isfinite(e) and e <= tol * max(sc, 1.0),
+              f"{k} [{rows},{d}] t={t} {dtype}: max |err| {e:.3g} > "
+              f"{tol:.3g} * {max(sc, 1.0):.3g}")
+    res = {"errs": errs, "tol_rel": tol}
+    if not timed:
+        return res
+    del outs
+    for k, (kern, plain) in runs.items():
+        res[k] = {"ms": cuda_ms(kern), "plain": cuda_ms(plain, iters=5)}
+    ln1, ln2 = p["ln_1"], p["ln_2"]
+    unfused = {
+        "block_attn_fwd": lambda v: v + M.mha_flat(M.layer_norm(v, ln1), a,
+                                                   heads, t),
+        "block_mlp_fwd": lambda v: v + M._mlp(M.layer_norm(v, ln2), m)}
+    xr = x.clone().requires_grad_(True)
+    with env_set({"APHANTASIA_PALLAS_LN": "0"}):
+        for k, fn in unfused.items():
+            fwd = cuda_ms(lambda: fn(x), iters=10)
+            fb = cuda_ms(lambda: torch.autograd.grad(fn(xr), xr, dy),
+                         iters=10)
+            res[k]["unfused"] = fwd
+            res[k.replace("fwd", "bwd")]["unfused"] = max(fb - fwd, 0.0)
+    torch.cuda.empty_cache()
+    es = x.element_size()
+    kind = "bf16" if es == 2 else "f32"
+    hid = 4 * d
+    core = 2 * (rows // t) * heads * t * t * (d // heads)  # one t x t product
+    act = rows * d * es
+    w_attn = (3 * d * d + 3 * d + d * d + d) * es + 2 * d * 4
+    w_mlp = (2 * d * hid + hid + d) * es + 2 * d * 4
+    inv_bytes = rows * heads * 4
+    # (bytes: inputs read once, outputs written once; operations: the
+    # products, 2 per multiply-add)
+    work = {
+        "block_attn_fwd": (2 * act + inv_bytes + w_attn,
+                           2 * rows * d * 4 * d + 2 * core),
+        "block_attn_bwd": (3 * act + inv_bytes + w_attn - d * es,
+                           2 * rows * d * 7 * d + 5 * core),
+        "block_mlp_fwd": (2 * act + w_mlp, 4 * rows * d * hid),
+        "block_mlp_bwd": (3 * act + w_mlp - d * es, 6 * rows * d * hid)}
+    for k, (nbytes, ops) in work.items():
+        res[k]["bound"] = bound(nbytes, ops, kind)
+        res[k]["gflop"] = ops / 1e9
+    return res
+
+
 def phase_kernels(report):
     import torch
     from aphantasia_torch import kernels
@@ -690,6 +815,40 @@ def phase_kernels(report):
                       f"ms, F.layer_norm {r['lib_' + k]:.4f} ms, bound "
                       f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
         ln_err = {k: max(ln_err[k], r[k + "_err"]) for k in ln_err}
+    blk, blk_err = None, {k: 0.0 for k in BLOCK_KERNELS}
+    for rows, t, d, heads, dtype, timed in (
+            (9500, 50, 768, 12, torch.bfloat16, True),
+            (9500, 50, 768, 12, torch.float32, False),
+            (91, 13, 40, 2, torch.bfloat16, False),
+            (91, 13, 40, 2, torch.float32, False),
+            (1037, 17, 128, 2, torch.float32, False)):
+        r = check_block(rows, t, d, heads, dtype, timed=timed)
+        print(f"[kernels] block [{rows},{d}] t={t} {heads} heads "
+              f"{str(dtype)[6:]}: " + ", ".join(
+                  f"{k[6:]} max|err| {e:.3g} (|ref| {sc:.3g})"
+                  for k, (e, sc) in r["errs"].items())
+              + f", tol {r['tol_rel']:.3g} rel")
+        for k in BLOCK_KERNELS:
+            blk_err[k] = max(blk_err[k], r["errs"][k][0])
+        if timed:
+            blk = r
+            for k in BLOCK_KERNELS:
+                q = r[k]
+                print(f"[kernels] {k} [{rows},{d}] t={t} bf16 "
+                      f"({q['gflop']:.1f} GFLOP): kernel {q['ms']:.4f} ms, "
+                      f"plain {q['plain']:.4f} ms, unfused half "
+                      f"{q['unfused']:.4f} ms, bound {q['bound'][0]:.4f} ms "
+                      f"({q['bound'][1]})")
+    for k in BLOCK_KERNELS:
+        src, rep = KERNELS[k]
+        q = blk[k]
+        # no single PyTorch call computes a half block: library_ms is null
+        # and the unfused half's time is printed above
+        report[k] = {
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": 0, "max_abs_err": blk_err[k], "ms": q["ms"],
+            "plain_ms": q["plain"], "bound_ms": q["bound"][0],
+            "bound_by": q["bound"][1], "library_ms": None}
     for name, r, k, err in (("ln_fwd", lnr, "fwd", ln_err["fwd"]),
                             ("ln_bwd", lnr, "bwd", ln_err["bwd"]),
                             ("attn_fwd", att, "fwd", att["fwd_err"]),
@@ -840,23 +999,45 @@ def phase_main(report, steps: int):
 
 
 def phase_main_switches(report, steps: int):
-    """The windowed-cutout and LayerNorm kernels' paths, at full width
-    without --pallas (the windowed forward replaces the dense one only
-    there), each with its exact launch counts:
-      (a) ViT-B/32 with both switches: one windowed cut a step, the 12
-          vision blocks' two LayerNorms (9500 flat rows) fused each way;
-      (b) ViT-L/14 with both switches: 7 cutouts of 257 tokens (1799
-          rows), 24 blocks, so 48 fused LayerNorms each way;
-      (c) ViT-L/14 without them: no windowed cut, no fused LayerNorm.
+    """The switches' paths at full width without --pallas (the windowed
+    forward replaces the dense one only there), each with its exact launch
+    counts:
+      (a) ViT-B/32 with the cutout and LayerNorm switches: one windowed cut
+          a step, the 12 vision blocks' two LayerNorms (9500 flat rows)
+          fused each way;
+      (b) ViT-L/14 with both: 7 cutouts of 257 tokens (1799 rows), 24
+          blocks, so 48 fused LayerNorms each way;
+      (c) ViT-L/14 without them: no windowed cut, no fused LayerNorm;
+      (d) ViT-B/32 with APHANTASIA_FUSED_BLOCK=1: each vision block as the
+          two fused halves each way, so no vision attention kernel;
+      (e) ViT-B/32 with all three switches: as (d) plus the windowed cut;
+          no fused LayerNorm, since the blocks' LayerNorms are inside the
+          halves, ln_pre is 3-D and ln_post has 190 rows.
     The text tower (12 layers, [1, 77, D]) runs the attention kernel
     forward before the loop and no fused LayerNorm (3-D input)."""
     import torch
     from aphantasia_torch import kernels
     name = torch.cuda.get_device_name(0)
-    for label, model, env, layers, samples in (
-            ("(a) ViT-B/32, both switches", "ViT-B/32", SWITCHES, 12, 190),
-            ("(b) ViT-L/14, both switches", "ViT-L/14", SWITCHES, 24, 7),
-            ("(c) ViT-L/14", "ViT-L/14", None, 24, 7)):
+    text = {"attn_fwd": 12}   # the text tower's forward, once a run
+    halves = {k: 12 * steps for k in BLOCK_KERNELS}
+
+    def unfused(layers, switches):
+        want = {"attn_fwd": layers * steps + 12, "attn_bwd": layers * steps}
+        if switches:
+            want.update(win_cut_fwd=steps, ln_fwd=2 * layers * steps,
+                        ln_bwd=2 * layers * steps)
+        return want
+    for label, model, env, samples, want in (
+            ("(a) ViT-B/32, both switches", "ViT-B/32", SWITCHES, 190,
+             unfused(12, True)),
+            ("(b) ViT-L/14, both switches", "ViT-L/14", SWITCHES, 7,
+             unfused(24, True)),
+            ("(c) ViT-L/14", "ViT-L/14", None, 7, unfused(24, False)),
+            ("(d) ViT-B/32, fused block", "ViT-B/32", FUSED, 190,
+             dict(text, **halves)),
+            ("(e) ViT-B/32, all three switches", "ViT-B/32",
+             dict(SWITCHES, **FUSED), 190,
+             dict(text, win_cut_fwd=steps, **halves))):
         argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
                 "--samples", "200", "--steps", str(steps), "-m", model,
                 "--out_dir", os.path.join(OUT_DIR, "switches"), "-nv",
@@ -867,10 +1048,6 @@ def phase_main_switches(report, steps: int):
             torch.cuda.synchronize()
             got = dict(kernels.LAUNCHES)
         print(f"[main] {label} run: launches {got}")
-        want = {"attn_fwd": layers * steps + 12, "attn_bwd": layers * steps}
-        if env:
-            want.update(win_cut_fwd=steps, ln_fwd=2 * layers * steps,
-                        ln_bwd=2 * layers * steps)
         check(res.samples == samples, f"{label}: {res.samples} cutouts")
         check(len(res.losses) == steps
               and all(math.isfinite(x) for x in res.losses),
@@ -882,9 +1059,9 @@ def phase_main_switches(report, steps: int):
         frames = [f for f in os.listdir(run_dir) if f.endswith(".jpg")]
         check(len(frames) == steps, f"{label}: {len(frames)} frames")
         check(got == want, f"{label}: launches {got} != expected {want}")
-        if model == "ViT-B/32":
-            for k in ("win_cut_fwd", "ln_fwd", "ln_bwd"):
-                if k in report:
+        if label.startswith(("(a)", "(d)")):
+            for k in ("win_cut_fwd", "ln_fwd", "ln_bwd") + BLOCK_KERNELS:
+                if k in report and k in got:
                     report[k]["launches"] = got[k]
         steady = sorted(res.step_seconds[1:] or res.step_seconds)
         print(f"[main] {label}: {steps} steps, {res.samples} cutouts, first "
@@ -916,6 +1093,7 @@ PROFILE_PATHS = (
     ("(a) default, windowed cut only", [], WIN_ONLY),
     ("(b) ViT-L/14, both switches", ["-m", "ViT-L/14"], SWITCHES),
     ("(b) ViT-L/14, windowed cut only", ["-m", "ViT-L/14"], WIN_ONLY),
+    ("(d) ViT-B/32, fused block", [], FUSED),
 )
 
 
@@ -1065,6 +1243,16 @@ def phase_parity():
     want = {"win_cut_fwd": 1, "ln_fwd": 4, "ln_bwd": 4}
     got = {k: kernels.LAUNCHES[k] for k in want}
     check(got == want, f"parity under the switches: launches {got} != {want}")
+    # the fused half blocks on both devices: 17 tokens pass the geometry
+    # gate, so each of the 2 blocks runs both halves each way on the card
+    kernels.reset_launches()
+    _parity_one_step(False, "none", "affine", cuda_env=FUSED, cpu_env=FUSED,
+                     tol=(1e-4, 1e-3))
+    want = {k: 2 for k in BLOCK_KERNELS}
+    got = {k: kernels.LAUNCHES[k] for k in want}
+    check(got == want and kernels.LAUNCHES["attn_bwd"] == 0,
+          f"parity under the block switch: launches "
+          f"{dict(kernels.LAUNCHES)}, expected {want} and no attn_bwd")
 
 
 def _parity_one_step(use_pallas, transform, persp, cuda_env=None,

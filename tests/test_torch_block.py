@@ -1,0 +1,287 @@
+"""The port's fused half blocks (aphantasia_torch/ops/block.py) against the
+JAX package's pallas_block (interpret mode on the CPU), and the port's
+tower under APHANTASIA_FUSED_BLOCK=1 against the JAX tower.
+
+Sizes are the JAX test's (tests/test_pallas_block.py): t = 10 tokens,
+D = 32, 2 heads, JAX row blocks of BB = 4 samples, `_block_init` weights
+converted by convert.py; inputs are numpy draws from seeds.  8 samples
+fill two JAX blocks; 3 samples leave a ragged one that JAX pads.
+
+Tolerances.  float32: the JAX test's, values within 2e-5 and dx within
+rtol 2e-4, atol 2e-5.  bf16: within one bf16 step of the largest entry
+(2^-7 relative), and at most 2% of the entries may differ at all.  Both
+sides round at the same points, so only a float32 sum taken in another
+order can flip a rounding (on the CPU they agree bit for bit at these
+sizes); a plain backward that rounded dh or da to bf16 changes 16-40% of
+the dx entries by one step.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from aphantasia_tpu.models.clip import model as jm
+from aphantasia_tpu.ops import pallas_attn as jattn
+from aphantasia_tpu.ops import pallas_block as jb
+from aphantasia_torch.convert import clip_params_from_numpy
+from aphantasia_torch.models.clip import model as tm
+from aphantasia_torch.ops import block as tb
+
+from _torch_parity import tree_np
+
+T, BB, D, NH = 10, 4, 32, 2
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(scope="module")
+def blocks():
+    """Two blocks' params: JAX (float32) and the port's (float32)."""
+    jps = [jm._block_init(jax.random.PRNGKey(k), D) for k in (0, 9)]
+    return jps, [clip_params_from_numpy(tree_np(p)) for p in jps]
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _inputs(rows, seed=1):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(rows, D).astype(np.float32),
+            rs.randn(rows, D).astype(np.float32))
+
+
+def _jax_fn(which, p):
+    a, m = p["attn"], p["mlp"]
+    if which == "attn":
+        return lambda v: jb.attn_half(v, p["ln_1"]["g"], p["ln_1"]["b"],
+                                      a["in_w"], a["in_b"], a["out_w"],
+                                      a["out_b"], NH, T, BB)
+    if which == "mlp":
+        return lambda v: jb.mlp_half(v, p["ln_2"]["g"], p["ln_2"]["b"],
+                                     m["fc_w"], m["fc_b"], m["proj_w"],
+                                     m["proj_b"], min(BB * T, 128))
+    return lambda v: jb.resblock_flat_fused(v, p, NH, T, BB)
+
+
+def _torch_fn(which, p):
+    a, m = p["attn"], p["mlp"]
+    if which == "attn":
+        return lambda v: tb.attn_half(v, p["ln_1"]["g"], p["ln_1"]["b"],
+                                      a["in_w"], a["in_b"], a["out_w"],
+                                      a["out_b"], NH, T)
+    if which == "mlp":
+        return lambda v: tb.mlp_half(v, p["ln_2"]["g"], p["ln_2"]["b"],
+                                     m["fc_w"], m["fc_b"], m["proj_w"],
+                                     m["proj_b"])
+    return lambda v: tb.resblock_flat_fused(v, p, NH, T)
+
+
+def _assert_bf16_close(got, want):
+    got, want = _np(got), _np(want)
+    err = np.abs(got - want)
+    assert err.max() <= 2.0 ** -7 * np.abs(want).max(), err.max()
+    assert (err > 0).mean() <= 0.02, (err > 0).mean()
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("samples", [8, 3])
+@pytest.mark.parametrize("which", ["attn", "mlp", "block"])
+def test_fused_halves_match_jax(blocks, which, samples, dt):
+    """Forward and dx of attn_half, mlp_half and resblock_flat_fused
+    (plain versions on the CPU) against the JAX kernels in interpret
+    mode."""
+    jd, td = DTYPES[dt]
+    jps, tps = blocks
+    tp = tm.cast_weights(tps[0], td)
+    x, co = _inputs(samples * T)
+    y_j, vjp = jax.vjp(_jax_fn(which, jps[0]), jnp.asarray(x).astype(jd))
+    (g_j,) = vjp(jnp.asarray(co).astype(jd))
+    xt = torch.tensor(x).to(td).requires_grad_(True)
+    y_t = _torch_fn(which, tp)(xt)
+    (g_t,) = torch.autograd.grad(y_t, xt, torch.tensor(co).to(td))
+    assert y_t.dtype == td and g_t.dtype == td
+    assert y_t.shape == xt.shape
+    if dt == "float32":
+        np.testing.assert_allclose(_np(y_t), _np(y_j), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(_np(g_t), _np(g_j), rtol=2e-4, atol=2e-5)
+    else:
+        _assert_bf16_close(y_t, y_j)
+        _assert_bf16_close(g_t, g_j)
+
+
+@pytest.mark.parametrize("which", ["attn", "mlp"])
+def test_plain_backward_is_the_vjp_of_the_plain_forward(blocks, which):
+    """The closed-form plain backward equals autograd's transpose of the
+    plain forward, float32, within 1e-5 of the largest entry."""
+    p = blocks[1][1]
+    x, co = _inputs(6 * T, seed=5)
+    xt = torch.tensor(x, requires_grad=True)
+    cot = torch.tensor(co)
+    if which == "attn":
+        a = p["attn"]
+        ws = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"],
+              a["out_w"])
+        y, inv = tb.attn_half_fwd_plain(xt, *ws, a["out_b"], NH, T)
+        got = tb.attn_half_bwd_plain(xt.detach(), cot, inv.detach(), *ws,
+                                     NH, T)
+    else:
+        m = p["mlp"]
+        ws = (p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"], m["fc_b"],
+              m["proj_w"])
+        y = tb.mlp_half_fwd_plain(xt, *ws, m["proj_b"])
+        got = tb.mlp_half_bwd_plain(xt.detach(), cot, *ws)
+    (want,) = torch.autograd.grad(y, xt, cot)
+    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [17, 50, 197, 257])
+def test_flat_geometry_matches_jax(monkeypatch, t, dt):
+    """The gate of the fused path: open for t = 50 (ViT-B/32) and the tiny
+    test towers' 17, shut for ViT-B/16's 197 and ViT-L/14's 257."""
+    monkeypatch.delenv("APHANTASIA_ATTN_ROWS", raising=False)
+    jd, td = DTYPES[dt]
+    want = jattn.flat_geometry(t, jd)
+    assert tb.flat_geometry(t, td) == want
+    assert (want is None) == (t in (197, 257))
+
+
+def test_transformer_flat_under_the_switch_matches_jax(blocks, monkeypatch):
+    """Two blocks through transformer_flat with APHANTASIA_FUSED_BLOCK=1 on
+    both sides (each reads it per call): the port runs
+    block.resblock_flat_fused once a block, JAX its fused kernels in
+    interpret mode.  Forward and dx at the float32 tolerances."""
+    jps, tps = blocks
+    calls = []
+    fused = tb.resblock_flat_fused
+
+    def counted(*a, **k):
+        calls.append(tuple(a[0].shape))
+        return fused(*a, **k)
+    monkeypatch.setattr(tb, "resblock_flat_fused", counted)
+    monkeypatch.setenv("APHANTASIA_FUSED_BLOCK", "1")
+    x, co = _inputs(3 * T, seed=7)
+    y_j, vjp = jax.vjp(lambda v: jm.transformer_flat(v, jps, NH, T),
+                       jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(co))
+    xt = torch.tensor(x, requires_grad=True)
+    y_t = tm.transformer_flat(xt, tps, NH, T)
+    (g_t,) = torch.autograd.grad(y_t, xt, torch.tensor(co))
+    assert calls == [(3 * T, D)] * 2
+    np.testing.assert_allclose(_np(y_t), _np(y_j), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(g_t), _np(g_j), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,fused", [(50, True), (197, False),
+                                     (257, False)])
+def test_switch_takes_the_fused_path_only_where_the_gate_opens(
+        blocks, monkeypatch, t, fused, dt):
+    """Under the switch ViT-B/32's t = 50 runs the fused halves; ViT-B/16's
+    197 and ViT-L/14's 257 keep the unfused blocks; without the switch no
+    block is fused."""
+    calls = []
+    monkeypatch.setattr(tb, "resblock_flat_fused",
+                        lambda *a: calls.append(1) or a[0])
+    p = tm.cast_weights(blocks[1][0], dt)
+    x = torch.zeros((2 * t, D), dtype=dt)
+    monkeypatch.setenv("APHANTASIA_FUSED_BLOCK", "1")
+    tm.transformer_flat(x, [p], NH, t)
+    assert calls == ([1] if fused else [])
+    monkeypatch.delenv("APHANTASIA_FUSED_BLOCK")
+    tm.transformer_flat(x, [p], NH, t)
+    assert len(calls) == int(fused)
+
+
+CFG_KW = dict(name="tiny", embed_dim=32, image_resolution=32,
+              vision_layers=2, vision_width=128, vision_patch_size=8,
+              transformer_width=64, transformer_heads=2, transformer_layers=2)
+
+
+def test_image_tower_under_the_block_switch_matches_jax(monkeypatch):
+    """61 cutouts of 17 tokens at width 128: under APHANTASIA_FUSED_BLOCK=1
+    the port's 2 vision blocks run resblock_flat_fused (plain versions on
+    the CPU).  On the CPU the JAX tower keeps its unfused [B, T, D] stream
+    (its flat branch needs the TPU), so it is the reference here; the
+    halves are held against pallas_block above.  Forward and image
+    gradient, 1e-4 relative to the largest entry."""
+    jcfg, tcfg = jm.CLIPConfig(**CFG_KW), tm.CLIPConfig(**CFG_KW)
+    jp = jm.clip_init(jax.random.PRNGKey(0), jcfg)
+    tp = clip_params_from_numpy(tree_np(jp))
+    calls = []
+    fused = tb.resblock_flat_fused
+
+    def counted(*a, **k):
+        calls.append(tuple(a[0].shape))
+        return fused(*a, **k)
+    monkeypatch.setattr(tb, "resblock_flat_fused", counted)
+    monkeypatch.setenv("APHANTASIA_FUSED_BLOCK", "1")
+    x = np.random.RandomState(3).randn(61, 3, 32, 32).astype(np.float32)
+    co = np.random.RandomState(4).randn(61, 32).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda im: jm.encode_image(jp, jcfg, im),
+                         jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(co))
+    xt = torch.tensor(x, requires_grad=True)
+    out_t = tm.encode_image(tp, tcfg, xt)
+    (g_t,) = torch.autograd.grad(out_t, xt, torch.tensor(co))
+    assert calls == [(61 * 17, 128)] * 2
+    for got, want in ((out_t, out_j), (g_t, g_j)):
+        want = _np(want)
+        np.testing.assert_allclose(_np(got), want,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(blocks):
+    """The checks run before any kernel is built, so they hold here; a
+    tensor on neither the CPU nor a CUDA device has no path at all."""
+    p = blocks[1][1]
+    a, m = p["attn"], p["mlp"]
+    g, b = p["ln_1"]["g"], p["ln_1"]["b"]
+    aw = (g, b, a["in_w"], a["in_b"], a["out_w"], a["out_b"])
+    mw = (g, b, m["fc_w"], m["fc_b"], m["proj_w"], m["proj_b"])
+    x = torch.zeros((3 * T, D))
+    with pytest.raises(TypeError):
+        tb.attn_half_fwd_kernel(x.half(), *aw, NH, T)
+    with pytest.raises(TypeError):
+        tb.mlp_half_fwd_kernel(x[None], *mw)
+    with pytest.raises(ValueError):          # rows not a multiple of t
+        tb.attn_half_fwd_kernel(x[:25], *aw, NH, T)
+    with pytest.raises(ValueError):          # width not split by the heads
+        tb.attn_half_fwd_kernel(x, *aw, 3, T)
+    with pytest.raises(ValueError):          # width not a multiple of 8
+        tb.mlp_half_fwd_kernel(torch.zeros((30, 36)), *mw)
+    with pytest.raises(ValueError):          # a weight of the wrong shape
+        tb.mlp_half_bwd_kernel(x, x, g, b, m["fc_w"][:, :64], m["fc_b"],
+                               m["proj_w"])
+    with pytest.raises(ValueError):          # inv of the wrong shape
+        tb.attn_half_bwd_kernel(x, x, torch.zeros((30, 3)), *aw[:5], NH, T)
+    with pytest.raises(ValueError):          # a weight on another device
+        tb.mlp_half_fwd_kernel(x, g, b, m["fc_w"].to("meta"), *mw[3:])
+    with pytest.raises(RuntimeError):
+        tb.attn_half(x.to("meta"), *aw, NH, T)
+
+
+def test_library_names_follow_the_source_and_the_shared_headers(
+        tmp_path, monkeypatch):
+    """csrc/block.cu and csrc/cutout_win.cu include csrc/mma.cuh: a
+    library's file name hashes its source and every header, so an edit to
+    either rebuilds it and a stale library never loads."""
+    from aphantasia_torch import kernels
+    for name in ("block", "cutout_win"):
+        src = open(f"{kernels.CSRC}/{name}.cu").read()
+        assert '#include "mma.cuh"' in src
+    monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
+    (tmp_path / "a.cu").write_text("int a;")
+    (tmp_path / "h.cuh").write_text("int h;")
+    names = [kernels._lib_path("a")]
+    (tmp_path / "h.cuh").write_text("int h2;")
+    names.append(kernels._lib_path("a"))
+    (tmp_path / "a.cu").write_text("int a2;")
+    names.append(kernels._lib_path("a"))
+    assert len(set(names)) == 3
+    assert all(n.endswith(".so") and "/liba-" in n for n in names)

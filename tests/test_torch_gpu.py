@@ -20,7 +20,11 @@ sum in float32 and round the intermediate to bf16 once, so a sum near a
 rounding boundary may round the other way: one bf16 step); LayerNorm
 1e-5 relative in float32 and 2^-7 in bf16 on y and dx (one rounding of
 the output each), 1e-5 relative on dg and db (float32 sums in another
-order).
+order); fused half blocks 1e-4 relative in float32 (products summed in
+another order through a chain of up to six) and 2^-6 in bf16 (both sides
+round at the same points, but a sum in another order can flip an
+intermediate rounding, which the output's own rounding may show again:
+two bf16 steps), on y, inv and dx.
 """
 import itertools
 
@@ -29,6 +33,7 @@ import torch
 
 from aphantasia_torch import kernels
 from aphantasia_torch.ops import attention as A
+from aphantasia_torch.ops import block as BL
 from aphantasia_torch.ops import cutout as C
 from aphantasia_torch.ops import cutout_win as W
 from aphantasia_torch.ops import ln as L
@@ -37,6 +42,7 @@ from aphantasia_torch.ops import shift as SH
 from aphantasia_torch.ops.perspective import (perspective_coeffs,
                                               perspective_endpoints,
                                               rotation_coeffs_for)
+from aphantasia_torch.models.clip.model import cast_weights
 from aphantasia_torch.ops.sampler import Boxes, CutoutSampler
 
 pytestmark = pytest.mark.gpu
@@ -280,3 +286,72 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         W.windowed_cut_fwd_kernel(img, boxes, wyw[:, :, :8], wxt, 32,
                                   torch.float32)
+
+
+def _block(cuda, rows, d, dtype):
+    """x, dy [rows, d] and one block's params at the `_block_init` scales
+    with non-zero biases (g, b float32; the rest in `dtype`)."""
+    def n(*shape, std=1.0):
+        return torch.randn(shape, generator=cuda, device="cuda") * std
+
+    def ln():
+        return {"g": 1.0 + n(d, std=0.1), "b": n(d, std=0.1)}
+    p = {"ln_1": ln(), "ln_2": ln(),
+         "attn": {"in_w": n(d, 3 * d, std=d ** -0.5),
+                  "in_b": n(3 * d, std=0.02),
+                  "out_w": n(d, d, std=d ** -0.5), "out_b": n(d, std=0.02)},
+         "mlp": {"fc_w": n(d, 4 * d, std=(2 * d) ** -0.5),
+                 "fc_b": n(4 * d, std=0.02),
+                 "proj_w": n(4 * d, d, std=d ** -0.5),
+                 "proj_b": n(d, std=0.02)}}
+    return n(rows, d).to(dtype), n(rows, d).to(dtype), cast_weights(p, dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2 ** -6)])
+@pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
+                                            (91, 13, 40, 2)])
+def test_block_kernels_match_plain(cuda, dtype, tol, rows, t, d, heads):
+    """The four half-block kernels against their plain versions through
+    attn_half / mlp_half (forward, dx), each launched once a call; 91 rows
+    and a width of 40 fill no tile."""
+    x, dy, p = _block(cuda, rows, d, dtype)
+    a, m = p["attn"], p["mlp"]
+    aw = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"], a["out_w"])
+    mw = (p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"], m["fc_b"], m["proj_w"])
+    names = ("block_attn_fwd", "block_attn_bwd", "block_mlp_fwd",
+             "block_mlp_bwd")
+    before = [kernels.LAUNCHES[k] for k in names]
+    xa = x.clone().requires_grad_(True)
+    ya = BL.attn_half(xa, *aw, a["out_b"], heads, t)
+    (ga,) = torch.autograd.grad(ya, xa, dy)
+    xm = x.clone().requires_grad_(True)
+    ym = BL.mlp_half(xm, *mw, m["proj_b"])
+    (gm,) = torch.autograd.grad(ym, xm, dy)
+    assert [kernels.LAUNCHES[k] - n for k, n in zip(names, before)] == [1] * 4
+    yr, inv = BL.attn_half_fwd_plain(x, *aw, a["out_b"], heads, t)
+    _, inv_k = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
+    assert ya.dtype == dtype and ga.dtype == dtype
+    assert _rel(ya, yr) <= tol and _rel(inv_k, inv) <= tol
+    assert _rel(ga, BL.attn_half_bwd_plain(x, dy, inv_k, *aw, heads, t)) <= tol
+    assert _rel(ym, BL.mlp_half_fwd_plain(x, *mw, m["proj_b"])) <= tol
+    assert _rel(gm, BL.mlp_half_bwd_plain(x, dy, *mw)) <= tol
+
+
+def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, dy, p = _block(cuda, 30, 32, torch.float32)
+    a, m = p["attn"], p["mlp"]
+    aw = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"], a["out_w"],
+          a["out_b"])
+    mw = (p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"], m["fc_b"], m["proj_w"],
+          m["proj_b"])
+    with pytest.raises(TypeError):
+        BL.attn_half(x.half(), *aw, 2, 10)
+    with pytest.raises(TypeError):
+        BL.mlp_half(x.double(), *mw)
+    with pytest.raises(ValueError):      # rows not a multiple of t
+        BL.attn_half(x, *aw, 2, 7)
+    with pytest.raises(ValueError):      # width not split by the heads
+        BL.attn_half(x, *aw, 3, 10)
+    with pytest.raises(ValueError):      # width not a multiple of 8
+        BL.mlp_half_fwd_kernel(torch.zeros((30, 36), device="cuda"), *mw)
