@@ -1,18 +1,20 @@
-"""Short-sequence attention core over the merged-qkv stream, as a
-hand-written CUDA kernel pair (csrc/attention.cu), with its plain PyTorch
-version beside it.
+"""Multi-head attention core over the merged-qkv stream, as a hand-written
+CUDA kernel pair (csrc/attention.cu), with its plain PyTorch version
+beside it.
 
 Counterpart of aphantasia_tpu/ops/pallas_attn.py: `attention_core_flat`
 (the vision tower's flat [b*t, 3D] stream) and `attention_core` (the
 [B, T, 3D] layout with `causal` and `valid_t`) keep their JAX signatures
 and share one kernel, because the two layouts are the same memory.  The
 JAX package pads tokens and merges samples to fit the TPU's tiles
-(`flat_geometry`, `_pad_bt`, `_merged_bias`); the CUDA kernel runs one
-block per (sample, head) at the real token count, so none of that exists
-here.
+(`flat_geometry`, `_pad_bt`, `_merged_bias`); the CUDA kernels tile each
+(sample, head) at its real token count, so none of that exists here.
 
-`attention()` launches the kernels for a CUDA tensor and runs
-`attention_plain` for a CPU tensor; anything else raises.
+The kernel is chosen by dtype, once: bf16 runs the tensor-core tiles
+(head width 64, any token count), float32 the scalar kernels (whose
+shared memory grows with t).  `attention()` launches the kernels for a
+CUDA tensor and runs `attention_plain` for a CPU tensor; anything else
+raises.
 """
 from __future__ import annotations
 
@@ -52,7 +54,10 @@ def attention_plain(qkv, n_heads, t, causal=False, valid_t=None):
     return o.reshape(r, d).to(qkv.dtype)
 
 
-def _check(qkv, n_heads, t):
+_BF16_HD = 64          # the head width of the bf16 tensor-core tiles
+
+
+def _check(qkv, n_heads, t, valid_t=None):
     if qkv.dtype not in (torch.float32, torch.bfloat16) or qkv.ndim != 2:
         raise TypeError("attention kernel takes a bf16/float32 [R, 3D] "
                         f"stream, got {qkv.dtype} {tuple(qkv.shape)}")
@@ -60,25 +65,36 @@ def _check(qkv, n_heads, t):
     if d3 % 3 or (d3 // 3) % n_heads or r % t:
         raise ValueError(f"attention: [R={r}, 3D={d3}] does not split into "
                          f"{n_heads} heads and samples of t={t}")
+    if valid_t is not None and not 1 <= valid_t <= t:
+        raise ValueError(f"attention: valid_t={valid_t} outside [1, {t}]")
 
 
-def _smem_ok(lib, t, hd, backward):
+def _fits(lib, qkv, n_heads, t, backward):
+    """Refuse a shape the dtype's kernel does not take: the bf16 tiles take
+    head width 64 only; the float32 kernels hold two [t, hd] matrices in
+    shared memory, which caps t."""
+    hd = qkv.shape[1] // 3 // n_heads
+    if qkv.dtype == torch.bfloat16:
+        if hd != _BF16_HD:
+            raise ValueError(f"bf16 attention kernel takes head width "
+                             f"{_BF16_HD}, got {hd}")
+        return
     need = lib.attn_smem_bytes(t, hd, int(backward))
     if need > _SMEM_LIMIT:
-        raise ValueError(f"attention kernel needs {need} bytes of shared "
-                         f"memory at t={t}, hd={hd}; the limit is "
+        raise ValueError(f"float32 attention kernel needs {need} bytes of "
+                         f"shared memory at t={t}, hd={hd}; the limit is "
                          f"{_SMEM_LIMIT}")
 
 
 def attention_fwd_kernel(qkv, n_heads, t, causal=False, valid_t=None):
     """Launch the forward kernel: (out [R, D] in qkv's dtype,
     lse [R, n_heads] float32)."""
-    _check(qkv, n_heads, t)
-    qkv = qkv.contiguous()
+    _check(qkv, n_heads, t, valid_t)
+    qkv = kernels.aligned(qkv)
     r, d3 = qkv.shape
     d = d3 // 3
     lib = kernels.library("attention", _SIGNATURES)
-    _smem_ok(lib, t, d // n_heads, False)
+    _fits(lib, qkv, n_heads, t, False)
     out = torch.empty((r, d), device=qkv.device, dtype=qkv.dtype)
     lse = torch.empty((r, n_heads), device=qkv.device, dtype=torch.float32)
     code = lib.attn_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -92,14 +108,17 @@ def attention_fwd_kernel(qkv, n_heads, t, causal=False, valid_t=None):
 
 def attention_bwd_kernel(qkv, dout, out, lse, n_heads, t, causal=False,
                          valid_t=None):
-    """Launch the backward kernel: dqkv [R, 3D] in qkv's dtype."""
-    _check(qkv, n_heads, t)
-    qkv = qkv.contiguous()
-    dout = dout.to(qkv.dtype).contiguous()
+    """Launch the backward kernel (bf16: two launches, dq then dk and dv,
+    counted once): dqkv [R, 3D] in qkv's dtype."""
+    _check(qkv, n_heads, t, valid_t)
+    qkv = kernels.aligned(qkv)
+    dout = kernels.aligned(dout.to(qkv.dtype))
+    out = kernels.aligned(out.to(qkv.dtype))
+    lse = lse.float().contiguous()
     r, d3 = qkv.shape
     d = d3 // 3
     lib = kernels.library("attention", _SIGNATURES)
-    _smem_ok(lib, t, d // n_heads, True)
+    _fits(lib, qkv, n_heads, t, True)
     dqkv = torch.empty_like(qkv)
     code = lib.attn_bwd(qkv.data_ptr(), dout.data_ptr(), out.data_ptr(),
                         lse.data_ptr(), dqkv.data_ptr(), r // t, t, n_heads,

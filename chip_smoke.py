@@ -21,19 +21,20 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            APHANTASIA_WIN_CUTOUT=1 and APHANTASIA_PALLAS_LN=1, ViT-L/14 with
            both and ViT-L/14 without them; then the fused half blocks'
            path: ViT-B/32 with APHANTASIA_FUSED_BLOCK=1, alone and with the
-           other two switches.  The launch counts are set to 0
-           just before each run and read just after, and must equal the
-           counts the path implies.  Steps/s is the median of the steps
-           after the first.
+           other two switches; last, the ViT-L/14@336px image tower (577
+           tokens) at full width, one bf16 forward and backward.  The
+           launch counts are set to 0 just before each run and read just
+           after, and must equal the counts the path implies.  Steps/s is
+           the median of the steps after the first.
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
            (kernel shift) transforms, and for `none` under the cutout and
            LayerNorm switches and under the block switch.
   profile  (only when asked for) torch.profiler over steady steps of both
-           cutout paths, the four augmentation paths of `main` and the
-           switches' paths on ViT-B/32 and ViT-L/14, and the fused-block
-           path on ViT-B/32: device time by kernel,
+           cutout paths, the four augmentation paths of `main`, the
+           switches' paths on ViT-B/32 and ViT-L/14, ViT-L/14 without them,
+           and the fused-block path on ViT-B/32: device time by kernel,
            kernel launches per step and the device busy share.
 
 The last three lines of standard output are one JSON object describing
@@ -48,6 +49,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -153,6 +155,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Mean device time of the kernels `fn` launches, per call: the self
+    device time torch.profiler records over `iters` calls (after `warmup`),
+    over `iters`.  Unlike `cuda_ms` it counts no time the card waits for
+    the host between launches.  None when the profiler records no device
+    time (its CUPTI tracing is not available on every machine): the CUDA
+    event times of `cuda_ms` then stand alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """The least time (ms) the card could take: the larger of the bytes over
     the memory rate and the operations over the peak rate of their type."""
@@ -180,17 +209,23 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
     out, lse = A.attention_fwd_kernel(qkv, heads, t, causal, valid_t)
     dqkv = A.attention_bwd_kernel(qkv, dout, out, lse, heads, t, causal,
                                   valid_t)
+    again = A.attention_bwd_kernel(qkv, dout, out, lse, heads, t, causal,
+                                   valid_t)
     q_req = qkv.clone().requires_grad_(True)
     ref = A.attention_plain(q_req, heads, t, causal, valid_t)
     (dref,) = torch.autograd.grad(ref, q_req, dout)
     torch.cuda.synchronize()
+    check(torch.equal(again, dqkv),
+          f"attention bwd {dtype} t={t}: two launches differ")
     vt = valid_t or t
     rowmask = (torch.arange(rows, device="cuda") % t) < vt
     fe, fs = max_err(out[rowmask], ref.detach()[rowmask])
     ge, gs = max_err(dqkv, dref)
-    # bf16: both sides compute in float32 from the same bf16 inputs and
-    # round once at the end, so they differ by a rounding step of the
-    # output (2^-8 relative) plus float32 sum-order noise
+    # bf16: both sides read the same bf16 inputs and sum in float32; the
+    # kernel rounds p (and ds) to bf16 before their products, as the TPU
+    # kernel does, and each side rounds its output once, so they part by a
+    # rounding step of the output (2^-8 relative) plus p's roundings, at
+    # most 2^-9 of each term and of random sign (tests/test_torch_gpu.py)
     tol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-5
     res = {"fwd_err": fe, "fwd_scale": fs, "grad_err": ge, "grad_scale": gs,
            "tol_rel": tol}
@@ -205,10 +240,17 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
     import torch.nn.functional as F
     b = rows // t
     hd = d // heads
-    res["ms_fwd"] = cuda_ms(lambda: A.attention_fwd_kernel(
-        qkv, heads, t, causal, valid_t))
-    res["ms_bwd"] = cuda_ms(lambda: A.attention_bwd_kernel(
-        qkv, dout, out, lse, heads, t, causal, valid_t))
+
+    def kern_fwd():
+        return A.attention_fwd_kernel(qkv, heads, t, causal, valid_t)
+
+    def kern_bwd():
+        return A.attention_bwd_kernel(qkv, dout, out, lse, heads, t, causal,
+                                      valid_t)
+    res["ms_fwd"] = cuda_ms(kern_fwd)
+    res["ms_bwd"] = cuda_ms(kern_bwd)
+    res["dev_fwd"] = device_ms(kern_fwd)
+    res["dev_bwd"] = device_ms(kern_bwd)
     res["plain_fwd"] = cuda_ms(lambda: A.attention_plain(
         qkv, heads, t, causal, valid_t))
     plain_fb = cuda_ms(lambda: torch.autograd.grad(
@@ -220,8 +262,14 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
     res["lib_fwd"] = cuda_ms(lambda: sdpa(qkv))
     do4 = dout.reshape(b, t, heads, hd).permute(0, 2, 1, 3)
-    lib_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(q_req), q_req, do4))
-    res["lib_bwd"] = max(lib_fb - res["lib_fwd"], 0.0)
+
+    def lib_fb():
+        return torch.autograd.grad(sdpa(q_req), q_req, do4)
+    res["lib_bwd"] = max(cuda_ms(lib_fb) - res["lib_fwd"], 0.0)
+    res["dev_lib_fwd"] = device_ms(lambda: sdpa(qkv))
+    lib_fb_dev = device_ms(lib_fb)
+    res["dev_lib_bwd"] = (None if None in (lib_fb_dev, res["dev_lib_fwd"])
+                          else max(lib_fb_dev - res["dev_lib_fwd"], 0.0))
     es = qkv.element_size()
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     pairs = b * heads * (t * (t + 1) // 2 if causal else t * vt)
@@ -679,6 +727,17 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     return res
 
 
+def entry_name(line: str) -> str:
+    """The kernel a ptxas `Compiling entry function '<mangled>'` line
+    names: the length-prefixed part of the mangled name that ends in
+    `_kernel`, else the line's first 48 characters."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", line):
+        n, rest = int(m.group(1)), m.group(2)
+        if len(rest) >= n and rest[:n].endswith("_kernel"):
+            return rest[:n]
+    return line.strip()[:48]
+
+
 def phase_kernels(report):
     import torch
     from aphantasia_torch import kernels
@@ -687,9 +746,13 @@ def phase_kernels(report):
     print(f"[kernels] built {', '.join(kernels.SOURCES)} in "
           f"{time.time() - t0:.1f} s")
     for name, log in kernels.BUILD_LOGS.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[kernels] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = entry_name(line)
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"[kernels] {name}: {fn}: {line.strip()}")
+    bf16 = torch.bfloat16
     cases = [
         ("vision flat bf16", dict(rows=10000, t=50, d=768, heads=12,
                                   dtype=torch.bfloat16, timed=True)),
@@ -709,6 +772,22 @@ def phase_kernels(report):
         ("vit-b/16 47x197x2304 bf16", dict(rows=47 * 197, t=197, d=768,
                                            heads=12, dtype=torch.bfloat16,
                                            timed=True)),
+        # the bf16 tensor-core tiles: one row short of, exactly and one
+        # row past a 64-row tile, three key tiles with valid_t inside the
+        # second, the text tower, ViT-L/14's main path and the 336 px tower
+        ("t=63 bf16", dict(rows=8 * 63, t=63, d=768, heads=12, dtype=bf16)),
+        ("t=64 bf16", dict(rows=8 * 64, t=64, d=768, heads=12, dtype=bf16)),
+        ("t=65 bf16", dict(rows=8 * 65, t=65, d=768, heads=12, dtype=bf16)),
+        ("t=129 valid_t=100 bf16", dict(rows=8 * 129, t=129, d=768,
+                                        heads=12, dtype=bf16, valid_t=100)),
+        ("text causal 1x77x1536 bf16", dict(rows=77, t=77, d=512, heads=8,
+                                            dtype=bf16, causal=True,
+                                            timed=True)),
+        ("vit-l/14 7x257x3072 bf16", dict(rows=7 * 257, t=257, d=1024,
+                                          heads=16, dtype=bf16, timed=True)),
+        ("vit-l/14@336 4x577x3072 bf16", dict(rows=4 * 577, t=577, d=1024,
+                                              heads=16, dtype=bf16,
+                                              timed=True)),
     ]
     for label, kw in cases:
         r = check_attention(**kw)
@@ -720,8 +799,9 @@ def phase_kernels(report):
             continue
         for k in ("fwd", "bwd"):
             print(f"[kernels] attention {k} {label}: kernel "
-                  f"{r['ms_' + k]:.4f} ms, plain {r['plain_' + k]:.4f} ms, "
-                  f"sdpa {r['lib_' + k]:.4f} ms, bound "
+                  f"{r['ms_' + k]:.4f} ms (device {fmt_ms(r['dev_' + k])}), "
+                  f"plain {r['plain_' + k]:.4f} ms, sdpa {r['lib_' + k]:.4f} "
+                  f"ms (device {fmt_ms(r['dev_lib_' + k])}), bound "
                   f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
         if label == "vision flat bf16":
             att = r
@@ -996,6 +1076,47 @@ def phase_main(report, steps: int):
               f"{1.0 / steady3[len(steady3) // 2]:.3f} steps/s on {name}; "
               f"losses {[round(x, 5) for x in res3.losses]}")
     phase_main_switches(report, steps)
+    phase_main_336()
+
+
+def phase_main_336(images: int = 4):
+    """ViT-L/14@336px at tower level (its CLI, illustra, is a later slice):
+    one bf16 forward and backward of the image tower at full width (24
+    layers of width 1024, 16 heads, 577 tokens) on `images` random images,
+    random weights from a seed.  Exactly one attention launch each way per
+    layer, finite embeddings and image gradient."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.models.clip.model import (CLIP_CONFIGS, cast_weights,
+                                                    clip_init, encode_image)
+    name = "ViT-L/14@336px"
+    cfg = CLIP_CONFIGS[name]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    vis = {"visual": cast_weights(clip_init(g, cfg)["visual"],
+                                  torch.bfloat16)}
+    res = cfg.image_resolution
+    x = torch.randn((images, 3, res, res), generator=g, device="cuda",
+                    requires_grad=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    emb = encode_image(vis, cfg, x, torch.bfloat16)
+    (gx,) = torch.autograd.grad(emb.float().square().sum(), x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    want = {"attn_fwd": cfg.vision_layers, "attn_bwd": cfg.vision_layers}
+    print(f"[main] {name} tower, {images} images of {res} px "
+          f"({(res // cfg.vision_patch_size) ** 2 + 1} tokens), bf16 forward "
+          f"and backward: launches {got}, {wall:.3f} s (first call) on "
+          f"{torch.cuda.get_device_name(0)}")
+    check(got == want, f"{name} tower: launches {got} != expected {want}")
+    check(tuple(emb.shape) == (images, cfg.embed_dim)
+          and bool(torch.isfinite(emb.float()).all())
+          and bool(torch.isfinite(gx).all()) and gx.abs().max().item() > 0,
+          f"{name} tower: embeddings or image gradient not finite")
+    del vis, emb, gx
+    torch.cuda.empty_cache()
 
 
 def phase_main_switches(report, steps: int):
@@ -1093,6 +1214,7 @@ PROFILE_PATHS = (
     ("(a) default, windowed cut only", [], WIN_ONLY),
     ("(b) ViT-L/14, both switches", ["-m", "ViT-L/14"], SWITCHES),
     ("(b) ViT-L/14, windowed cut only", ["-m", "ViT-L/14"], WIN_ONLY),
+    ("(c) ViT-L/14", ["-m", "ViT-L/14"], None),
     ("(d) ViT-B/32, fused block", [], FUSED),
 )
 

@@ -81,6 +81,21 @@ def test_kernel_wrappers_refuse_bad_input():
         A._check(torch.zeros(10, 48, dtype=torch.float16), 2, 5)
 
 
+def test_bf16_tiles_take_head_width_64_at_any_token_count():
+    """The dispatch is by dtype: a bf16 stream with head width 64 passes at
+    ViT-L/14@336px's t = 577 without asking the library (its shared memory
+    is bounded by the tile, not by t); another head width, or a valid_t
+    outside [1, t], is refused before any launch."""
+    bf = torch.bfloat16
+    assert A._fits(None, torch.zeros((2 * 577, 3 * 1024), dtype=bf), 16,
+                   577, True) is None
+    with pytest.raises(ValueError, match="head width"):
+        A._fits(None, torch.zeros((10, 3 * 64), dtype=bf), 2, 5, False)
+    with pytest.raises(ValueError, match="valid_t"):
+        A._check(torch.zeros((10, 3 * 128), dtype=bf), 2, 5, valid_t=6)
+    A._check(torch.zeros((10, 3 * 128), dtype=bf), 2, 5, valid_t=5)
+
+
 def test_cuda_tensor_never_falls_back(monkeypatch):
     """A CUDA tensor goes to the kernel (here: the autograd Function),
     never to the plain version."""

@@ -132,7 +132,6 @@ def test_vit_l14_shapes_match_jax(monkeypatch):
     sample budget leaves 7 cutouts of 257 tokens (1799 flat rows)."""
     from aphantasia_torch.cli.common import apply_sample_budget
     assert "ViT-L/14" in tm.PORTED_MODELS
-    assert "ViT-L/14@336px" not in tm.PORTED_MODELS
     name = "ViT-L/14"
     ref = jax.eval_shape(lambda k: jm.clip_init(k, jm.CLIP_CONFIGS[name]),
                          jax.random.PRNGKey(0))
@@ -146,11 +145,53 @@ def test_vit_l14_shapes_match_jax(monkeypatch):
     assert (cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1 == 257
 
 
+def test_vit_l14_336_shapes_match_jax(monkeypatch):
+    """ViT-L/14@336px is a ported tower (its CLI, illustra, is not): its
+    parameter tree has the JAX `clip_init` shapes (both trees shape-only,
+    as for ViT-L/14) and its images make 577 tokens, which the bf16
+    attention tiles take at any count."""
+    name = "ViT-L/14@336px"
+    assert name in tm.PORTED_MODELS
+    ref = jax.eval_shape(lambda k: jm.clip_init(k, jm.CLIP_CONFIGS[name]),
+                         jax.random.PRNGKey(0))
+    monkeypatch.setattr(torch, "randn", lambda shape, generator=None,
+                        device=None: torch.empty(shape, device="meta"))
+    mine = tm.clip_init(torch.Generator(), tm.CLIP_CONFIGS[name])
+    assert (jax.tree.map(lambda a: tuple(a.shape), mine)
+            == jax.tree.map(lambda a: tuple(a.shape), ref))
+    cfg = tm.CLIP_CONFIGS[name]
+    assert tm.input_resolution(name) == 336 == jm.input_resolution(name)
+    assert (cfg.image_resolution // cfg.vision_patch_size) ** 2 + 1 == 577
+
+
+def test_vit_at_the_336_geometry_matches_jax():
+    """`vit_encode` at ViT-L/14@336px's geometry (336 px images in 14 px
+    patches: 577 tokens) against the JAX tower, at a narrow width (one head
+    of 64) and 2 layers: embedding and image gradient, 1e-4 relative (the
+    module's float32 tolerance)."""
+    kw = dict(CFG_KW, image_resolution=336, vision_patch_size=14,
+              vision_width=64)
+    jcfg, tcfg = jm.CLIPConfig(**kw), tm.CLIPConfig(**kw)
+    jp = jm.clip_init(jax.random.PRNGKey(1), jcfg)
+    tp = clip_params_from_numpy(tree_np(jp))
+    x = np.random.RandomState(5).randn(2, 3, 336, 336).astype(np.float32)
+    co = np.random.RandomState(6).randn(2, 32).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda im: jm.encode_image(jp, jcfg, im),
+                         jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(co))
+    xt = torch.tensor(x, requires_grad=True)
+    out_t = tm.encode_image(tp, tcfg, xt)
+    (g_t,) = torch.autograd.grad(out_t, xt, torch.tensor(co))
+    assert (336 // 14) ** 2 + 1 == 577
+    _close(out_t.detach().numpy(), out_j)
+    _close(g_t.numpy(), g_j)
+
+
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.load_clip("RN50")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.load_clip("ViT-L/14@336px")
+        tm.load_clip("RN50x64")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.load_clip("ViT-B/32", weights_path="/nonexistent.pt")
     assert tm.input_resolution("RN50x4") == 288
