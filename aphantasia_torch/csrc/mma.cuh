@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core tiles:
 // asynchronous 16-byte copies into shared memory, ldmatrix fragment loads
 // and the mma.sync m16n8k16 product with float32 accumulators.  Included
-// by csrc/cutout_win.cu, csrc/block.cu and csrc/attn_tile.cuh (and so by
-// csrc/attention.cu); aphantasia_torch/kernels.py
+// by csrc/block.cu and csrc/attn_tile.cuh (and so by csrc/attention.cu);
+// aphantasia_torch/kernels.py
 // hashes every header of csrc/ into each library's name, so an edited
 // header rebuilds them.
 #pragma once

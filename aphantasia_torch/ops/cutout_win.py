@@ -23,7 +23,7 @@ import torch
 from aphantasia_torch import kernels
 
 _SIGNATURES = {
-    "win_cut_fwd": [kernels.PTR] * 6 + [kernels.INT] * 8 + [kernels.PTR],
+    "win_cut_fwd": [kernels.PTR] * 6 + [kernels.INT] * 11 + [kernels.PTR],
 }
 
 
@@ -45,6 +45,16 @@ def tier_plan(h: int, w: int, modsize: int):
     return plan
 
 
+def _per_tier(tier, values):
+    """values[tier] for a tier tensor and one Python int per tier, built
+    with torch.where on the tier's device (no table copied from the host,
+    so a CUDA graph can capture it)."""
+    out = torch.full_like(tier, values[-1])
+    for i, v in enumerate(values[:-1]):
+        out = torch.where(tier == i, v, out)
+    return out
+
+
 def window_bases(boxes, h: int, w: int, modsize: int):
     """Per-sample (tier, rb, cb) int32 tensors for tier_plan(h, w, m):
     rb = clip(floor16(offy - 2), 0, h - k_h), cb = clip(floor128(offx -
@@ -55,11 +65,8 @@ def window_bases(boxes, h: int, w: int, modsize: int):
     for i, (b, _, _) in enumerate(plan[:-1]):
         tier = torch.where(cs > b, i + 1, tier)
     wp = _round_up(w, 128)
-    dev = cs.device
-    k_h = torch.tensor([p[1] for p in plan], dtype=cs.dtype, device=dev)[
-        tier.long()]
-    k_w = torch.tensor([p[2] for p in plan], dtype=cs.dtype, device=dev)[
-        tier.long()]
+    k_h = _per_tier(tier, [p[1] for p in plan])
+    k_w = _per_tier(tier, [p[2] for p in plan])
     zero = torch.zeros_like(cs)
     rb = torch.div(boxes.offy - 2, 16, rounding_mode="floor") * 16
     rb = torch.minimum(torch.maximum(rb, zero), torch.clamp(h - k_h, min=0))
@@ -69,7 +76,7 @@ def window_bases(boxes, h: int, w: int, modsize: int):
 
 
 def windowed_cut_fwd_plain(img, boxes, wyw, wxt, modsize: int,
-                           compute_dtype=torch.bfloat16):
+                           compute_dtype=torch.bfloat16, bases=None):
     """Plain PyTorch version, tier by tier: gather the windows of the
     frame zero-padded to a multiple of 128 columns, then the two products
     summed in float32 from compute-dtype values, the first rounded to the
@@ -79,7 +86,7 @@ def windowed_cut_fwd_plain(img, boxes, wyw, wxt, modsize: int,
     s = boxes.csize.shape[0]
     m = modsize
     plan = tier_plan(h, w, m)
-    tier, rb, cb = window_bases(boxes, h, w, m)
+    tier, rb, cb = bases or window_bases(boxes, h, w, m)
     x = torch.nn.functional.pad(img.to(dt), (0, _round_up(w, 128) - w))
     out = torch.empty((s, c, m, m), dtype=torch.float32, device=img.device)
     for i, (_, k_h, k_w) in enumerate(plan):
@@ -96,18 +103,35 @@ def windowed_cut_fwd_plain(img, boxes, wyw, wxt, modsize: int,
     return out
 
 
-def _geometry(boxes, h, w, m, plan):
-    """[S,4] int32 (rb, cb, k_h, k_w) per sample, on the boxes' device."""
-    tier, rb, cb = window_bases(boxes, h, w, m)
-    dims = torch.tensor([p[1:] for p in plan], dtype=torch.int32,
-                        device=tier.device)[tier.long()]
-    return torch.stack([rb, cb, dims[:, 0], dims[:, 1]], 1).contiguous()
+def _geometry(bases, plan):
+    """[S,4] int32 (rb, cb, k_h, k_w) per sample from window_bases'
+    (tier, rb, cb), on their device."""
+    tier, rb, cb = bases
+    return torch.stack([rb, cb, _per_tier(tier, [p[1] for p in plan]),
+                        _per_tier(tier, [p[2] for p in plan])],
+                       1).contiguous()
+
+
+def tma_pad(t):
+    """`t` with its last axis zero-padded to a multiple of 8 elements, so
+    that every row starts on a 16-byte boundary, as a TMA tensor map
+    requires of its row strides; `t` itself when the axis is one already
+    (no copy).  The zero columns read as the zeros past the frame's edge
+    (or past a weight's last row) that the kernel reads anyway."""
+    n = t.shape[-1]
+    if n % 8 == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, _round_up(n, 8) - n))
 
 
 def windowed_cut_fwd_kernel(img, boxes, wyw, wxt, modsize: int,
-                            compute_dtype=torch.bfloat16):
+                            compute_dtype=torch.bfloat16, bases=None,
+                            t1=None):
     """Launch the kernel: float32 [S,C,M,M].  Both passes are one call,
-    counted once under `win_cut_fwd`."""
+    counted once under `win_cut_fwd`.  `bases` are window_bases(boxes,
+    ...) when the caller has them; `t1` may hand in the intermediate's
+    scratch ([S,C,KHmax,ceil8(M)] in the compute dtype), as the card tests
+    do to show that the kernel reads none of it before writing it."""
     dt = compute_dtype
     if dt not in (torch.float32, torch.bfloat16) or img.ndim != 3:
         raise TypeError("windowed cutout kernel takes a [C,H,W] frame in "
@@ -127,32 +151,47 @@ def windowed_cut_fwd_kernel(img, boxes, wyw, wxt, modsize: int,
         if t.device != img.device:
             raise ValueError("windowed cutout: frame, boxes and weights "
                              "must share a device")
-    # 16-byte aligned rows: the kernel reads 8 elements a load
-    img, wyw, wxt = (kernels.aligned(t.to(dt)) for t in (img, wyw, wxt))
-    geo = _geometry(boxes, h, w, m, plan)
-    t1 = torch.empty((s, c, kh_max, m), dtype=dt, device=img.device)
+    if bases is None:
+        bases = window_bases(boxes, h, w, m)
+    geo = _geometry(bases, plan)
+    img, wyw, wxt = (t.to(dt) for t in (img, wyw, wxt))
+    if dt == torch.bfloat16:
+        # TMA: 16-byte row strides, 16-byte aligned bases
+        img, wyw, wxt = (kernels.aligned(tma_pad(t)) for t in (img, wyw, wxt))
+    else:
+        # the float32 tiles read 8 elements a load
+        img, wyw, wxt = (kernels.aligned(t) for t in (img, wyw, wxt))
+    mp = wxt.shape[-1]
+    if t1 is None:
+        t1 = torch.empty((s, c, kh_max, mp), dtype=dt, device=img.device)
+    elif (tuple(t1.shape) != (s, c, kh_max, mp) or t1.dtype != dt
+          or not t1.is_contiguous() or t1.data_ptr() % 16):
+        raise ValueError(f"windowed cutout scratch {t1.dtype} "
+                         f"{tuple(t1.shape)} != {dt} {(s, c, kh_max, mp)}")
     out = torch.empty((s, c, m, m), dtype=torch.float32, device=img.device)
     lib = kernels.library("cutout_win", _SIGNATURES)
     code = lib.win_cut_fwd(img.data_ptr(), geo.data_ptr(), wyw.data_ptr(),
                            wxt.data_ptr(), t1.data_ptr(), out.data_ptr(),
-                           c, h, w, s, m, kh_max, kw_max,
-                           int(dt == torch.bfloat16), kernels.stream_ptr(img))
+                           c, h, w, img.shape[-1], s, m, mp, kh_max,
+                           wyw.shape[-1], kw_max, int(dt == torch.bfloat16),
+                           kernels.stream_ptr(img))
     kernels.check(lib, code, "win_cut_fwd")
     kernels.LAUNCHES["win_cut_fwd"] += 1
     return out
 
 
 def windowed_cut_fwd(img, boxes, wyw, wxt, modsize: int,
-                     compute_dtype=torch.bfloat16):
+                     compute_dtype=torch.bfloat16, bases=None):
     """img [C,H,W]; boxes (csize, offx, offy) int32 [S]; window-rebased
     weights wyw [S,M,KHmax] and pre-transposed wxt [S,KWmax,M] -> cuts
-    [S,C,M,M] float32.  CUDA tensors launch the kernel; CPU tensors run
-    `windowed_cut_fwd_plain`."""
+    [S,C,M,M] float32.  `bases`: window_bases(boxes, H, W, M), when the
+    caller has them already.  CUDA tensors launch the kernel; CPU tensors
+    run `windowed_cut_fwd_plain`."""
     if img.is_cuda:
         return windowed_cut_fwd_kernel(img, boxes, wyw, wxt, modsize,
-                                       compute_dtype)
+                                       compute_dtype, bases)
     if img.device.type == "cpu":
         return windowed_cut_fwd_plain(img, boxes, wyw, wxt, modsize,
-                                      compute_dtype)
+                                      compute_dtype, bases)
     raise RuntimeError(f"windowed cutout has no kernel for device "
                        f"{img.device}")

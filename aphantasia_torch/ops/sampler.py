@@ -113,9 +113,13 @@ class _WinCut(torch.autograd.Function):
         ctx.save_for_backward(csize, offx, offy)
         ctx.sampler, ctx.dt = sampler, dt
         ctx.w_first = img.shape[1] < img.shape[2]
-        wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dt)
+        h, w = sampler.frame_size
+        bases = window_bases(boxes, h, w, sampler.modsize)
+        wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dt,
+                                                    bases=bases)
         return windowed_cut_fwd(img.to(dt), boxes, wyw, wxt,
-                                sampler.modsize, compute_dtype=dt)
+                                sampler.modsize, compute_dtype=dt,
+                                bases=bases)
 
     @staticmethod
     def backward(ctx, g):
@@ -243,15 +247,16 @@ class CutoutSampler:
         yidx, yw, xidx, xw = self.tap_indices(boxes)
         return _dense_w(yidx, yw, h, dtype), _dense_w(xidx, xw, w, dtype)
 
-    def weight_matrices_windowed(self, boxes: Boxes, dtype=torch.float32):
+    def weight_matrices_windowed(self, boxes: Boxes, dtype=torch.float32,
+                                 bases=None):
         """Window-rebased weights of the windowed forward: Wy [S,M,KHmax]
         with the y-taps rebased to the sample's row base, and Wx
         pre-transposed [S,KWmax,M] with the x-taps rebased to its column
-        base (ops/cutout_win.py:window_bases).  The same taps as
-        weight_matrices."""
+        base (`bases`, ops/cutout_win.py:window_bases, computed here when
+        not given).  The same taps as weight_matrices."""
         h, w = self.frame_size
         yidx, yw, xidx, xw = self.tap_indices(boxes)
-        _, rb, cb = window_bases(boxes, h, w, self.modsize)
+        _, rb, cb = bases or window_bases(boxes, h, w, self.modsize)
         plan = tier_plan(h, w, self.modsize)
         wyw = _dense_w(yidx - rb[:, None, None], yw, plan[-1][1], dtype)
         wxt = _dense_w_t(xidx - cb[:, None, None], xw, plan[-1][2], dtype)

@@ -10,7 +10,11 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            source, all started together), then hold each kernel against its
            plain PyTorch version on the card, forward and gradient, at the
            shapes of the main path, and time kernel, plain version and the
-           PyTorch library call that computes the same function.
+           PyTorch library call that computes the same function: CUDA
+           events around back-to-back calls, and for the kernels (and the
+           library calls of the windowed cutout and the LayerNorm) the
+           device time of the same calls replayed from a CUDA graph
+           (`graph_ms`, no profiler needed).
   main     `aphantasia_torch.cli.clip_fft.run` at full width (ViT-B/32 with
            random weights, 1280x720, 200 samples, `--pallas`), then the same
            run without `--pallas` (the default einsum cutout), then with
@@ -100,6 +104,7 @@ BLOCK_KERNELS = ("block_attn_fwd", "block_attn_bwd", "block_mlp_fwd",
 # the switches of the windowed cutout and the fused LayerNorm, and of the
 # fused half blocks
 SWITCHES = {"APHANTASIA_WIN_CUTOUT": "1", "APHANTASIA_PALLAS_LN": "1"}
+WIN_ONLY = {"APHANTASIA_WIN_CUTOUT": "1"}
 FUSED = {"APHANTASIA_FUSED_BLOCK": "1"}
 
 
@@ -153,6 +158,65 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def capture(fn, iters: int = 1, warmup: int = 3):
+    """(graph, result of the last captured call): `fn` called `warmup`
+    times on a side stream, then `iters` calls captured into one CUDA
+    graph.  Raises if `fn` cannot be captured (a host sync, a pageable
+    host-to-device copy)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 5):
+    """Mean device time of `fn` per call, with no profiler: `iters` calls
+    captured into one CUDA graph (`capture`), replayed once to warm up,
+    then CUDA events around `replays` further replays.  A replay launches
+    the captured kernels back to back with no host work between them, so
+    this is the card's own time on any machine."""
+    import torch
+    graph, _ = capture(fn, iters, warmup)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of `fn`: a host clock around `calls`
+    back-to-back calls and one synchronise at the end (after 10 warm
+    calls), so the enqueue cost is what is measured while the card keeps
+    up."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3):
@@ -251,6 +315,8 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
     res["ms_bwd"] = cuda_ms(kern_bwd)
     res["dev_fwd"] = device_ms(kern_fwd)
     res["dev_bwd"] = device_ms(kern_bwd)
+    res["graph_fwd"] = graph_ms(kern_fwd)
+    res["graph_bwd"] = graph_ms(kern_bwd)
     res["plain_fwd"] = cuda_ms(lambda: A.attention_plain(
         qkv, heads, t, causal, valid_t))
     plain_fb = cuda_ms(lambda: torch.autograd.grad(
@@ -310,6 +376,9 @@ def check_cutout(seed=0):
     del ref, dref
     res["ms_fwd"] = cuda_ms(lambda: C.cutout_fwd_kernel(img, *taps))
     res["ms_bwd"] = cuda_ms(lambda: C.cutout_bwd_kernel(
+        gout, *taps, tuple(img.shape)))
+    res["graph_fwd"] = graph_ms(lambda: C.cutout_fwd_kernel(img, *taps))
+    res["graph_bwd"] = graph_ms(lambda: C.cutout_bwd_kernel(
         gout, *taps, tuple(img.shape)))
     res["plain_fwd"] = cuda_ms(lambda: C.cutout_plain(img, *taps), iters=5)
     plain_fb = cuda_ms(lambda: torch.autograd.grad(
@@ -429,6 +498,8 @@ def check_persp(kind, s, h, w, dtype, timed=False, seed=0):
                                          lib(img)), out)[0]
     res["ms_fwd"] = cuda_ms(lambda: P.persp_fwd_kernel(img, coef, flags))
     res["ms_bwd"] = cuda_ms(lambda: P.persp_bwd_kernel(gout, coef, flags))
+    res["graph_fwd"] = graph_ms(lambda: P.persp_fwd_kernel(img, coef, flags))
+    res["graph_bwd"] = graph_ms(lambda: P.persp_bwd_kernel(gout, coef, flags))
     res["plain_fwd"] = cuda_ms(lambda: P.perspective_warp_plain(
         img, coef, flags), iters=5)
     plain_fb = cuda_ms(lambda: torch.autograd.grad(P.perspective_warp_plain(
@@ -482,6 +553,8 @@ def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
     del ref, dref
     res["ms"] = cuda_ms(lambda: SH.frac_shift_kernel(x, sh, n, in_offset,
                                                      out_window))
+    res["graph"] = graph_ms(lambda: SH.frac_shift_kernel(x, sh, n, in_offset,
+                                                         out_window))
     res["plain"] = cuda_ms(lambda: SH.frac_shift_plain(x, sh, n, in_offset,
                                                        out_window))
     # not one library call: the rfft -> phase -> irfft route, for scale only
@@ -500,14 +573,18 @@ def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
 def win_case(kind, dtype, seed=0):
     """(frame, boxes, sampler) of a windowed-cutout case on the card:
     "main" the main path's sampler (190 cutouts at 224 of 720x1280, the
-    three tiers), "narrow" a 200x300 frame (not a multiple of 128 columns),
-    "edge" 720x1280 boxes pushed to the bottom-right corner (windows
-    clipped there)."""
+    three tiers), "narrow" a 200x300 frame (not a multiple of 8 columns:
+    the TMA maps read a padded copy), "edge" 720x1280 boxes pushed to the
+    bottom-right corner (windows clipped there), "m336" 40 cutouts at 336
+    (ViT-L/14@336px's input: two 224-column tiles)."""
     import torch
     from aphantasia_torch.ops.sampler import Boxes, CutoutSampler
     h, w, s = (200, 300, 40) if kind == "narrow" else (720, 1280, 190)
+    m = 224
+    if kind == "m336":
+        s, m = 40, 336
     g = torch.Generator(device="cuda").manual_seed(seed)
-    sampler = CutoutSampler((h, w), s, 224, "uniform", 0.4)
+    sampler = CutoutSampler((h, w), s, m, "uniform", 0.4)
     boxes = sampler.sample_boxes(g)
     if kind == "edge":
         boxes = Boxes(boxes.csize, w - boxes.csize, h - boxes.csize)
@@ -516,9 +593,13 @@ def win_case(kind, dtype, seed=0):
 
 
 def check_win_cutout(kind, dtype, timed=False, seed=0):
-    """The windowed-cutout kernel against `windowed_cut_fwd_plain`, and,
-    when `timed`, its time beside the plain version, the port's dense
-    bf16 contraction (`_contract` forward) and the bound."""
+    """The windowed-cutout kernel against `windowed_cut_fwd_plain`, in bf16
+    from an intermediate scratch filled with NaN (the kernel must never
+    read what it did not write), and, when `timed`, its event and
+    graph-replay times beside the plain version, the port's dense bf16
+    contraction (`_contract` forward) and the bound; then a windowed
+    `sampler.cut` captured into a CUDA graph, whose replay must equal the
+    eager cut bit for bit."""
     import torch
     from aphantasia_torch.ops import cutout_win as W
     from aphantasia_torch.ops.sampler import _contract
@@ -526,9 +607,18 @@ def check_win_cutout(kind, dtype, timed=False, seed=0):
     c, h, w = img.shape
     m = sampler.modsize
     wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dtype)
-    out = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, m, dtype)
+    plan = W.tier_plan(h, w, m)
+    t1 = None
+    if dtype == torch.bfloat16:
+        t1 = torch.full((len(boxes.csize), c, plan[-1][1], -(-m // 8) * 8),
+                        float("nan"), dtype=dtype, device="cuda")
+    out = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, m, dtype, t1=t1)
+    again = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, m, dtype)
     ref = W.windowed_cut_fwd_plain(img, boxes, wyw, wxt, m, dtype)
     torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          f"win_cut_fwd {kind} {dtype}: two launches differ")
+    del t1, again
     fe, fs = max_err(out, ref)
     tier = W.window_bases(boxes, h, w, m)[0]
     tiers = torch.bincount(tier.long(), minlength=3).tolist()
@@ -542,14 +632,30 @@ def check_win_cutout(kind, dtype, timed=False, seed=0):
     if not timed:
         return res
     del ref
-    res["ms"] = cuda_ms(lambda: W.windowed_cut_fwd_kernel(
-        img, boxes, wyw, wxt, m, dtype))
+
+    def kern():
+        return W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, m, dtype)
+    res["ms"] = cuda_ms(kern)
+    res["graph"] = graph_ms(kern)
     res["plain"] = cuda_ms(lambda: W.windowed_cut_fwd_plain(
         img, boxes, wyw, wxt, m, dtype), iters=5)
     wy, wx = sampler.weight_matrices(boxes, dtype=dtype)
     res["lib"] = cuda_ms(lambda: _contract(img, wy, wx, dtype), iters=5)
+    res["graph_lib"] = graph_ms(lambda: _contract(img, wy, wx, dtype),
+                                iters=5)
+    del wy, wx
     torch.cuda.empty_cache()
-    plan = W.tier_plan(h, w, m)
+    # the whole windowed cut (bases, weights, kernel) under the switch
+    with env_set(WIN_ONLY):
+        eager = sampler.cut(img, boxes, compute_dtype=dtype)
+        graph, replayed = capture(
+            lambda: sampler.cut(img, boxes, compute_dtype=dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+    check(torch.equal(replayed, eager),
+          f"win_cut_fwd {kind}: the captured cut differs from the eager one")
+    del graph, replayed, eager
+    torch.cuda.empty_cache()
     ops = sum(n * (2 * c * kh * kw * m + 2 * c * m * kh * m)
               for n, (_, kh, kw) in zip(tiers, plan))
     es = img.element_size()
@@ -603,6 +709,14 @@ def check_ln(rows, d, dtype, timed=False, seed=0):
     xr, gr, br = (t.clone().requires_grad_(True) for t in (x, g, b))
     gl, bl = gr.to(dtype), br.to(dtype)
     res["lib_fwd"] = cuda_ms(lambda: F.layer_norm(x, (d,), gl, bl, 1e-5))
+    res["graph_fwd"] = graph_ms(lambda: L.ln_fwd_kernel(x, g, b))
+    res["graph_bwd"] = graph_ms(lambda: L.ln_bwd_kernel(x, g, stat, dy))
+    res["graph_lib_fwd"] = graph_ms(lambda: F.layer_norm(x, (d,), gl, bl,
+                                                         1e-5))
+    # the wrappers' host cost per call (the card keeps up with both)
+    res["host_fwd"] = host_us(lambda: L.ln_fwd_kernel(x, g, b))
+    res["host_lib_fwd"] = host_us(lambda: F.layer_norm(x, (d,), gl, bl,
+                                                       1e-5))
     lib_fb = cuda_ms(lambda: torch.autograd.grad(
         F.layer_norm(xr, (d,), gr.to(dtype), br.to(dtype), 1e-5),
         (xr, gr, br), dy))
@@ -689,7 +803,8 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
         return res
     del outs
     for k, (kern, plain) in runs.items():
-        res[k] = {"ms": cuda_ms(kern), "plain": cuda_ms(plain, iters=5)}
+        res[k] = {"ms": cuda_ms(kern), "graph": graph_ms(kern),
+                  "plain": cuda_ms(plain, iters=5)}
     ln1, ln2 = p["ln_1"], p["ln_2"]
     unfused = {
         "block_attn_fwd": lambda v: v + M.mha_flat(M.layer_norm(v, ln1), a,
@@ -799,7 +914,8 @@ def phase_kernels(report):
             continue
         for k in ("fwd", "bwd"):
             print(f"[kernels] attention {k} {label}: kernel "
-                  f"{r['ms_' + k]:.4f} ms (device {fmt_ms(r['dev_' + k])}), "
+                  f"{r['ms_' + k]:.4f} ms (device {fmt_ms(r['dev_' + k])}, "
+                  f"graph replay {r['graph_' + k]:.4f}), "
                   f"plain {r['plain_' + k]:.4f} ms, sdpa {r['lib_' + k]:.4f} "
                   f"ms (device {fmt_ms(r['dev_lib_' + k])}), bound "
                   f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
@@ -811,7 +927,8 @@ def phase_kernels(report):
           f"(|ref| {cut['grad_scale']:.3g})")
     for k in ("fwd", "bwd"):
         print(f"[kernels] cutout {k} S=200 M=224 720x1280: kernel "
-              f"{cut['ms_' + k]:.4f} ms, plain {cut['plain_' + k]:.4f} ms, "
+              f"{cut['ms_' + k]:.4f} ms (graph replay "
+              f"{cut['graph_' + k]:.4f}), plain {cut['plain_' + k]:.4f} ms, "
               f"einsum {cut['lib_' + k]:.4f} ms, bound "
               f"{cut['bound_' + k][0]:.4f} ms ({cut['bound_' + k][1]})")
     persp, persp_err = None, {"fwd": 0.0, "bwd": 0.0}
@@ -837,7 +954,8 @@ def phase_kernels(report):
             continue
         for k in ("fwd", "bwd"):
             print(f"[kernels] persp {k} {kind} [200,3,{h},{w}] bf16: kernel "
-                  f"{r['ms_' + k]:.4f} ms, plain {r['plain_' + k]:.4f} ms, "
+                  f"{r['ms_' + k]:.4f} ms (graph replay "
+                  f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} ms, "
                   f"grid_sample {r['lib_' + k]:.4f} ms (|err| vs kernel "
                   f"{r['lib_err']:.3g}), bound {r['bound_' + k][0]:.4f} ms "
                   f"({r['bound_' + k][1]})")
@@ -856,8 +974,8 @@ def phase_kernels(report):
         if timed:
             shift = r
             print(f"[kernels] frac_shift [{rows},{n_in}] float32: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
-                  f"rfft/irfft route {r['fft']:.4f} ms, bound "
+                  f"{r['ms']:.4f} ms (graph replay {r['graph']:.4f}), plain "
+                  f"{r['plain']:.4f} ms, rfft/irfft route {r['fft']:.4f} ms, bound "
                   f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     wcut, win_err = None, 0.0
     for kind, dtype, timed in (("main", torch.bfloat16, True),
@@ -865,7 +983,8 @@ def phase_kernels(report):
                                ("narrow", torch.bfloat16, False),
                                ("narrow", torch.float32, False),
                                ("edge", torch.bfloat16, False),
-                               ("edge", torch.float32, False)):
+                               ("edge", torch.float32, False),
+                               ("m336", torch.bfloat16, False)):
         r = check_win_cutout(kind, dtype, timed=timed)
         print(f"[kernels] win_cut_fwd {kind} {str(dtype)[6:]} (tiers "
               f"{r['tiers']}): max|err| {r['fwd_err']:.3g} (|ref| "
@@ -874,9 +993,13 @@ def phase_kernels(report):
         if timed:
             wcut = r
             print(f"[kernels] win_cut_fwd S=190 M=224 720x1280 bf16 "
-                  f"({r['gflop']:.1f} GFLOP): kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain']:.4f} ms, dense einsum {r['lib']:.4f} ms, bound "
-                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+                  f"({r['gflop']:.1f} GFLOP): kernel {r['ms']:.4f} ms "
+                  f"(graph replay {r['graph']:.4f}), plain {r['plain']:.4f} "
+                  f"ms, dense einsum {r['lib']:.4f} ms (graph replay "
+                  f"{r['graph_lib']:.4f}), bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}); {r['gflop'] / r['graph']:.1f} "
+                  f"TFLOP/s by graph replay; a captured windowed cut "
+                  f"replays bit for bit")
     lnr, ln_err = None, {"fwd": 0.0, "bwd": 0.0}
     for rows, d, dtype, timed in ((9500, 768, torch.bfloat16, True),
                                   (1799, 1024, torch.bfloat16, True),
@@ -890,10 +1013,17 @@ def phase_kernels(report):
         if timed:
             lnr = lnr or r
             for k in ("fwd", "bwd"):
+                lib_graph = (f" (graph replay {r['graph_lib_fwd']:.4f})"
+                             if k == "fwd" else "")
                 print(f"[kernels] ln {k} [{rows},{d}] bf16: kernel "
-                      f"{r['ms_' + k]:.4f} ms, plain {r['plain_' + k]:.4f} "
-                      f"ms, F.layer_norm {r['lib_' + k]:.4f} ms, bound "
-                      f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
+                      f"{r['ms_' + k]:.4f} ms (graph replay "
+                      f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} "
+                      f"ms, F.layer_norm {r['lib_' + k]:.4f} ms{lib_graph}, "
+                      f"bound {r['bound_' + k][0]:.4f} ms "
+                      f"({r['bound_' + k][1]})")
+            print(f"[kernels] ln fwd [{rows},{d}] bf16 host cost: "
+                  f"{r['host_fwd']:.2f} us a call (F.layer_norm "
+                  f"{r['host_lib_fwd']:.2f} us), 1000 calls, one sync")
         ln_err = {k: max(ln_err[k], r[k + "_err"]) for k in ln_err}
     blk, blk_err = None, {k: 0.0 for k in BLOCK_KERNELS}
     for rows, t, d, heads, dtype, timed in (
@@ -915,7 +1045,8 @@ def phase_kernels(report):
             for k in BLOCK_KERNELS:
                 q = r[k]
                 print(f"[kernels] {k} [{rows},{d}] t={t} bf16 "
-                      f"({q['gflop']:.1f} GFLOP): kernel {q['ms']:.4f} ms, "
+                      f"({q['gflop']:.1f} GFLOP): kernel {q['ms']:.4f} ms "
+                      f"(graph replay {q['graph']:.4f}), "
                       f"plain {q['plain']:.4f} ms, unfused half "
                       f"{q['unfused']:.4f} ms, bound {q['bound'][0]:.4f} ms "
                       f"({q['bound'][1]})")
@@ -928,7 +1059,8 @@ def phase_kernels(report):
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": 0, "max_abs_err": blk_err[k], "ms": q["ms"],
             "plain_ms": q["plain"], "bound_ms": q["bound"][0],
-            "bound_by": q["bound"][1], "library_ms": None}
+            "bound_by": q["bound"][1], "library_ms": None,
+            "device_ms": q["graph"]}
     for name, r, k, err in (("ln_fwd", lnr, "fwd", ln_err["fwd"]),
                             ("ln_bwd", lnr, "bwd", ln_err["bwd"]),
                             ("attn_fwd", att, "fwd", att["fwd_err"]),
@@ -942,21 +1074,22 @@ def phase_kernels(report):
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": 0, "max_abs_err": err, "ms": r["ms_" + k],
             "plain_ms": r["plain_" + k], "bound_ms": r["bound_" + k][0],
-            "bound_by": r["bound_" + k][1], "library_ms": r["lib_" + k]}
+            "bound_by": r["bound_" + k][1], "library_ms": r["lib_" + k],
+            "device_ms": r["graph_" + k]}
     src, rep = KERNELS["frac_shift"]
     report["frac_shift"] = {
         "name": "frac_shift", "route": "cuda", "source": src, "replaces": rep,
         "launches": 0, "max_abs_err": max(shift["fwd_err"], shift["grad_err"]),
         "ms": shift["ms"], "plain_ms": shift["plain"],
         "bound_ms": shift["bound"][0], "bound_by": shift["bound"][1],
-        "library_ms": None}
+        "library_ms": None, "device_ms": shift["graph"]}
     src, rep = KERNELS["win_cut_fwd"]
     report["win_cut_fwd"] = {
         "name": "win_cut_fwd", "route": "cuda", "source": src,
         "replaces": rep, "launches": 0, "max_abs_err": win_err,
         "ms": wcut["ms"], "plain_ms": wcut["plain"],
         "bound_ms": wcut["bound"][0], "bound_by": wcut["bound"][1],
-        "library_ms": wcut["lib"]}
+        "library_ms": wcut["lib"], "device_ms": wcut["graph"]}
 
 
 # ---------------------------------------------------------------- main path
@@ -1201,7 +1334,6 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-WIN_ONLY = {"APHANTASIA_WIN_CUTOUT": "1"}
 PROFILE_PATHS = (
     ("--pallas", ["--pallas"], None),
     ("default", [], None),

@@ -268,13 +268,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(blocks):
 
 def test_library_names_follow_the_source_and_the_shared_headers(
         tmp_path, monkeypatch):
-    """csrc/block.cu and csrc/cutout_win.cu include csrc/mma.cuh: a
-    library's file name hashes its source and every header, so an edit to
-    either rebuilds it and a stale library never loads."""
+    """csrc/block.cu includes csrc/mma.cuh and csrc/cutout_win.cu
+    csrc/wgmma.cuh: a library's file name hashes its source and every
+    header, so an edit to either rebuilds it and a stale library never
+    loads."""
     from aphantasia_torch import kernels
-    for name in ("block", "cutout_win"):
+    for name, header in (("block", "mma.cuh"), ("cutout_win", "wgmma.cuh")):
         src = open(f"{kernels.CSRC}/{name}.cu").read()
-        assert '#include "mma.cuh"' in src
+        assert f'#include "{header}"' in src
     monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
     (tmp_path / "a.cu").write_text("int a;")
     (tmp_path / "h.cuh").write_text("int h;")

@@ -153,3 +153,87 @@ def test_win_eligible_matches_jax(monkeypatch, case):
     want = js._win_eligible(jnp.zeros((3, h, w)), jd)
     assert ts._win_eligible(torch.zeros((3, h, w)), td) == want
     assert want == (case in ("on", "bf16-720p"))
+
+
+@pytest.mark.parametrize("seed,hw", FRAMES + [(3, (200, 300))])
+def test_window_bases_and_geometry_build_no_host_tables(monkeypatch, seed,
+                                                        hw):
+    """window_bases and _geometry make no tensor from a Python list (on the
+    card that is a pageable copy that syncs and breaks a CUDA graph
+    capture) and still equal JAX's window_bases and its tier table, also
+    on a frame whose width is not a multiple of 8."""
+    h, w = hw
+    m = 32 if min(h, w) < 300 else 224
+    _, boxes, _, tb = _draw(h, w, 64, m, seed)
+    want = [np.asarray(a) for a in jw.window_bases(boxes, h, w, m)]
+    plan = jw.tier_plan(h, w, m)
+
+    def no_table(*args, **kwargs):
+        raise AssertionError("a tensor made from host data")
+    monkeypatch.setattr(torch, "tensor", no_table)
+    monkeypatch.setattr(torch, "as_tensor", no_table)
+    bases = tw.window_bases(tb, h, w, m)
+    geo = tw._geometry(bases, tw.tier_plan(h, w, m))
+    monkeypatch.undo()
+    for a, b in zip(want, bases):
+        np.testing.assert_array_equal(b.numpy(), a)
+    tier = want[0]
+    dims = np.array([p[1:] for p in plan], np.int32)[tier]
+    assert geo.dtype == torch.int32 and geo.is_contiguous()
+    np.testing.assert_array_equal(
+        geo.numpy(), np.stack([want[1], want[2], dims[:, 0], dims[:, 1]], 1))
+
+
+def test_tma_pad_leaves_a_multiple_of_8_as_it_is():
+    img = torch.rand((3, 96, 160))
+    assert tw.tma_pad(img) is img
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_tma_pad_adds_only_zero_columns(dt):
+    """A 300-column frame gains 4 zero columns; the plain windowed forward
+    from the padded frame equals the one from the frame itself (the
+    window reads zeros past W either way, and the tiers, which depend on
+    ceil128(W), do not move)."""
+    _, td = DTYPES[dt]
+    h, w, s, m = 200, 300, 12, 32
+    _, _, ts, tb = _draw(h, w, s, m, 8)
+    img = torch.tensor(np.random.RandomState(9).randn(3, h, w)
+                       .astype(np.float32)).to(td)
+    padded = tw.tma_pad(img)
+    assert padded.shape == (3, h, 304)
+    assert torch.equal(padded[..., :w], img)
+    assert not padded[..., w:].any()
+    assert tw.tier_plan(h, 304, m) == tw.tier_plan(h, w, m)
+    wyw, wxt = ts.weight_matrices_windowed(tb, dtype=td)
+    a = tw.windowed_cut_fwd_plain(img, tb, wyw, wxt, m, td)
+    b = tw.windowed_cut_fwd_plain(padded, tb, wyw, wxt, m, td)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_windowed_cut_computes_the_bases_once(monkeypatch, dt):
+    """One windowed `sampler.cut` computes window_bases once: the weights
+    and the forward share them."""
+    from aphantasia_torch.ops import sampler as tsampler
+    _, td = DTYPES[dt]
+    h, w, s, m = 96, 160, 12, 32
+    _, _, ts, tb = _draw(h, w, s, m, 6)
+    calls = []
+    real = tw.window_bases
+
+    def counted(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(tsampler, "window_bases", counted)
+    monkeypatch.setattr(tw, "window_bases", counted)
+    monkeypatch.setenv("APHANTASIA_WIN_CUTOUT", "1")
+    img = torch.rand((3, h, w))
+    out = ts.cut(img.requires_grad_(True), tb, compute_dtype=td)
+    assert type(out.grad_fn).__name__ == "_WinCutBackward"
+    assert len(calls) == 1
+    monkeypatch.undo()
+    want = tw.windowed_cut_fwd_plain(img.detach().to(td), tb,
+                                     *ts.weight_matrices_windowed(tb, td), m,
+                                     td)
+    assert torch.equal(out, want)

@@ -240,14 +240,18 @@ def test_elastic_switch_routes_the_shift_through_the_kernel(cuda,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2 ** -7)])
-@pytest.mark.parametrize("h,w,s,m,edge", [
-    (720, 1280, 24, 224, False), (200, 300, 12, 224, False),
-    (96, 200, 16, 32, True)])
+@pytest.mark.parametrize("h,w,s,m,edge,nan", [
+    (720, 1280, 24, 224, False, False), (200, 300, 12, 224, False, False),
+    (96, 200, 16, 32, True, False), (720, 1280, 8, 336, False, False),
+    (720, 1280, 24, 224, False, True)])
 def test_windowed_cutout_kernel_matches_plain(cuda, dtype, tol, h, w, s, m,
-                                              edge):
+                                              edge, nan):
     """The 720x1280 draw spans the three tiers; 300 and 200 columns are not
-    multiples of 128 (the window reads zeros past W); `edge` pushes every
-    box to the bottom-right corner, so the windows are clipped there."""
+    multiples of 128 (the window reads zeros past W) and 300 is not one of
+    8 (the TMA maps read a padded copy); `edge` pushes every box to the
+    bottom-right corner, so the windows are clipped there; m = 336 takes
+    two column tiles; `nan` hands the kernel an intermediate scratch
+    filled with NaN, which it must overwrite wherever it reads it."""
     sampler = CutoutSampler((h, w), s, m, "uniform", 0.4)
     boxes = sampler.sample_boxes(cuda)
     if edge:
@@ -255,11 +259,72 @@ def test_windowed_cutout_kernel_matches_plain(cuda, dtype, tol, h, w, s, m,
     img = torch.rand((3, h, w), generator=cuda, device="cuda").to(dtype)
     wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dtype)
     before = kernels.LAUNCHES["win_cut_fwd"]
-    out = W.windowed_cut_fwd(img, boxes, wyw, wxt, m, dtype)
+    if nan:
+        kh_max = W.tier_plan(h, w, m)[-1][1]
+        t1 = torch.full((s, 3, kh_max, m), float("nan"), dtype=dtype,
+                        device="cuda")
+        out = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, m, dtype,
+                                        t1=t1)
+    else:
+        out = W.windowed_cut_fwd(img, boxes, wyw, wxt, m, dtype)
     assert kernels.LAUNCHES["win_cut_fwd"] == before + 1
     ref = W.windowed_cut_fwd_plain(img, boxes, wyw, wxt, m, dtype)
     assert out.dtype == torch.float32 and out.shape == (s, 3, m, m)
+    assert bool(torch.isfinite(out).all())
     assert _rel(out, ref) <= tol
+
+
+def test_windowed_cutout_kernel_is_deterministic(cuda):
+    """Two launches of the bf16 kernel on the same inputs give the same
+    bits (no atomics: each output element is one block's sum)."""
+    sampler = CutoutSampler((720, 1280), 24, 224, "uniform", 0.4)
+    boxes = sampler.sample_boxes(cuda)
+    img = torch.rand((3, 720, 1280), generator=cuda,
+                     device="cuda").to(torch.bfloat16)
+    wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=torch.bfloat16)
+    a = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, 224)
+    b = W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, 224)
+    assert torch.equal(a, b)
+
+
+def _captured(fn):
+    """fn() eagerly, then fn() captured into a CUDA graph and replayed:
+    (eager result, replayed result).  A capture raises on a host sync or
+    a pageable host-to-device copy inside fn."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, out
+
+
+def test_windowed_cut_and_fused_layer_norm_capture_into_a_graph(
+        cuda, monkeypatch):
+    """A bf16 windowed `sampler.cut` (bases, weights, kernel) and a
+    `layer_norm_fused` forward are captured into CUDA graphs, and their
+    replays equal the eager calls bit for bit."""
+    monkeypatch.setenv("APHANTASIA_WIN_CUTOUT", "1")
+    sampler = CutoutSampler((720, 1280), 24, 224, "uniform", 0.4)
+    boxes = sampler.sample_boxes(cuda)
+    img = torch.rand((3, 720, 1280), generator=cuda, device="cuda")
+    before = kernels.LAUNCHES["win_cut_fwd"]
+    eager, replayed = _captured(
+        lambda: sampler.cut(img, boxes, compute_dtype=torch.bfloat16))
+    assert kernels.LAUNCHES["win_cut_fwd"] == before + 3
+    assert torch.equal(eager, replayed)
+    x = torch.randn((2048, 768), generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    g = torch.randn((768,), generator=cuda, device="cuda") + 1.0
+    b = torch.randn((768,), generator=cuda, device="cuda") * 0.1
+    eager, replayed = _captured(lambda: L.layer_norm_fused(x, g, b))
+    assert torch.equal(eager, replayed)
 
 
 def test_windowed_switch_routes_the_cut_through_the_kernel(cuda,
@@ -284,7 +349,8 @@ def test_windowed_switch_routes_the_cut_through_the_kernel(cuda,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2 ** -7)])
-@pytest.mark.parametrize("rows,d", [(9500, 768), (1799, 1024), (1201, 256)])
+@pytest.mark.parametrize("rows,d", [(9500, 768), (1799, 1024), (1201, 256),
+                                    (2048, 512), (1201, 1280)])
 def test_ln_kernels_match_plain(cuda, dtype, tol, rows, d):
     """Forward and backward through layer_norm_fused; 1201 and 1799 rows
     are not multiples of the backward's row block.  The backward is
@@ -329,6 +395,11 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         W.windowed_cut_fwd_kernel(img, boxes, wyw[:, :, :8], wxt, 32,
                                   torch.float32)
+    with pytest.raises(ValueError):   # a scratch that does not fit
+        W.windowed_cut_fwd_kernel(img, boxes, wyw, wxt, 32, torch.bfloat16,
+                                  t1=torch.empty((4, 3, 8, 32),
+                                                 dtype=torch.bfloat16,
+                                                 device="cuda"))
 
 
 def _block(cuda, rows, d, dtype):
