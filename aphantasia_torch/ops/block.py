@@ -47,12 +47,15 @@ from aphantasia_torch import kernels
 _P, _I, _F = kernels.PTR, kernels.INT, kernels.FLOAT
 _SIGNATURES = {
     "attn_half_fwd": [_P] * 12 + [_I] * 4 + [_F, _I, _P],
-    "attn_half_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
+    "attn_half_bwd": [_P] * 16 + [_I] * 4 + [_F, _I, _P],
     "mlp_half_fwd": [_P] * 10 + [_I] * 4 + [_P],
     "mlp_half_bwd": [_P] * 13 + [_I] * 4 + [_P],
+    "block_bwd_product": [_P] * 4 + [_I] * 4 + [_P],
+    "block_core_bwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "block_smem_bytes": [_I, _I, _I],
 }
 _SMEM_LIMIT = 232448
+_TC_HEAD = 64       # the widest head of the bf16 tensor-core core
 _EPS = 1e-5
 _ROW_TARGET = 256   # the JAX geometry's default row target
 
@@ -220,13 +223,14 @@ def _weights(x, named):
     return out
 
 
-def _smem_ok(lib, t, hd):
-    for backward in (0, 1):
-        need = lib.block_smem_bytes(t, hd, backward)
-        if need > _SMEM_LIMIT:
-            raise ValueError(f"block attention needs {need} bytes of shared "
-                             f"memory at t={t}, hd={hd}; the limit is "
-                             f"{_SMEM_LIMIT}")
+def _smem_ok(lib, t, hd, backward):
+    """The scalar attention core (the forward's, float32's backward) holds
+    two [t, hd] float32 matrices in shared memory: refuse what exceeds it."""
+    need = lib.block_smem_bytes(t, hd, int(backward))
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"block attention needs {need} bytes of shared "
+                         f"memory at t={t}, hd={hd}; the limit is "
+                         f"{_SMEM_LIMIT}")
 
 
 def _attn_weights(x, g, b, in_w, in_b, out_w):
@@ -265,7 +269,7 @@ def attn_half_fwd_kernel(x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
     ws = _attn_weights(x, g, b, in_w, in_b, out_w)
     (out_b,) = _weights(x, (("out_b", out_b, (d,)),))
     lib = kernels.library("block", _SIGNATURES)
-    _smem_ok(lib, t, d // n_heads)
+    _smem_ok(lib, t, d // n_heads, backward=False)
     h, o, y = _empty(x, r, d), _empty(x, r, d), _empty(x, r, d)
     qkv = _empty(x, r, 3 * d)
     inv = _empty(x, r, n_heads, dtype=torch.float32)
@@ -280,7 +284,8 @@ def attn_half_fwd_kernel(x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
 
 def attn_half_bwd_kernel(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
     """Launch the attention half's backward: dx in x's dtype.  Its six
-    launches are counted once."""
+    launches (seven in bf16 past t = 64, where the tensor-core core is
+    two) are counted once."""
     _check(x, n_heads=n_heads, t=t)
     r, d = x.shape
     if (tuple(dy.shape) != (r, d) or tuple(inv.shape) != (r, n_heads)
@@ -288,21 +293,26 @@ def attn_half_bwd_kernel(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
         raise ValueError(f"block attention backward: dy {tuple(dy.shape)} / "
                          f"inv {tuple(inv.shape)} do not fit x {(r, d)} on "
                          f"{x.device}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and d // n_heads > _TC_HEAD:
+        raise ValueError(f"block attention backward: the bf16 core takes "
+                         f"heads up to {_TC_HEAD} wide, got {d // n_heads}")
     x = kernels.aligned(x)
     dy = kernels.aligned(dy.to(x.dtype))
     inv = inv.float().contiguous()
     ws = _attn_weights(x, g, b, in_w, in_b, out_w)
     lib = kernels.library("block", _SIGNATURES)
-    _smem_ok(lib, t, d // n_heads)
+    if not bf16:
+        _smem_ok(lib, t, d // n_heads, backward=True)
     h, do, dx = _empty(x, r, d), _empty(x, r, d), _empty(x, r, d)
     qkv, dqkv = _empty(x, r, 3 * d), _empty(x, r, 3 * d)
     stat = _empty(x, r, 2, dtype=torch.float32)
+    rs = _empty(x, r, n_heads, dtype=torch.float32)
     dh = _empty(x, r, d, dtype=torch.float32)
     code = lib.attn_half_bwd(*_ptrs(x, dy, inv, *ws, h, stat, qkv, do, dqkv,
-                                    dh, dx), r, d, n_heads, t,
+                                    rs, dh, dx), r, d, n_heads, t,
                              1.0 / math.sqrt(d // n_heads),
-                             int(x.dtype == torch.bfloat16),
-                             kernels.stream_ptr(x))
+                             int(bf16), kernels.stream_ptr(x))
     kernels.check(lib, code, "block_attn_bwd")
     kernels.LAUNCHES["block_attn_bwd"] += 1
     return dx
@@ -348,6 +358,81 @@ def mlp_half_bwd_kernel(x, dy, g, b, fc_w, fc_b, p_w):
     kernels.check(lib, code, "block_mlp_bwd")
     kernels.LAUNCHES["block_mlp_bwd"] += 1
     return dx
+
+
+# The bf16 backward chains' launches one at a time (csrc/block.cu's
+# block_bwd_product and block_core_bwd), for per-launch timing and checks
+# on the card; the port's path reaches them only through the entry points.
+# The product's epilogues, with the plain version of each:
+_PRODUCTS = {
+    "bias": (0, lambda a, w, aux: _mm_bias(a, w, aux)),
+    "store": (1, lambda a, w, aux: _mm_t(a, w).to(a.dtype)),
+    "store_f32": (2, lambda a, w, aux: _mm_t(a, w)),
+    "gelu_back": (3, lambda a, w, aux: _gelu_back(_mm_t(a, w), aux)),
+}
+
+
+def _gelu_back(da, u):
+    """round(da * gelu'(u)) for the quick_gelu u * sigmoid(1.702 u)."""
+    uf = u.float()
+    s = torch.sigmoid(1.702 * uf)
+    return (da * (s + 1.702 * uf * s * (1.0 - s))).to(u.dtype)
+
+
+def bwd_product_plain(a, w, kind, aux=None):
+    """The plain version of `bwd_product_kernel`."""
+    return _PRODUCTS[kind][1](a, w, aux)
+
+
+def bwd_product_kernel(a, w, kind, aux=None):
+    """One product of the bf16 backward chains on wgmma: `kind` "bias"
+    (a @ w + aux, w [K, N]), "store" (a @ w^T, w [N, K]), "store_f32" (the
+    same in float32) or "gelu_back" (a @ w^T times gelu'(aux), aux = u
+    [M, N]).  bf16 CUDA tensors; counted as `block_bwd_product`."""
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or not a.is_cuda:
+        raise TypeError("bwd_product_kernel takes bf16 CUDA tensors")
+    m, k = a.shape
+    n = w.shape[1] if kind == "bias" else w.shape[0]
+    if w.shape[0 if kind == "bias" else 1] != k or k % 8 or n % 8:
+        raise ValueError(f"bwd_product_kernel: a {tuple(a.shape)} and w "
+                         f"{tuple(w.shape)} do not fit ({kind})")
+    a, w = kernels.aligned(a), kernels.aligned(w)
+    if aux is not None:
+        aux = kernels.aligned(aux.to(torch.bfloat16))
+    out = _empty(a, m, n, dtype=torch.float32 if kind == "store_f32"
+                 else torch.bfloat16)
+    lib = kernels.library("block", _SIGNATURES)
+    code = lib.block_bwd_product(
+        a.data_ptr(), w.data_ptr(), 0 if aux is None else aux.data_ptr(),
+        out.data_ptr(), m, n, k, _PRODUCTS[kind][0], kernels.stream_ptr(a))
+    kernels.check(lib, code, "block_bwd_product")
+    kernels.LAUNCHES["block_bwd_product"] += 1
+    return out
+
+
+def core_bwd_kernel(qkv, do, inv, n_heads, t):
+    """The bf16 attention core backward on the tensor cores (one launch
+    for t <= 64, else two, counted once as `block_core_bwd`): dqkv [R, 3D]
+    bf16 from
+    qkv [R, 3D], do [R, D] bf16 and the forward's inv [R, heads];
+    plain version `_attn_core_bwd`."""
+    r, d3 = qkv.shape
+    d = d3 // 3
+    if (qkv.dtype != torch.bfloat16 or do.dtype != torch.bfloat16
+            or not qkv.is_cuda or d // n_heads > _TC_HEAD or r % t):
+        raise ValueError("core_bwd_kernel takes bf16 CUDA qkv with heads up "
+                         f"to {_TC_HEAD} wide and R a multiple of t")
+    qkv, do = kernels.aligned(qkv), kernels.aligned(do)
+    inv = inv.float().contiguous()
+    rs = _empty(qkv, r, n_heads, dtype=torch.float32)
+    dqkv = _empty(qkv, r, d3)
+    lib = kernels.library("block", _SIGNATURES)
+    code = lib.block_core_bwd(*_ptrs(qkv, do, inv, rs, dqkv), r, t, n_heads,
+                              d, 1.0 / math.sqrt(d // n_heads),
+                              kernels.stream_ptr(qkv))
+    kernels.check(lib, code, "block_core_bwd")
+    kernels.LAUNCHES["block_core_bwd"] += 1
+    return dqkv
 
 
 # ------------------------------------------------------------ autograd

@@ -38,8 +38,9 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
   profile  (only when asked for) torch.profiler over steady steps of both
            cutout paths, the four augmentation paths of `main`, the
            switches' paths on ViT-B/32 and ViT-L/14, ViT-L/14 without them,
-           and the fused-block path on ViT-B/32: device time by kernel,
-           kernel launches per step and the device busy share.
+           and the fused-block paths (d) and (e) on ViT-B/32: device time
+           by kernel, kernel launches per step and the device busy share
+           (`--profile-paths '(d),(e)'` takes only those two).
 
 The last three lines of standard output are one JSON object describing
 every kernel, the card's name and power limit as nvidia-smi reports them,
@@ -786,6 +787,18 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     outs = {"block_attn_fwd": (y, yr), "block_attn_inv": (inv, invr)}
     for k in ("block_mlp_fwd", "block_attn_bwd", "block_mlp_bwd"):
         outs[k] = tuple(f() for f in runs[k])
+    # the backward entry points launched twice give the same bits (no
+    # split-K, no atomics, every sum in a fixed order)
+    for k in ("block_attn_bwd", "block_mlp_bwd"):
+        check(torch.equal(runs[k][0](), outs[k][0]),
+              f"{k} [{rows},{d}] t={t} {dtype}: two launches differ")
+    if dtype == torch.bfloat16:
+        # the tensor-core attention core alone, from the plain qkv and do
+        h = B._ln(x, *aw[:2])[0]
+        qkv = B._mm_bias(h, a["in_w"], a["in_b"])
+        do = B._mm_t(dy, a["out_w"]).to(dtype)
+        outs["block_core_bwd"] = (B.core_bwd_kernel(qkv, do, invr, heads, t),
+                                  B._attn_core_bwd(qkv, do, invr, heads, t))
     torch.cuda.synchronize()
     # float32: the same operations, products summed in another order
     # through a chain of up to six products; bf16: both sides round at the
@@ -802,6 +815,7 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     if not timed:
         return res
     del outs
+    res["launches"] = block_bwd_launches(x, dy, p, heads, t, invr)
     for k, (kern, plain) in runs.items():
         res[k] = {"ms": cuda_ms(kern), "graph": graph_ms(kern),
                   "plain": cuda_ms(plain, iters=5)}
@@ -839,6 +853,55 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     for k, (nbytes, ops) in work.items():
         res[k]["bound"] = bound(nbytes, ops, kind)
         res[k]["gflop"] = ops / 1e9
+    return res
+
+
+def block_bwd_launches(x, dy, p, heads, t, inv):
+    """Each launch inside the bf16 backward chains of `attn_half_bwd` and
+    `mlp_half_bwd`, alone at this shape, on inputs from the plain chain:
+    {label: (device ms by graph replay, yardstick ms, yardstick name,
+    GFLOP, max |err| against its plain version, |ref|)}.  Beside each
+    product `torch.matmul` at the same shape (the port never calls it),
+    beside the core csrc/attention.cu's bf16 attention backward on the
+    same qkv (lse softmax, another function).  Raises if a launch
+    disagrees with its plain version by more than 2^-6 of |ref|."""
+    import torch
+    from aphantasia_torch.ops import attention as A
+    from aphantasia_torch.ops import block as B
+    a, m = p["attn"], p["mlp"]
+    r, d = x.shape
+    h1 = B._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
+    h2 = B._ln(x, p["ln_2"]["g"], p["ln_2"]["b"])[0]
+    qkv = B._mm_bias(h1, a["in_w"], a["in_b"])
+    do = B._mm_t(dy, a["out_w"]).to(x.dtype)
+    dqkv = B._attn_core_bwd(qkv, do, inv, heads, t)
+    u = B._mm_bias(h2, m["fc_w"], m["fc_b"])
+    du = B.bwd_product_plain(dy, m["proj_w"], "gelu_back", u)
+    out, lse = A.attention_fwd_kernel(qkv, heads, t)
+    core_flop = 5 * 2 * (r // t) * heads * t * t * (d // heads)
+    prods = (("qkv = h in_w + in_b", h1, a["in_w"], "bias", a["in_b"]),
+             ("do = dy out_w^T", dy, a["out_w"], "store", None),
+             ("dh = dqkv in_w^T", dqkv, a["in_w"], "store_f32", None),
+             ("u = h fc_w + fc_b", h2, m["fc_w"], "bias", m["fc_b"]),
+             ("du = gelu'(u) dy p_w^T", dy, m["proj_w"], "gelu_back", u),
+             ("dh = du fc_w^T", du, m["fc_w"], "store_f32", None))
+    res = {}
+    for label, lhs, w, kind, aux in prods:
+        wt = w if kind == "bias" else w.t()
+        kern = lambda: B.bwd_product_kernel(lhs, w, kind, aux)  # noqa: E731
+        err = max_err(kern(), B.bwd_product_plain(lhs, w, kind, aux))
+        gflop = 2 * lhs.shape[0] * lhs.shape[1] * wt.shape[1] / 1e9
+        res[label] = (graph_ms(kern), graph_ms(lambda: torch.matmul(lhs, wt)),
+                      "torch.matmul", gflop) + err
+    err = max_err(B.core_bwd_kernel(qkv, do, inv, heads, t), dqkv)
+    res["core"] = (graph_ms(lambda: B.core_bwd_kernel(qkv, do, inv, heads, t)),
+                   graph_ms(lambda: A.attention_bwd_kernel(qkv, do, out, lse,
+                                                           heads, t)),
+                   "attention.cu attn_bwd", core_flop / 1e9) + err
+    for label, (*_, e, sc) in res.items():
+        check(math.isfinite(e) and e <= 2.0 ** -6 * max(sc, 1.0),
+              f"block backward launch {label}: max |err| {e:.3g} "
+              f"(|ref| {sc:.3g})")
     return res
 
 
@@ -1031,7 +1094,11 @@ def phase_kernels(report):
             (9500, 50, 768, 12, torch.float32, False),
             (91, 13, 40, 2, torch.bfloat16, False),
             (91, 13, 40, 2, torch.float32, False),
-            (1037, 17, 128, 2, torch.float32, False)):
+            (1037, 17, 128, 2, torch.bfloat16, False),
+            (1037, 17, 128, 2, torch.float32, False),
+            # two 64-key tiles: rs sums over both before any ds
+            (16 * 80, 80, 768, 12, torch.bfloat16, False),
+            (16 * 80, 80, 768, 12, torch.float32, False)):
         r = check_block(rows, t, d, heads, dtype, timed=timed)
         print(f"[kernels] block [{rows},{d}] t={t} {heads} heads "
               f"{str(dtype)[6:]}: " + ", ".join(
@@ -1050,6 +1117,11 @@ def phase_kernels(report):
                       f"plain {q['plain']:.4f} ms, unfused half "
                       f"{q['unfused']:.4f} ms, bound {q['bound'][0]:.4f} ms "
                       f"({q['bound'][1]})")
+            for label, (ms, ys, yname, gf, e, sc) in r["launches"].items():
+                print(f"[kernels] block bwd launch {label} [{rows},{d}] t={t} "
+                      f"bf16 ({gf:.2f} GFLOP): graph replay {ms:.4f} ms "
+                      f"({gf / ms:.1f} TFLOP/s), {yname} {ys:.4f} ms; "
+                      f"max|err| {e:.3g} (|ref| {sc:.3g})")
     for k in BLOCK_KERNELS:
         src, rep = KERNELS[k]
         q = blk[k]
@@ -1348,21 +1420,25 @@ PROFILE_PATHS = (
     ("(b) ViT-L/14, windowed cut only", ["-m", "ViT-L/14"], WIN_ONLY),
     ("(c) ViT-L/14", ["-m", "ViT-L/14"], None),
     ("(d) ViT-B/32, fused block", [], FUSED),
+    ("(e) ViT-B/32, all three switches", [], dict(SWITCHES, **FUSED)),
 )
 
 
-def phase_profile(steps: int = 6, active: int = 3):
+def phase_profile(only=(), steps: int = 6, active: int = 3):
     """Where a steady step's device time goes, for both cutout paths, the
     augmentation kernels' paths and the switches' paths with and without
     the fused LayerNorm: torch.profiler over `active` steps after
     `steps - active` warm ones; the kernels by self device time per step,
     kernel launches per step, and the device busy share (kernel time over
-    the host wall time of those steps)."""
+    the host wall time of those steps).  `only`: the label prefixes of the
+    paths to profile (all when empty)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     name = torch.cuda.get_device_name(0)
     for label, extra, env in PROFILE_PATHS:
+        if only and not label.startswith(tuple(only)):
+            continue
         argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
                 "--samples", "200", "--steps", str(steps), "-nv", "--seed",
                 "1", "--out_dir", os.path.join(OUT_DIR, "profile")] + extra
@@ -1543,6 +1619,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,main,parity")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--profile-paths", default="",
+                    help="comma-separated label prefixes of the paths the "
+                         "profile phase takes, e.g. '(d),(e)' (default all)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -1573,7 +1652,8 @@ def main(argv=None) -> int:
             {"kernels": lambda: phase_kernels(report),
              "main": lambda: phase_main(report, args.steps),
              "parity": phase_parity,
-             "profile": phase_profile}[ph]()
+             "profile": lambda: phase_profile(
+                 [p for p in args.profile_paths.split(",") if p])}[ph]()
             print(f"[{ph}] done in {time.time() - t:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

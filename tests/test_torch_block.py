@@ -54,30 +54,30 @@ def _inputs(rows, seed=1):
             rs.randn(rows, D).astype(np.float32))
 
 
-def _jax_fn(which, p):
+def _jax_fn(which, p, t=T, bb=BB):
     a, m = p["attn"], p["mlp"]
     if which == "attn":
         return lambda v: jb.attn_half(v, p["ln_1"]["g"], p["ln_1"]["b"],
                                       a["in_w"], a["in_b"], a["out_w"],
-                                      a["out_b"], NH, T, BB)
+                                      a["out_b"], NH, t, bb)
     if which == "mlp":
         return lambda v: jb.mlp_half(v, p["ln_2"]["g"], p["ln_2"]["b"],
                                      m["fc_w"], m["fc_b"], m["proj_w"],
-                                     m["proj_b"], min(BB * T, 128))
-    return lambda v: jb.resblock_flat_fused(v, p, NH, T, BB)
+                                     m["proj_b"], min(bb * t, 128))
+    return lambda v: jb.resblock_flat_fused(v, p, NH, t, bb)
 
 
-def _torch_fn(which, p):
+def _torch_fn(which, p, t=T):
     a, m = p["attn"], p["mlp"]
     if which == "attn":
         return lambda v: tb.attn_half(v, p["ln_1"]["g"], p["ln_1"]["b"],
                                       a["in_w"], a["in_b"], a["out_w"],
-                                      a["out_b"], NH, T)
+                                      a["out_b"], NH, t)
     if which == "mlp":
         return lambda v: tb.mlp_half(v, p["ln_2"]["g"], p["ln_2"]["b"],
                                      m["fc_w"], m["fc_b"], m["proj_w"],
                                      m["proj_b"])
-    return lambda v: tb.resblock_flat_fused(v, p, NH, T)
+    return lambda v: tb.resblock_flat_fused(v, p, NH, t)
 
 
 def _assert_bf16_close(got, want):
@@ -113,6 +113,37 @@ def test_fused_halves_match_jax(blocks, which, samples, dt):
         _assert_bf16_close(g_t, g_j)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which,t", [("attn", 72), ("attn", 80),
+                                     ("block", 80)])
+def test_fused_halves_match_jax_across_key_tiles(blocks, monkeypatch, which,
+                                                 t, dt):
+    """As above at t = 72 and 80, which the gate opens and which the
+    card's bf16 core takes in two 64-key tiles: the plain version that the
+    card holds that core against is itself held against the JAX kernels
+    (row blocks of `flat_geometry`'s samples, 3 samples: one ragged
+    block), at the same tolerances."""
+    monkeypatch.delenv("APHANTASIA_ATTN_ROWS", raising=False)
+    jd, td = DTYPES[dt]
+    bb = jattn.flat_geometry(t, jd)
+    jps, tps = blocks
+    tp = tm.cast_weights(tps[0], td)
+    x, co = _inputs(3 * t, seed=11)
+    y_j, vjp = jax.vjp(_jax_fn(which, jps[0], t, bb),
+                       jnp.asarray(x).astype(jd))
+    (g_j,) = vjp(jnp.asarray(co).astype(jd))
+    xt = torch.tensor(x).to(td).requires_grad_(True)
+    y_t = _torch_fn(which, tp, t)(xt)
+    (g_t,) = torch.autograd.grad(y_t, xt, torch.tensor(co).to(td))
+    assert y_t.dtype == td and g_t.dtype == td
+    if dt == "float32":
+        np.testing.assert_allclose(_np(y_t), _np(y_j), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(_np(g_t), _np(g_j), rtol=2e-4, atol=2e-5)
+    else:
+        _assert_bf16_close(y_t, y_j)
+        _assert_bf16_close(g_t, g_j)
+
+
 @pytest.mark.parametrize("which", ["attn", "mlp"])
 def test_plain_backward_is_the_vjp_of_the_plain_forward(blocks, which):
     """The closed-form plain backward equals autograd's transpose of the
@@ -140,10 +171,11 @@ def test_plain_backward_is_the_vjp_of_the_plain_forward(blocks, which):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t", [17, 50, 197, 257])
+@pytest.mark.parametrize("t", [17, 50, 72, 80, 197, 257])
 def test_flat_geometry_matches_jax(monkeypatch, t, dt):
-    """The gate of the fused path: open for t = 50 (ViT-B/32) and the tiny
-    test towers' 17, shut for ViT-B/16's 197 and ViT-L/14's 257."""
+    """The gate of the fused path: open for t = 50 (ViT-B/32), the tiny
+    test towers' 17 and the two-key-tile 72 and 80, shut for ViT-B/16's
+    197 and ViT-L/14's 257."""
     monkeypatch.delenv("APHANTASIA_ATTN_ROWS", raising=False)
     jd, td = DTYPES[dt]
     want = jattn.flat_geometry(t, jd)
@@ -260,6 +292,12 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(blocks):
                                m["proj_w"])
     with pytest.raises(ValueError):          # inv of the wrong shape
         tb.attn_half_bwd_kernel(x, x, torch.zeros((30, 3)), *aw[:5], NH, T)
+    with pytest.raises(ValueError):          # a bf16 head wider than 64
+        xw = torch.zeros((3 * T, 72), dtype=torch.bfloat16)
+        tb.attn_half_bwd_kernel(xw, xw, torch.zeros((3 * T, 1)),
+                                torch.ones(72), torch.zeros(72),
+                                torch.zeros((72, 216)), torch.zeros(216),
+                                torch.zeros((72, 72)), 1, T)
     with pytest.raises(ValueError):          # a weight on another device
         tb.mlp_half_fwd_kernel(x, g, b, m["fc_w"].to("meta"), *mw[3:])
     with pytest.raises(RuntimeError):
@@ -268,12 +306,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(blocks):
 
 def test_library_names_follow_the_source_and_the_shared_headers(
         tmp_path, monkeypatch):
-    """csrc/block.cu includes csrc/mma.cuh and csrc/cutout_win.cu
-    csrc/wgmma.cuh: a library's file name hashes its source and every
-    header, so an edit to either rebuilds it and a stale library never
-    loads."""
+    """csrc/block.cu includes csrc/mma.cuh, csrc/attn_tile.cuh and
+    csrc/wgmma.cuh, and csrc/cutout_win.cu csrc/wgmma.cuh: a library's
+    file name hashes its source and every header, so an edit to either
+    rebuilds it and a stale library never loads."""
     from aphantasia_torch import kernels
-    for name, header in (("block", "mma.cuh"), ("cutout_win", "wgmma.cuh")):
+    for name, header in (("block", "mma.cuh"), ("block", "attn_tile.cuh"),
+                         ("block", "wgmma.cuh"), ("cutout_win", "wgmma.cuh")):
         src = open(f"{kernels.CSRC}/{name}.cu").read()
         assert f'#include "{header}"' in src
     monkeypatch.setattr(kernels, "CSRC", str(tmp_path))

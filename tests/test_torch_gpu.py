@@ -424,11 +424,17 @@ def _block(cuda, rows, d, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2 ** -6)])
 @pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
-                                            (91, 13, 40, 2)])
+                                            (91, 13, 40, 2),
+                                            (16 * 72, 72, 768, 12),
+                                            (16 * 80, 80, 768, 12)])
 def test_block_kernels_match_plain(cuda, dtype, tol, rows, t, d, heads):
     """The four half-block kernels against their plain versions through
     attn_half / mlp_half (forward, dx), each launched once a call; 91 rows
-    and a width of 40 fill no tile."""
+    and a width of 40 fill no tile; t = 72 and 80 take two key tiles, so
+    the bf16 core sums rs over both before any ds.  dx of the MLP half
+    goes through gelu'(u) of a u that varies over every row and column, so
+    an epilogue that read u at other coordinates than its accumulator's
+    would show here."""
     x, dy, p = _block(cuda, rows, d, dtype)
     a, m = p["attn"], p["mlp"]
     aw = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"], a["out_w"])
@@ -469,3 +475,88 @@ def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         BL.attn_half(x, *aw, 3, 10)
     with pytest.raises(ValueError):      # width not a multiple of 8
         BL.mlp_half_fwd_kernel(torch.zeros((30, 36), device="cuda"), *mw)
+
+
+def _block_fn(cuda, rows, t, d, heads):
+    """Closures of the two bf16 backward entry points on one input."""
+    x, dy, p = _block(cuda, rows, d, torch.bfloat16)
+    a, m = p["attn"], p["mlp"]
+    aw = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"], a["out_w"])
+    mw = (p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"], m["fc_b"], m["proj_w"])
+    _, inv = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
+    return (lambda: BL.attn_half_bwd_kernel(x, dy, inv, *aw, heads, t),
+            lambda: BL.mlp_half_bwd_kernel(x, dy, *mw))
+
+
+@pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
+                                            (16 * 80, 80, 768, 12)])
+def test_bf16_block_backward_is_deterministic(cuda, rows, t, d, heads):
+    """Two launches of each bf16 backward entry point give the same bits:
+    the wgmma products have no split-K and no atomics, and the core sums
+    every row in a fixed order."""
+    for fn in _block_fn(cuda, rows, t, d, heads):
+        assert torch.equal(fn(), fn())
+
+
+@pytest.mark.parametrize("kind", ["bias", "store", "store_f32", "gelu_back"])
+@pytest.mark.parametrize("m,k,n", [(9500, 768, 2304), (91, 40, 160)])
+def test_block_backward_products_match_plain(cuda, kind, m, k, n):
+    """Each epilogue of the wgmma product alone against its plain version:
+    2^-6 relative in bf16 (one rounding each side, a float32 sum in
+    another order), 1e-5 for the float32 store.  `gelu_back` reads u at
+    the accumulator's coordinates; u varies everywhere, so a wrong map of
+    wgmma's accumulator layout fails here.  91 x 160 fills no tile."""
+    a = torch.randn((m, k), generator=cuda, device="cuda").bfloat16()
+    shape = (k, n) if kind == "bias" else (n, k)
+    w = (torch.randn(shape, generator=cuda, device="cuda")
+         * k ** -0.5).bfloat16()
+    aux = {"bias": torch.randn((n,), generator=cuda, device="cuda"),
+           "gelu_back": torch.randn((m, n), generator=cuda,
+                                    device="cuda")}.get(kind)
+    aux = None if aux is None else aux.bfloat16()
+    before = kernels.LAUNCHES["block_bwd_product"]
+    got = BL.bwd_product_kernel(a, w, kind, aux)
+    assert kernels.LAUNCHES["block_bwd_product"] == before + 1
+    ref = BL.bwd_product_plain(a, w, kind, aux)
+    assert got.dtype == ref.dtype and got.shape == (m, n)
+    assert _rel(got, ref) <= (1e-5 if kind == "store_f32" else 2 ** -6)
+
+
+@pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
+                                            (91, 13, 40, 2),
+                                            (16 * 80, 80, 768, 12),
+                                            (4 * 129, 129, 768, 12)])
+def test_block_tensor_core_attention_backward_matches_plain(cuda, rows, t, d,
+                                                            heads):
+    """The bf16 core alone (the dq pass, then dk/dv from its rs) against
+    `_attn_core_bwd` at 2^-6 relative: one, two and three 64-key tiles,
+    and a head 20 wide, padded to 64."""
+    x, dy, p = _block(cuda, rows, d, torch.bfloat16)
+    a = p["attn"]
+    h = BL._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
+    qkv = BL._mm_bias(h, a["in_w"], a["in_b"])
+    _, inv = BL._attn_core_fwd(qkv, heads, t)
+    got = BL.core_bwd_kernel(qkv, dy, inv, heads, t)
+    ref = BL._attn_core_bwd(qkv, dy, inv, heads, t)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, ref) <= 2 ** -6
+
+
+def test_block_halves_capture_into_a_graph(cuda):
+    """attn_half and mlp_half, forward and autograd backward, in bf16 at
+    ViT-B/32's shape, captured into one CUDA graph: the per-call tensor
+    maps and scratch need no host sync, and the replay equals the eager
+    call bit for bit."""
+    x, dy, p = _block(cuda, 9500, 768, torch.bfloat16)
+    a, m = p["attn"], p["mlp"]
+
+    def step():
+        xr = x.detach().requires_grad_(True)
+        y = BL.attn_half(xr, p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"],
+                         a["in_b"], a["out_w"], a["out_b"], 12, 50)
+        y = BL.mlp_half(y, p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"],
+                        m["fc_b"], m["proj_w"], m["proj_b"])
+        (gx,) = torch.autograd.grad(y, xr, dy)
+        return y.detach(), gx
+    (y0, g0), (y1, g1) = _captured(step)
+    assert torch.equal(y0, y1) and torch.equal(g0, g1)
