@@ -44,42 +44,52 @@
 //   transpose ([N, K], for the `@ W^T` products of the backward);
 //   the attention core per (sample, head).
 //
-// The backward entry points in bf16 (the main path's) run on the tensor
-// cores through Hopper's own paths:
+// Every bf16 entry point (the main path's) runs on the tensor cores
+// through Hopper's own paths:
 //   products: `gemm_tc_kernel`, one warp-specialised block per 128 x BN
 //   output tile.  One producer thread keeps a ring of stages full with
 //   TMA loads (128-byte swizzle, mbarriers): the A tile [128 rows, 64 K]
 //   and the B tile, either one [BN N rows, 64 K] box of a weight stored
-//   [N, K] (K-major, the `@ W^T` products) or [64 K rows, 64 N] boxes of
-//   a weight stored [K, N] (MN-major, wgmma's transpose bit: the
-//   recomputed qkv and u).  Two consumer warpgroups each own 64 rows and
-//   run wgmma.m64nBNk16 (csrc/wgmma.cuh) into BN / 2 float32 registers a
-//   thread.  The epilogue works at the accumulator's own coordinates: a
-//   float32 output goes out straight from the registers; a bf16 one is
-//   staged through the ring (idle by then) and written 16 bytes a thread
-//   along rows, each thread loading its rows' bias or u before it stores
-//   any.  The tile width goes with the epilogue.  BN = 256, 4 stages
-//   (197 KB), one block an SM, the fewest operand bytes a FLOP: qkv, do,
-//   u and the two dh; at R = 9500 (75 row tiles, the last 28 rows) 225
-//   blocks for N = 768 (1.7 waves of 132), 675 for N = 2304 (5.1), 900
-//   for N = 3072 (6.8).  du, whose epilogue reads u and computes the
-//   quick_gelu derivative, outlasts its loop at K = 768, so BN = 128, 3
-//   stages (97 KB), two blocks an SM, one block's epilogue under the
-//   other's loop: 1800 blocks (6.8 waves of 264).  TMA's zero fill covers
-//   the loads past M, N and K; the stores are guarded.  No split-K, no
-//   atomics: two launches give the same bits.  The host encodes the
-//   tensor maps per call (cuTensorMapEncodeTiled through
-//   cudaGetDriverEntryPoint, as csrc/cutout_win.cu) and passes them as
-//   __grid_constant__ parameters.
-//   core: the 64-row tiles of csrc/attn_tile.cuh (ldmatrix-fed mma.sync
+//   [N, K] (K-major, the `@ W^T` products of the backward) or [64 K rows,
+//   64 N] boxes of a weight stored [K, N] (MN-major, wgmma's transpose
+//   bit: qkv, out-proj, fc and proj, and the backward's recomputed qkv and
+//   u).  Two consumer warpgroups each own 64 rows and run wgmma.m64nBNk16
+//   (csrc/wgmma.cuh) into BN / 2 float32 registers a thread.  The
+//   epilogue works at the accumulator's own coordinates: a float32 output
+//   goes out straight from the registers; a bf16 one is staged through
+//   the ring (idle by then) and written 16 bytes a thread along rows, each
+//   thread loading what its rows need (the residual x, u) for all of them
+//   before it stores any.  The tile width goes with the epilogue.  BN =
+//   256, 4 stages (197 KB), one block an SM, the fewest operand bytes a
+//   FLOP: qkv, proj, do, u and the two dh; at R = 9500 (75 row tiles,
+//   the last 28 rows) 225 blocks for N = 768 (1.7 waves of 132), 675 for
+//   N = 2304 (5.1), 900 for N = 3072 (6.8).  A heavier epilogue outlasts
+//   its loop at K = 768: du (it reads u and computes the quick_gelu
+//   derivative), fc (quick_gelu) and out-proj (it reads the residual x)
+//   take BN = 128, 3 stages (97 KB), two blocks an SM, one block's
+//   epilogue under the other's loop: 1800 blocks for N = 3072 (6.8 waves
+//   of 264), 450 for N = 768 (1.7).  Each forward product's width was
+//   measured both ways (kQkvBN .. kProjBN).  TMA's zero fill covers the
+//   loads past M, N and K; the stores are guarded.  No split-K, no
+//   atomics: two launches give the same bits.
+//   The host encodes the tensor maps per call (cuTensorMapEncodeTiled
+//   through cudaGetDriverEntryPoint, as csrc/cutout_win.cu) and passes
+//   them as __grid_constant__ parameters.
+//   cores: the 64-row tiles of csrc/attn_tile.cuh (ldmatrix-fed mma.sync
 //   m16n8k16, P and dS fed from registers as A operands, S^T and dP^T
 //   computed directly for dk/dv).  Chosen over wgmma by reckoning: at
-//   t = 50 a (sample, head) is one 64 x 64 tile whose products are 1.6
-//   MFLOP against 45 KB of q, k, v, do and dqkv moved, so the core is
+//   t = 50 a (sample, head) is one 64 x 64 tile whose products are 0.65
+//   MFLOP forward against ~25 KB of q, k, v and o moved, 1.6 MFLOP
+//   backward against 45 KB of q, k, v, do and dqkv, so the cores are
 //   bound by bytes and latency, and a warpgroup product would need 64-row
-//   tiles of every operand in shared memory for no gain.  The clamp
-//   softmax differs from csrc/attention.cu's lse backward: rs = sum_j dp
-//   p32 needs the whole row of dp before any ds.  t <= 64 (ViT-B/32):
+//   tiles of every operand in shared memory for no gain.
+//   Forward: `core_fwd_tc_kernel`, a block per (sample, 64-row query
+//   tile, head) walking 64-key tiles (one at t <= 64: 27 KB, 2280 blocks
+//   at R = 9500); the clamp subtracts no running max, so o and the row
+//   sum add up over key tiles with no rescaling, and keys past t are
+//   masked to e = 0.  The clamp softmax also differs from
+//   csrc/attention.cu's lse backward: rs = sum_j dp p32 needs the whole
+//   row of dp before any ds.  t <= 64 (ViT-B/32):
 //   `core_one_tile_tc_kernel`, a block per (sample, head) with Q, dO, K,
 //   V resident (46 KB, 4 blocks an SM, 2280 blocks at R = 9500): dq with
 //   rs kept in shared memory, then dk, dv.  Longer t: `core_dq_tc_kernel`
@@ -88,12 +98,11 @@
 //   `core_dkv_tc_kernel` per 64-key tile walks the query tiles (55 KB
 //   each).  A narrower head (the tests' 20) is padded with zero columns
 //   to 64.  Every sum runs in a fixed order, nothing is atomic.
-// The forward entry points keep the first design: 128x128x32 tiles over 8
-// warps of ldmatrix-fed mma.sync with a cp.async double buffer, and a
-// scalar float32 core per (sample, head) from shared memory.  float32
-// keeps 64x64 tiles of register FMAs (the tensor cores would round to
-// TF32) and the scalar cores (the backward in two phases: dq with K, V
-// resident, then dk, dv with Q, dO resident); it serves the
+// The first design's bf16 tiles (128x128x32 mma.sync over a cp.async
+// double buffer, and a scalar float32 core for the forward) are gone.
+// float32 keeps 64x64 tiles of register FMAs (the tensor cores would
+// round to TF32) and the scalar cores (the backward in two phases: dq
+// with K, V resident, then dk, dv with Q, dO resident); it serves the
 // card-against-CPU checks.
 // The entry points make 4, 6, 3 and 5 launches (the bf16 attention
 // backward 7 past t = 64: the core is two); each is counted once by its
@@ -281,13 +290,12 @@ ln_back_kernel(const T* __restrict__ x, const float* __restrict__ g,
 // ------------------------------------------------------------ products
 
 // The epilogues: each takes (row, col, acc[col], acc[col + 1]) of a row
-// below M and an even col below N (N % 8 == 0, so col + 1 < N too).
+// below M and an even col below N (N % 8 == 0, so col + 1 < N too); that
+// direct store serves the float32 outputs, and a bf16 output goes
+// through the staged `store8` below.
 
 __device__ __forceinline__ void put2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void put2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
 // Eight consecutive values of a row at p, 16-byte aligned: the wgmma
@@ -303,14 +311,14 @@ __device__ __forceinline__ void st8(bf16* p, const float (&v)[8]) {
 }
 
 // out = round_T(round_T(acc) + bias)                  [qkv, u]
-template <typename T> struct EpBias {
+template <typename T, int BN = 256> struct EpBias {
   T* out; const T* bias; int ld;
   __device__ void operator()(int r, int n, float v0, float v1) const {
     put2(out + (int64_t)r * ld + n, rnd<T>(v0) + to_f(bias[n]),
          rnd<T>(v1) + to_f(bias[n + 1]));
   }
   static constexpr bool kStaged = true;
-  static constexpr int kBN = 256;
+  static constexpr int kBN = BN;
   __device__ NoPre pre(int, int) const { return {}; }
   __device__ void store8(int r, int n, float (&v)[8], NoPre) const {
     float bv[8];
@@ -321,16 +329,29 @@ template <typename T> struct EpBias {
   }
 };
 // out = round_T(res + round_T(round_T(acc) + bias))   [out_proj, proj]
-template <typename T> struct EpBiasResidual {
+template <typename T, int BN = 256> struct EpBiasResidual {
   T* out; const T* bias; const T* res; int ld;
   __device__ void operator()(int r, int n, float v0, float v1) const {
     const int64_t i = (int64_t)r * ld + n;
     put2(out + i, to_f(res[i]) + rnd<T>(rnd<T>(v0) + to_f(bias[n])),
          to_f(res[i + 1]) + rnd<T>(rnd<T>(v1) + to_f(bias[n + 1])));
   }
+  static constexpr bool kStaged = true;
+  static constexpr int kBN = BN;
+  __device__ uint4 pre(int r, int n) const {  // the residual's 8 values
+    return *reinterpret_cast<const uint4*>(res + (int64_t)r * ld + n);
+  }
+  __device__ void store8(int r, int n, float (&v)[8], uint4 xq) const {
+    float bv[8], xv[8];
+    ld8(bias + n, bv);
+    ld8(reinterpret_cast<const bf16*>(&xq), xv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = xv[i] + rnd<T>(rnd<T>(v[i]) + bv[i]);
+    st8(out + (int64_t)r * ld + n, v);
+  }
 };
 // out = round_T(u sigmoid(1.702 u)), u = round_T(round_T(acc) + bias)   [fc]
-template <typename T> struct EpBiasGelu {
+template <typename T, int BN = 256> struct EpBiasGelu {
   T* out; const T* bias; int ld;
   __device__ float gelu(float v, float b) const {
     const float u = rnd<T>(rnd<T>(v) + b);
@@ -339,6 +360,16 @@ template <typename T> struct EpBiasGelu {
   __device__ void operator()(int r, int n, float v0, float v1) const {
     put2(out + (int64_t)r * ld + n, gelu(v0, to_f(bias[n])),
          gelu(v1, to_f(bias[n + 1])));
+  }
+  static constexpr bool kStaged = true;
+  static constexpr int kBN = BN;
+  __device__ NoPre pre(int, int) const { return {}; }
+  __device__ void store8(int r, int n, float (&v)[8], NoPre) const {
+    float bv[8];
+    ld8(bias + n, bv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = gelu(v[i], bv[i]);
+    st8(out + (int64_t)r * ld + n, v);
   }
 };
 // out = acc in T (round_T) or float32                  [do; dh]
@@ -386,113 +417,16 @@ template <typename T> struct EpGeluBack {
   }
 };
 
-// 16 bytes of a shared tile from src, or zeros where the chunk lies
-// outside the matrix
-__device__ __forceinline__ void fill16(bf16* dst, const bf16* src, bool ok) {
-  if (ok)
-    cp_async16(dst, src);
-  else
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
 template <typename T> struct Tile;
-template <> struct Tile<bf16> {
-  static constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-};
 template <> struct Tile<float> {
   static constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
 };
 
-// One BM x BN tile of C = A B, A [M, K] row-major, B [K, N] row-major or,
-// with BT, B = W^T for W [N, K] row-major; ep(row, col, c0, c1) takes the
-// float32 results.  bf16 (the forward entry points' products; B [K, N]
-// only, the backward's run on gemm_tc_kernel): the next 32-deep K step's
-// tiles are copied into the second shared stage with cp.async while the
-// tensor cores work on the current one; ldmatrix brings each 16x16 A
-// fragment and each pair of 16x8 B fragments (transposed); each of the 8
-// warps accumulates 32x64 of the tile.
-template <bool BT, typename Ep>
-__device__ void tile_product(const bf16* __restrict__ A,
-                             const bf16* __restrict__ B, int M, int N, int K,
-                             const Ep& ep) {
-  static_assert(!BT, "bf16 W^T products run on gemm_tc_kernel");
-  using TL = Tile<bf16>;
-  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, THREADS = TL::THREADS;
-  __shared__ __align__(128) bf16 As[2][BM][BK + 8];
-  __shared__ __align__(128) bf16 Bs[2][BK][BN + 8];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wr = (warp / 2) * 32;
-  const int wc = (warp % 2) * 64;
-  const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  auto fill = [&](int st, int k0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int slot = tid + j * THREADS;
-      const int ar = slot / (BK / 8), ac = (slot % (BK / 8)) * 8;
-      fill16(&As[st][ar][ac], A + (int64_t)(r0 + ar) * K + k0 + ac,
-             r0 + ar < M && k0 + ac < K);
-      const int kk = slot / (BN / 8), c = (slot % (BN / 8)) * 8;
-      fill16(&Bs[st][kk][c], B + (int64_t)(k0 + kk) * N + n0 + c,
-             k0 + kk < K && n0 + c < N);
-    }
-    cp_async_commit();
-  };
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  fill(0, 0);
-  int st = 0;
-  for (int k0 = 0; k0 < K; k0 += BK, st ^= 1) {
-    if (k0 + BK < K) {
-      fill(st ^ 1, k0 + BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(a[i], &As[st][wr + 16 * i + (lane & 15)][kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        unsigned b[4];  // {b0, b1} of columns +0..7, then of +8..15
-        ldsm_x4_trans(b, &Bs[st][kk + (lane & 15)]
-                            [wc + 16 * jj + (lane >> 4) * 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * jj], a[i], b[0], b[1]);
-          mma_bf16(acc[i][2 * jj + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // accumulator (i, j): rows g and g + 8 of the 16-row block i, columns
-  // q, q + 1 of the 8-column block j
-  const int g = lane >> 2, q = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + wr + 16 * i + g + 8 * h;
-      if (r >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + wc + 8 * j + q;
-        if (n < N) ep(r, n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
-// float32: one shared stage, each thread a 4x8 register tile of FMAs
+// One BM x BN tile of C = A B in float32 (the float32 entry points'
+// products; bf16's run on gemm_tc_kernel): A [M, K] row-major, B [K, N]
+// row-major or, with BT, B = W^T for W [N, K] row-major; ep(row, col, c0,
+// c1) takes the results.  One shared stage, each thread a 4x8 register
+// tile of FMAs.
 template <bool BT, typename Ep>
 __device__ void tile_product(const float* __restrict__ A,
                              const float* __restrict__ B, int M, int N, int K,
@@ -1042,15 +976,17 @@ __device__ __forceinline__ void head_load(bf16* s, const bf16* g, int64_t ld,
   }
 }
 
-// The warp's 16 x 64 accumulator rounded to bf16, rows [0, n) and head
-// columns [0, hd), to device memory at g (row stride ld): hd = 64 through
-// `warp_store` (staged in the warp's own rows at s), else an element at a
-// time.
+// The warp's 16 x 64 accumulator, row r scaled by mul0 and row r + 8 by
+// mul1 in float32, rounded to bf16, rows [0, n) and head columns [0, hd),
+// to device memory at g (row stride ld): hd = 64 through `warp_store`
+// (staged in the warp's own rows at s), else an element at a time.
 __device__ __forceinline__ void head_store(bf16* s, const float (&acc)[8][4],
                                            bf16* __restrict__ g, int64_t ld,
-                                           int n, int hd, int lane) {
+                                           int n, int hd, int lane,
+                                           float mul0 = 1.f,
+                                           float mul1 = 1.f) {
   if (hd == kHd) {
-    warp_store(s, acc, 1.f, 1.f, g, ld, n, lane);
+    warp_store(s, acc, mul0, mul1, g, ld, n, lane);
     return;
   }
   const int r = lane >> 2, c = (lane & 3) * 2;
@@ -1059,8 +995,102 @@ __device__ __forceinline__ void head_store(bf16* s, const float (&acc)[8][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r + 8 * (e >> 1), col = 8 * j + c + (e & 1);
-      if (row < n && col < hd) g[row * ld + col] = from_f<bf16>(acc[j][e]);
+      if (row < n && col < hd)
+        g[row * ld + col] = from_f<bf16>(acc[j][e] * (e < 2 ? mul0 : mul1));
     }
+}
+
+// o and inv of one 64-row query tile of one (sample, head): the clamp
+// softmax forward on the tensor cores.  Each warp owns 16 query rows; Q
+// comes by `head_load`, K and V in 64-key tiles double-buffered by
+// cp.async (t <= 64: one tile, one stage, no loop).  e = exp(min(s scale,
+// 60)) subtracts nothing, so e needs no rescaling across key tiles: o and
+// the row sum simply add up.  Keys at and past t get e = 0 (a zero-filled
+// key row would score 0 and add exp(0) = 1 to the row sum).  The row sum
+// takes the float32 e: a lane sums its columns in key order, then the
+// quad adds its four partial sums, a fixed order.  o += round_bf16(e) v
+// (`to_a_frags` rounds, as the TPU kernel's `e.astype(dt)`), and at the
+// end o = round_bf16(o inv), multiplied in float32 and rounded once.
+__global__ void __launch_bounds__(kTcThreads)
+core_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                   float* __restrict__ inv_out, int t, int n_heads, int d,
+                   float scale, int n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nk = (t + kRows - 1) / kRows;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kTile;                     // one stage, or two
+  bf16* vs = ks + (nk > 1 ? 2 : 1) * kTile;  // as many
+  const int b = blockIdx.x / n_tiles, q0 = (blockIdx.x % n_tiles) * kRows;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hd = d / n_heads;
+  const int64_t d3 = 3 * (int64_t)d, hoff = (int64_t)h * hd;
+  const int64_t rows0 = (int64_t)b * t;      // the sample's first row
+  const bf16* base = qkv + rows0 * d3 + hoff;
+  auto load_kv = [&](int st, int k0) {
+    head_load(ks + st * kTile, base + k0 * d3 + d, d3, t - k0, hd, tid);
+    head_load(vs + st * kTile, base + k0 * d3 + 2 * d, d3, t - k0, hd, tid);
+    cp_async_commit();
+  };
+  head_load(qs, base + q0 * d3, d3, t - q0, hd, tid);
+  load_kv(0, 0);                   // Q rides in the first group
+  const int r = lane >> 2, c = (lane & 3) * 2;
+  const int w16 = warp * 16;
+  const bf16* qw = qs + w16 * kLd;
+  float o[8][4], sum[2] = {0.f, 0.f};
+  zero_acc(o);
+  for (int v = 0; v < nk; ++v) {
+    const int st = v & 1, k0 = v * kRows;
+    if (v + 1 < nk) {
+      load_kv(st ^ 1, k0 + kRows);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+    zero_acc(s);
+    warp_abt(s, qw, ks + st * kTile, lane);
+    // e = exp(min(s scale, 60)); zero past the sample's keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = k0 + 8 * j + c + (e & 1) < t
+                      ? expf(fminf(s[j][e] * scale, 60.f))
+                      : 0.f;
+        sum[e >> 1] += s[j][e];
+      }
+    unsigned pf[4][4];
+    to_a_frags(pf, s);             // round_bf16(e)
+    warp_pb(o, pf, vs + st * kTile, lane);
+    __syncthreads();
+  }
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    inv[hh] = 1.f / sum[hh];
+    const int row = q0 + w16 + r + 8 * hh;
+    if (c == 0 && row < t) inv_out[(rows0 + row) * n_heads + h] = inv[hh];
+  }
+  // the warp's own Q rows (read by no other warp) stage its o
+  head_store(qs + w16 * kLd, o, out + (rows0 + q0 + w16) * d + hoff, d,
+             t - q0 - w16, hd, lane, inv[0], inv[1]);
+}
+
+// The bf16 core forward: one launch of `core_fwd_tc_kernel`, a block per
+// (sample, 64-row query tile, head); heads up to 64 wide.
+int core_fwd_tc(const bf16* qkv, bf16* out, float* inv, int rows, int t,
+                int n_heads, int d, float scale, cudaStream_t stream) {
+  if (d / n_heads > kHd) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (t + kRows - 1) / kRows;
+  const size_t smem = (1 + 2 * (n_tiles > 1 ? 2 : 1)) * kTile * sizeof(bf16);
+  core_fwd_tc_kernel<<<dim3((rows / t) * n_tiles, n_heads), kTcThreads, smem,
+                       stream>>>(qkv, out, inv, t, n_heads, d, scale,
+                                 n_tiles);
+  return (int)cudaGetLastError();
 }
 
 // dq of one 64-row query tile of one (sample, head) with t > 64, and
@@ -1420,17 +1450,25 @@ cudaError_t layer_norm_back(const T* x, const float* g, const float* stat,
     if (err_ != 0) return err_;     \
   } while (0)
 
-// The backward chains' products and attention core: bf16 on wgmma and the
-// tensor-core core, float32 on the FMA tiles and the scalar core.
+// The chains' products and attention cores: bf16 on wgmma and the
+// tensor-core cores, float32 on the FMA tiles and the scalar cores.
 template <bool BT, typename Ep>
-int back_product(const bf16* A, const bf16* B, int M, int N, int K,
-                 const Ep& ep, cudaStream_t s) {
+int run_product(const bf16* A, const bf16* B, int M, int N, int K,
+                const Ep& ep, cudaStream_t s) {
   return product_tc<BT>(A, B, M, N, K, ep, s);
 }
 template <bool BT, typename Ep>
-int back_product(const float* A, const float* B, int M, int N, int K,
-                 const Ep& ep, cudaStream_t s) {
+int run_product(const float* A, const float* B, int M, int N, int K,
+                const Ep& ep, cudaStream_t s) {
   return (int)product<float, BT>(A, B, M, N, K, ep, s);
+}
+int core_forward(const bf16* qkv, bf16* o, float* inv, int rows, int t,
+                 int n_heads, int d, float scale, cudaStream_t s) {
+  return core_fwd_tc(qkv, o, inv, rows, t, n_heads, d, scale, s);
+}
+int core_forward(const float* qkv, float* o, float* inv, int rows, int t,
+                 int n_heads, int d, float scale, cudaStream_t s) {
+  return (int)core_fwd(qkv, o, inv, rows, t, n_heads, d, scale, s);
 }
 int core_back(const bf16* qkv, const bf16* dout, const float* inv, float* rs,
               bf16* dqkv, int rows, int t, int n_heads, int d, float scale,
@@ -1444,17 +1482,25 @@ int core_back(const float* qkv, const float* dout, const float* inv,
   return (int)core_bwd(qkv, dout, inv, dqkv, rows, t, n_heads, d, scale, s);
 }
 
+// The bf16 forward products' tile widths, each measured at 256 against
+// 128 at ViT-B/32's shape (chip_smoke.py's `block fwd launch` lines): qkv
+// 256 (0.0719 against 0.0734 ms), out-proj 128 (0.0309 against 0.0327:
+// K = 768 is too short a loop to hide the residual read), fc 128 (0.1278
+// against 0.1611: the quick_gelu epilogue), proj 256 (0.0743 against
+// 0.0847: K = 3072).
+constexpr int kQkvBN = 256, kOutBN = 128, kFcBN = 128, kProjBN = 256;
+
 template <typename T>
 int attn_fwd(const T* x, const float* g, const float* b, const T* in_w,
              const T* in_b, const T* out_w, const T* out_b, T* h, T* qkv,
              T* o, T* y, float* inv, int rows, int d, int n_heads, int t,
              float scale, cudaStream_t s) {
   TRY(layer_norm(x, g, b, h, (float*)nullptr, rows, d, s));
-  TRY((product<T, false>(h, in_w, rows, 3 * d, d,
-                         EpBias<T>{qkv, in_b, 3 * d}, s)));
-  TRY(core_fwd(qkv, o, inv, rows, t, n_heads, d, scale, s));
-  TRY((product<T, false>(o, out_w, rows, d, d,
-                         EpBiasResidual<T>{y, out_b, x, d}, s)));
+  TRY((run_product<false>(h, in_w, rows, 3 * d, d,
+                          EpBias<T, kQkvBN>{qkv, in_b, 3 * d}, s)));
+  TRY(core_forward(qkv, o, inv, rows, t, n_heads, d, scale, s));
+  TRY((run_product<false>(o, out_w, rows, d, d,
+                          EpBiasResidual<T, kOutBN>{y, out_b, x, d}, s)));
   return 0;
 }
 
@@ -1465,11 +1511,11 @@ int attn_bwd(const T* x, const T* dy, const float* inv, const float* g,
              float* dh, T* dx, int rows, int d, int n_heads, int t,
              float scale, cudaStream_t s) {
   TRY(layer_norm(x, g, b, h, stat, rows, d, s));
-  TRY((back_product<false>(h, in_w, rows, 3 * d, d,
+  TRY((run_product<false>(h, in_w, rows, 3 * d, d,
                            EpBias<T>{qkv, in_b, 3 * d}, s)));
-  TRY((back_product<true>(dy, out_w, rows, d, d, EpStore<T>{dout, d}, s)));
+  TRY((run_product<true>(dy, out_w, rows, d, d, EpStore<T>{dout, d}, s)));
   TRY(core_back(qkv, dout, inv, rs, dqkv, rows, t, n_heads, d, scale, s));
-  TRY((back_product<true>(dqkv, in_w, rows, d, 3 * d,
+  TRY((run_product<true>(dqkv, in_w, rows, d, 3 * d,
                           EpStore<float>{dh, d}, s)));
   TRY(layer_norm_back(x, g, stat, dh, dy, dx, rows, d, s));
   return 0;
@@ -1480,10 +1526,10 @@ int mlp_fwd(const T* x, const float* g, const float* b, const T* fc_w,
             const T* fc_b, const T* p_w, const T* p_b, T* h, T* a, T* y,
             int rows, int d, int hidden, cudaStream_t s) {
   TRY(layer_norm(x, g, b, h, (float*)nullptr, rows, d, s));
-  TRY((product<T, false>(h, fc_w, rows, hidden, d,
-                         EpBiasGelu<T>{a, fc_b, hidden}, s)));
-  TRY((product<T, false>(a, p_w, rows, d, hidden,
-                         EpBiasResidual<T>{y, p_b, x, d}, s)));
+  TRY((run_product<false>(h, fc_w, rows, hidden, d,
+                          EpBiasGelu<T, kFcBN>{a, fc_b, hidden}, s)));
+  TRY((run_product<false>(a, p_w, rows, d, hidden,
+                          EpBiasResidual<T, kProjBN>{y, p_b, x, d}, s)));
   return 0;
 }
 
@@ -1493,14 +1539,33 @@ int mlp_bwd(const T* x, const T* dy, const float* g, const float* b,
             T* u, T* du, float* dh, T* dx, int rows, int d, int hidden,
             cudaStream_t s) {
   TRY(layer_norm(x, g, b, h, stat, rows, d, s));
-  TRY((back_product<false>(h, fc_w, rows, hidden, d,
+  TRY((run_product<false>(h, fc_w, rows, hidden, d,
                            EpBias<T>{u, fc_b, hidden}, s)));
-  TRY((back_product<true>(dy, p_w, rows, hidden, d,
+  TRY((run_product<true>(dy, p_w, rows, hidden, d,
                           EpGeluBack<T>{du, u, hidden}, s)));
-  TRY((back_product<true>(du, fc_w, rows, d, hidden, EpStore<float>{dh, d},
+  TRY((run_product<true>(du, fc_w, rows, d, hidden, EpStore<float>{dh, d},
                           s)));
   TRY(layer_norm_back(x, g, stat, dh, dy, dx, rows, d, s));
   return 0;
+}
+
+// One bf16 product of kind 0, 4 or 5 of `block_product` in tiles BN wide.
+template <int BN>
+int fwd_product(const bf16* A, const bf16* W, const bf16* bias,
+                const bf16* aux, bf16* out, int m, int n, int k, int kind,
+                cudaStream_t s) {
+  switch (kind) {
+    case 0:
+      return product_tc<false>(A, W, m, n, k, EpBias<bf16, BN>{out, bias, n},
+                               s);
+    case 4:
+      return product_tc<false>(
+          A, W, m, n, k, EpBiasResidual<bf16, BN>{out, bias, aux, n}, s);
+    case 5:
+      return product_tc<false>(A, W, m, n, k,
+                               EpBiasGelu<bf16, BN>{out, bias, n}, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1593,36 +1658,55 @@ int mlp_half_bwd(const void* x, const void* dy, const void* g, const void* b,
       hidden, s);
 }
 
-// One bf16 product of the backward chains alone, as attn_half_bwd and
-// mlp_half_bwd launch it (for per-launch timing and checks): out = a
-// [m, k] times w through epilogue `kind`:
-//   0  out = round(round(a @ w) + aux), w [k, n], aux the bias [n]  (qkv, u)
-//   1  out = round(a @ w^T), w [n, k]                                (do)
-//   2  out = a @ w^T in float32, w [n, k]                            (dh)
-//   3  out = round((a @ w^T) gelu'(aux)), w [n, k], aux = u [m, n]   (du)
-// out is bf16 [m, n] (float32 for kind 2).
-int block_bwd_product(const void* a, const void* w, const void* aux,
-                      void* out, int m, int n, int k, int kind,
-                      void* stream) {
+// One bf16 product of the chains alone, as the entry points launch it
+// (for per-launch timing and checks): out = a [m, k] times w through
+// epilogue `kind`:
+//   0  out = round(round(a @ w) + bias), w [k, n]                (qkv, u)
+//   1  out = round(a @ w^T), w [n, k]                               (do)
+//   2  out = a @ w^T in float32, w [n, k]                           (dh)
+//   3  out = round((a @ w^T) gelu'(aux)), w [n, k], aux = u [m, n]  (du)
+//   4  out = round(aux + round(round(a @ w) + bias)), w [k, n], aux the
+//      residual x [m, n]                                   (out-proj, proj)
+//   5  out = round(u sigmoid(1.702 u)), u = round(round(a @ w) + bias),
+//      w [k, n]                                                     (fc)
+// bias is [n]; out is bf16 [m, n] (float32 for kind 2).  `width` is the
+// tile width, 128 or 256, for kinds 0, 4 and 5 (0: 256); kinds 1-3 take
+// only 0 (their own: 256, 256, 128).
+int block_product(const void* a, const void* w, const void* bias,
+                  const void* aux, void* out, int m, int n, int k, int kind,
+                  int width, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const bf16* A = (const bf16*)a;
   const bf16* W = (const bf16*)w;
+  const bf16* B = (const bf16*)bias;
+  const bf16* X = (const bf16*)aux;
+  if (kind == 0 || kind == 4 || kind == 5) {
+    if (width == 0 || width == 256)
+      return fwd_product<256>(A, W, B, X, (bf16*)out, m, n, k, kind, s);
+    if (width == 128)
+      return fwd_product<128>(A, W, B, X, (bf16*)out, m, n, k, kind, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (width != 0) return (int)cudaErrorInvalidValue;
   switch (kind) {
-    case 0:
-      return product_tc<false>(A, W, m, n, k,
-                               EpBias<bf16>{(bf16*)out, (const bf16*)aux, n},
-                               s);
     case 1:
       return product_tc<true>(A, W, m, n, k, EpStore<bf16>{(bf16*)out, n}, s);
     case 2:
       return product_tc<true>(A, W, m, n, k, EpStore<float>{(float*)out, n},
                               s);
     case 3:
-      return product_tc<true>(
-          A, W, m, n, k, EpGeluBack<bf16>{(bf16*)out, (const bf16*)aux, n},
-          s);
+      return product_tc<true>(A, W, m, n, k,
+                              EpGeluBack<bf16>{(bf16*)out, X, n}, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 attention core forward alone, as attn_half_fwd launches it:
+// o [rows, d] bf16 and inv [rows, n_heads] float32 from qkv [rows, 3d].
+int block_core_fwd(const void* qkv, void* o, void* inv, int rows, int t,
+                   int n_heads, int d, float scale, void* stream) {
+  return core_fwd_tc((const bf16*)qkv, (bf16*)o, (float*)inv, rows, t,
+                     n_heads, d, scale, (cudaStream_t)stream);
 }
 
 // The bf16 attention core backward alone, as attn_half_bwd launches it:
@@ -1636,9 +1720,9 @@ int block_core_bwd(const void* qkv, const void* dout, const void* inv,
                      (cudaStream_t)stream);
 }
 
-// Shared-memory bytes of the scalar attention core at (t, hd) (the
-// forward's, and float32's backward), so the caller can refuse a shape
-// before launching; the bf16 backward's core needs a fixed 55 KB.
+// Shared-memory bytes of the float32 scalar attention cores at (t, hd),
+// so the caller can refuse a shape before launching; the bf16 cores need
+// at most 55 KB at any t.
 int block_smem_bytes(int t, int hd, int backward) {
   return (int)(backward ? core_bwd_smem(t, hd) : core_fwd_smem(t, hd));
 }

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "attn_half_bwd": [_P] * 16 + [_I] * 4 + [_F, _I, _P],
     "mlp_half_fwd": [_P] * 10 + [_I] * 4 + [_P],
     "mlp_half_bwd": [_P] * 13 + [_I] * 4 + [_P],
-    "block_bwd_product": [_P] * 4 + [_I] * 4 + [_P],
+    "block_product": [_P] * 5 + [_I] * 5 + [_P],
+    "block_core_fwd": [_P] * 3 + [_I] * 4 + [_F, _P],
     "block_core_bwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     "block_smem_bytes": [_I, _I, _I],
 }
@@ -197,7 +198,7 @@ def mlp_half_bwd_plain(x, dy, g, b, fc_w, fc_b, p_w):
 
 # ------------------------------------------------------------ kernel wrappers
 
-def _check(x, n_heads=None, t=None):
+def _check(x, n_heads=None, t=None, what="block"):
     if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim != 2:
         raise TypeError("block kernels take a bf16/float32 [R, D] stream, "
                         f"got {x.dtype} {tuple(x.shape)}")
@@ -207,6 +208,10 @@ def _check(x, n_heads=None, t=None):
     if n_heads is not None and (d % n_heads or r % t):
         raise ValueError(f"block: [R={r}, D={d}] does not split into "
                          f"{n_heads} heads and samples of t={t}")
+    if (n_heads is not None and x.dtype == torch.bfloat16
+            and d // n_heads > _TC_HEAD):
+        raise ValueError(f"{what}: the bf16 core takes heads up to "
+                         f"{_TC_HEAD} wide, got {d // n_heads}")
 
 
 def _weights(x, named):
@@ -224,8 +229,8 @@ def _weights(x, named):
 
 
 def _smem_ok(lib, t, hd, backward):
-    """The scalar attention core (the forward's, float32's backward) holds
-    two [t, hd] float32 matrices in shared memory: refuse what exceeds it."""
+    """float32's scalar attention cores hold two [t, hd] float32 matrices
+    in shared memory: refuse what exceeds it."""
     need = lib.block_smem_bytes(t, hd, int(backward))
     if need > _SMEM_LIMIT:
         raise ValueError(f"block attention needs {need} bytes of shared "
@@ -263,13 +268,14 @@ def _empty(x, *shape, dtype=None):
 def attn_half_fwd_kernel(x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
     """Launch the attention half's forward: (y in x's dtype, inv
     [R, n_heads] float32).  Its four launches are counted once."""
-    _check(x, n_heads=n_heads, t=t)
+    _check(x, n_heads=n_heads, t=t, what="block attention forward")
     r, d = x.shape
     x = kernels.aligned(x)
     ws = _attn_weights(x, g, b, in_w, in_b, out_w)
     (out_b,) = _weights(x, (("out_b", out_b, (d,)),))
     lib = kernels.library("block", _SIGNATURES)
-    _smem_ok(lib, t, d // n_heads, backward=False)
+    if x.dtype != torch.bfloat16:
+        _smem_ok(lib, t, d // n_heads, backward=False)
     h, o, y = _empty(x, r, d), _empty(x, r, d), _empty(x, r, d)
     qkv = _empty(x, r, 3 * d)
     inv = _empty(x, r, n_heads, dtype=torch.float32)
@@ -286,7 +292,7 @@ def attn_half_bwd_kernel(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
     """Launch the attention half's backward: dx in x's dtype.  Its six
     launches (seven in bf16 past t = 64, where the tensor-core core is
     two) are counted once."""
-    _check(x, n_heads=n_heads, t=t)
+    _check(x, n_heads=n_heads, t=t, what="block attention backward")
     r, d = x.shape
     if (tuple(dy.shape) != (r, d) or tuple(inv.shape) != (r, n_heads)
             or dy.device != x.device or inv.device != x.device):
@@ -294,9 +300,6 @@ def attn_half_bwd_kernel(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
                          f"inv {tuple(inv.shape)} do not fit x {(r, d)} on "
                          f"{x.device}")
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and d // n_heads > _TC_HEAD:
-        raise ValueError(f"block attention backward: the bf16 core takes "
-                         f"heads up to {_TC_HEAD} wide, got {d // n_heads}")
     x = kernels.aligned(x)
     dy = kernels.aligned(dy.to(x.dtype))
     inv = inv.float().contiguous()
@@ -360,16 +363,30 @@ def mlp_half_bwd_kernel(x, dy, g, b, fc_w, fc_b, p_w):
     return dx
 
 
-# The bf16 backward chains' launches one at a time (csrc/block.cu's
-# block_bwd_product and block_core_bwd), for per-launch timing and checks
-# on the card; the port's path reaches them only through the entry points.
-# The product's epilogues, with the plain version of each:
+# The bf16 chains' launches one at a time (csrc/block.cu's block_product,
+# block_core_fwd and block_core_bwd), for per-launch timing and checks on
+# the card; the port's path reaches them only through the entry points.
+# The product's epilogues (w [K, N] as stored, or [N, K] for the `@ w^T`
+# kinds), with the plain version of each:
 _PRODUCTS = {
-    "bias": (0, lambda a, w, aux: _mm_bias(a, w, aux)),
-    "store": (1, lambda a, w, aux: _mm_t(a, w).to(a.dtype)),
-    "store_f32": (2, lambda a, w, aux: _mm_t(a, w)),
-    "gelu_back": (3, lambda a, w, aux: _gelu_back(_mm_t(a, w), aux)),
+    "bias": (0, lambda a, w, bias, aux: _mm_bias(a, w, bias)),
+    "store": (1, lambda a, w, bias, aux: _mm_t(a, w).to(a.dtype)),
+    "store_f32": (2, lambda a, w, bias, aux: _mm_t(a, w)),
+    "gelu_back": (3, lambda a, w, bias, aux: _gelu_back(_mm_t(a, w), aux)),
+    "bias_residual": (4, lambda a, w, bias, aux: aux + _mm_bias(a, w, bias)),
+    "bias_gelu": (5, lambda a, w, bias, aux: _quick_gelu(_mm_bias(a, w,
+                                                                   bias))),
 }
+_W_T = ("store", "store_f32", "gelu_back")       # w [N, K]
+_NEEDS = {"bias": (True, False), "store": (False, False),
+          "store_f32": (False, False), "gelu_back": (False, True),
+          "bias_residual": (True, True), "bias_gelu": (True, False)}
+
+
+def _quick_gelu(u):
+    """round(u * sigmoid(1.702 u)), computed in float32."""
+    uf = u.float()
+    return (uf * torch.sigmoid(1.702 * uf)).to(u.dtype)
 
 
 def _gelu_back(da, u):
@@ -379,53 +396,85 @@ def _gelu_back(da, u):
     return (da * (s + 1.702 * uf * s * (1.0 - s))).to(u.dtype)
 
 
-def bwd_product_plain(a, w, kind, aux=None):
-    """The plain version of `bwd_product_kernel`."""
-    return _PRODUCTS[kind][1](a, w, aux)
+def product_plain(a, w, kind, bias=None, aux=None):
+    """The plain version of `product_kernel`."""
+    return _PRODUCTS[kind][1](a, w, bias, aux)
 
 
-def bwd_product_kernel(a, w, kind, aux=None):
-    """One product of the bf16 backward chains on wgmma: `kind` "bias"
-    (a @ w + aux, w [K, N]), "store" (a @ w^T, w [N, K]), "store_f32" (the
-    same in float32) or "gelu_back" (a @ w^T times gelu'(aux), aux = u
-    [M, N]).  bf16 CUDA tensors; counted as `block_bwd_product`."""
+def product_kernel(a, w, kind, bias=None, aux=None, width=None):
+    """One product of the bf16 chains on wgmma: `kind` "bias" (a @ w +
+    bias: qkv, u), "bias_residual" (aux + (a @ w + bias), aux the residual
+    x [M, N]: out-proj, proj), "bias_gelu" (quick_gelu(a @ w + bias): fc),
+    all with w [K, N]; "store" (a @ w^T, w [N, K]: do), "store_f32" (the
+    same in float32: dh) or "gelu_back" (a @ w^T times gelu'(aux), aux = u
+    [M, N]: du).  `width`: the tile width, 128 or 256, of the first three
+    (None: 256).  bf16 CUDA tensors; counted as `block_product`."""
     if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or not a.is_cuda:
-        raise TypeError("bwd_product_kernel takes bf16 CUDA tensors")
+        raise TypeError("product_kernel takes bf16 CUDA tensors")
     m, k = a.shape
-    n = w.shape[1] if kind == "bias" else w.shape[0]
-    if w.shape[0 if kind == "bias" else 1] != k or k % 8 or n % 8:
-        raise ValueError(f"bwd_product_kernel: a {tuple(a.shape)} and w "
+    n = w.shape[0] if kind in _W_T else w.shape[1]
+    if w.shape[1 if kind in _W_T else 0] != k or k % 8 or n % 8:
+        raise ValueError(f"product_kernel: a {tuple(a.shape)} and w "
                          f"{tuple(w.shape)} do not fit ({kind})")
+    need_bias, need_aux = _NEEDS[kind]
+    if ((bias is None) == need_bias or (aux is None) == need_aux
+            or (need_bias and tuple(bias.shape) != (n,))
+            or (need_aux and tuple(aux.shape) != (m, n))
+            or width not in ((None,) if kind in _W_T else (None, 128, 256))):
+        raise ValueError(f"product_kernel ({kind}): bias / aux / width "
+                         f"{width} do not fit a [{m}, {n}] output")
     a, w = kernels.aligned(a), kernels.aligned(w)
-    if aux is not None:
-        aux = kernels.aligned(aux.to(torch.bfloat16))
+    bias, aux = (None if v is None else kernels.aligned(v.to(torch.bfloat16))
+                 for v in (bias, aux))
     out = _empty(a, m, n, dtype=torch.float32 if kind == "store_f32"
                  else torch.bfloat16)
     lib = kernels.library("block", _SIGNATURES)
-    code = lib.block_bwd_product(
-        a.data_ptr(), w.data_ptr(), 0 if aux is None else aux.data_ptr(),
-        out.data_ptr(), m, n, k, _PRODUCTS[kind][0], kernels.stream_ptr(a))
-    kernels.check(lib, code, "block_bwd_product")
-    kernels.LAUNCHES["block_bwd_product"] += 1
+    code = lib.block_product(
+        a.data_ptr(), w.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        0 if aux is None else aux.data_ptr(), out.data_ptr(), m, n, k,
+        _PRODUCTS[kind][0], width or 0, kernels.stream_ptr(a))
+    kernels.check(lib, code, "block_product")
+    kernels.LAUNCHES["block_product"] += 1
     return out
+
+
+def _core_args(qkv, n_heads, t, what):
+    r, d3 = qkv.shape
+    if (qkv.dtype != torch.bfloat16 or not qkv.is_cuda
+            or d3 // 3 // n_heads > _TC_HEAD or r % t):
+        raise ValueError(f"{what} takes bf16 CUDA qkv with heads up to "
+                         f"{_TC_HEAD} wide and R a multiple of t")
+    return kernels.aligned(qkv), r, d3 // 3
+
+
+def core_fwd_kernel(qkv, n_heads, t):
+    """The bf16 attention core forward on the tensor cores (one launch,
+    counted as `block_core_fwd`): (o [R, D] bf16, inv [R, heads] float32)
+    from qkv [R, 3D]; plain version `_attn_core_fwd`."""
+    qkv, r, d = _core_args(qkv, n_heads, t, "core_fwd_kernel")
+    o = _empty(qkv, r, d)
+    inv = _empty(qkv, r, n_heads, dtype=torch.float32)
+    lib = kernels.library("block", _SIGNATURES)
+    code = lib.block_core_fwd(*_ptrs(qkv, o, inv), r, t, n_heads, d,
+                              1.0 / math.sqrt(d // n_heads),
+                              kernels.stream_ptr(qkv))
+    kernels.check(lib, code, "block_core_fwd")
+    kernels.LAUNCHES["block_core_fwd"] += 1
+    return o, inv
 
 
 def core_bwd_kernel(qkv, do, inv, n_heads, t):
     """The bf16 attention core backward on the tensor cores (one launch
     for t <= 64, else two, counted once as `block_core_bwd`): dqkv [R, 3D]
-    bf16 from
-    qkv [R, 3D], do [R, D] bf16 and the forward's inv [R, heads];
-    plain version `_attn_core_bwd`."""
-    r, d3 = qkv.shape
-    d = d3 // 3
-    if (qkv.dtype != torch.bfloat16 or do.dtype != torch.bfloat16
-            or not qkv.is_cuda or d // n_heads > _TC_HEAD or r % t):
-        raise ValueError("core_bwd_kernel takes bf16 CUDA qkv with heads up "
-                         f"to {_TC_HEAD} wide and R a multiple of t")
-    qkv, do = kernels.aligned(qkv), kernels.aligned(do)
+    bf16 from qkv [R, 3D], do [R, D] bf16 and the forward's inv [R,
+    heads]; plain version `_attn_core_bwd`."""
+    qkv, r, d = _core_args(qkv, n_heads, t, "core_bwd_kernel")
+    if do.dtype != torch.bfloat16:
+        raise ValueError("core_bwd_kernel takes a bf16 do")
+    do = kernels.aligned(do)
     inv = inv.float().contiguous()
     rs = _empty(qkv, r, n_heads, dtype=torch.float32)
-    dqkv = _empty(qkv, r, d3)
+    dqkv = _empty(qkv, r, 3 * d)
     lib = kernels.library("block", _SIGNATURES)
     code = lib.block_core_bwd(*_ptrs(qkv, do, inv, rs, dqkv), r, t, n_heads,
                               d, 1.0 / math.sqrt(d // n_heads),

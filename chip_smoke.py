@@ -787,16 +787,28 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     outs = {"block_attn_fwd": (y, yr), "block_attn_inv": (inv, invr)}
     for k in ("block_mlp_fwd", "block_attn_bwd", "block_mlp_bwd"):
         outs[k] = tuple(f() for f in runs[k])
-    # the backward entry points launched twice give the same bits (no
-    # split-K, no atomics, every sum in a fixed order)
-    for k in ("block_attn_bwd", "block_mlp_bwd"):
-        check(torch.equal(runs[k][0](), outs[k][0]),
-              f"{k} [{rows},{d}] t={t} {dtype}: two launches differ")
+    # every entry point launched twice gives the same bits (no split-K, no
+    # atomics, every sum in a fixed order)
+    firsts = {"block_attn_fwd": (y, inv)}
+    for k in BLOCK_KERNELS:
+        again = runs[k][0]()
+        first = firsts.get(k, outs[k][0])
+        same = (all(torch.equal(u, v) for u, v in zip(again, first))
+                if isinstance(again, tuple) else torch.equal(again, first))
+        check(same, f"{k} [{rows},{d}] t={t} {dtype}: two launches differ")
     if dtype == torch.bfloat16:
-        # the tensor-core attention core alone, from the plain qkv and do
+        # the tensor-core attention cores alone, from the plain qkv and do
         h = B._ln(x, *aw[:2])[0]
         qkv = B._mm_bias(h, a["in_w"], a["in_b"])
         do = B._mm_t(dy, a["out_w"]).to(dtype)
+        o_k, inv_k = B.core_fwd_kernel(qkv, heads, t)
+        o_r, inv_r = B._attn_core_fwd(qkv, heads, t)
+        outs["block_core_fwd"] = (o_k, o_r)
+        # the row sums take the float32 e in both: float32 sums in another
+        # order only (a sum of the bf16-rounded e drifts by ~1e-4)
+        rel = ((inv_k - inv_r).abs() / inv_r.abs()).max().item()
+        check(rel <= 1e-5, f"block_core_fwd [{rows},{d}] t={t}: inv "
+              f"relative error {rel:.3g} > 1e-5")
         outs["block_core_bwd"] = (B.core_bwd_kernel(qkv, do, invr, heads, t),
                                   B._attn_core_bwd(qkv, do, invr, heads, t))
     torch.cuda.synchronize()
@@ -815,6 +827,7 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     if not timed:
         return res
     del outs
+    res["fwd_launches"] = block_fwd_launches(x, p, heads, t)
     res["launches"] = block_bwd_launches(x, dy, p, heads, t, invr)
     for k, (kern, plain) in runs.items():
         res[k] = {"ms": cuda_ms(kern), "graph": graph_ms(kern),
@@ -856,6 +869,59 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     return res
 
 
+def block_fwd_launches(x, p, heads, t):
+    """Each launch inside the bf16 forward chains of `attn_half_fwd` and
+    `mlp_half_fwd` but the LayerNorms, alone at this shape, on inputs from
+    the plain chain: {label: ({tile width: device ms by graph replay},
+    yardstick ms, yardstick name, GFLOP, max |err| against its plain
+    version, |ref|)}; each product at both tile widths (the chain runs
+    the widths block.cu's kQkvBN .. kProjBN name), the core once (width
+    0).  Beside each product `torch.matmul` at the same shape (the port
+    never calls it), beside the core csrc/attention.cu's bf16 attention
+    forward on the same qkv (lse softmax, another function).  Raises if a
+    launch disagrees with its plain version by more than 2^-6 of |ref|."""
+    import torch
+    from aphantasia_torch.ops import attention as A
+    from aphantasia_torch.ops import block as B
+    a, m = p["attn"], p["mlp"]
+    r, d = x.shape
+    h1 = B._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
+    h2 = B._ln(x, p["ln_2"]["g"], p["ln_2"]["b"])[0]
+    qkv = B._mm_bias(h1, a["in_w"], a["in_b"])
+    o, _ = B._attn_core_fwd(qkv, heads, t)
+    act = B.product_plain(h2, m["fc_w"], "bias_gelu", m["fc_b"])
+    core_flop = 2 * 2 * (r // t) * heads * t * t * (d // heads)
+    prods = (("qkv = h in_w + in_b", h1, a["in_w"], "bias", a["in_b"], None),
+             ("y = x + o out_w + out_b", o, a["out_w"], "bias_residual",
+              a["out_b"], x),
+             ("a = gelu(h fc_w + fc_b)", h2, m["fc_w"], "bias_gelu",
+              m["fc_b"], None),
+             ("y = x + a p_w + p_b", act, m["proj_w"], "bias_residual",
+              m["proj_b"], x))
+    res = {}
+    for label, lhs, w, kind, bias, aux in prods:
+        ref = B.product_plain(lhs, w, kind, bias, aux)
+        ms, err = {}, (0.0, 0.0)
+        for width in (256, 128):
+            kern = lambda: B.product_kernel(  # noqa: E731
+                lhs, w, kind, bias, aux, width)
+            e = max_err(kern(), ref)
+            err = max(err, e)
+            ms[width] = graph_ms(kern)
+        gflop = 2 * lhs.shape[0] * lhs.shape[1] * w.shape[1] / 1e9
+        res[label] = (ms, graph_ms(lambda: torch.matmul(lhs, w)),
+                      "torch.matmul", gflop) + err
+    err = max_err(B.core_fwd_kernel(qkv, heads, t)[0], o)
+    res["core"] = ({0: graph_ms(lambda: B.core_fwd_kernel(qkv, heads, t))},
+                   graph_ms(lambda: A.attention_fwd_kernel(qkv, heads, t)),
+                   "attention.cu attn_fwd", core_flop / 1e9) + err
+    for label, (*_, e, sc) in res.items():
+        check(math.isfinite(e) and e <= 2.0 ** -6 * max(sc, 1.0),
+              f"block forward launch {label}: max |err| {e:.3g} "
+              f"(|ref| {sc:.3g})")
+    return res
+
+
 def block_bwd_launches(x, dy, p, heads, t, inv):
     """Each launch inside the bf16 backward chains of `attn_half_bwd` and
     `mlp_half_bwd`, alone at this shape, on inputs from the plain chain:
@@ -876,20 +942,22 @@ def block_bwd_launches(x, dy, p, heads, t, inv):
     do = B._mm_t(dy, a["out_w"]).to(x.dtype)
     dqkv = B._attn_core_bwd(qkv, do, inv, heads, t)
     u = B._mm_bias(h2, m["fc_w"], m["fc_b"])
-    du = B.bwd_product_plain(dy, m["proj_w"], "gelu_back", u)
+    du = B.product_plain(dy, m["proj_w"], "gelu_back", aux=u)
     out, lse = A.attention_fwd_kernel(qkv, heads, t)
     core_flop = 5 * 2 * (r // t) * heads * t * t * (d // heads)
-    prods = (("qkv = h in_w + in_b", h1, a["in_w"], "bias", a["in_b"]),
-             ("do = dy out_w^T", dy, a["out_w"], "store", None),
-             ("dh = dqkv in_w^T", dqkv, a["in_w"], "store_f32", None),
-             ("u = h fc_w + fc_b", h2, m["fc_w"], "bias", m["fc_b"]),
-             ("du = gelu'(u) dy p_w^T", dy, m["proj_w"], "gelu_back", u),
-             ("dh = du fc_w^T", du, m["fc_w"], "store_f32", None))
+    prods = (("qkv = h in_w + in_b", h1, a["in_w"], "bias", a["in_b"],
+              None),
+             ("do = dy out_w^T", dy, a["out_w"], "store", None, None),
+             ("dh = dqkv in_w^T", dqkv, a["in_w"], "store_f32", None, None),
+             ("u = h fc_w + fc_b", h2, m["fc_w"], "bias", m["fc_b"], None),
+             ("du = gelu'(u) dy p_w^T", dy, m["proj_w"], "gelu_back", None,
+              u),
+             ("dh = du fc_w^T", du, m["fc_w"], "store_f32", None, None))
     res = {}
-    for label, lhs, w, kind, aux in prods:
+    for label, lhs, w, kind, bias, aux in prods:
         wt = w if kind == "bias" else w.t()
-        kern = lambda: B.bwd_product_kernel(lhs, w, kind, aux)  # noqa: E731
-        err = max_err(kern(), B.bwd_product_plain(lhs, w, kind, aux))
+        kern = lambda: B.product_kernel(lhs, w, kind, bias, aux)  # noqa: E731
+        err = max_err(kern(), B.product_plain(lhs, w, kind, bias, aux))
         gflop = 2 * lhs.shape[0] * lhs.shape[1] * wt.shape[1] / 1e9
         res[label] = (graph_ms(kern), graph_ms(lambda: torch.matmul(lhs, wt)),
                       "torch.matmul", gflop) + err
@@ -1096,7 +1164,10 @@ def phase_kernels(report):
             (91, 13, 40, 2, torch.float32, False),
             (1037, 17, 128, 2, torch.bfloat16, False),
             (1037, 17, 128, 2, torch.float32, False),
-            # two 64-key tiles: rs sums over both before any ds
+            # two 64-key tiles: o and the row sums add up over both, rs
+            # sums over both before any ds
+            (16 * 72, 72, 768, 12, torch.bfloat16, False),
+            (16 * 72, 72, 768, 12, torch.float32, False),
             (16 * 80, 80, 768, 12, torch.bfloat16, False),
             (16 * 80, 80, 768, 12, torch.float32, False)):
         r = check_block(rows, t, d, heads, dtype, timed=timed)
@@ -1117,6 +1188,14 @@ def phase_kernels(report):
                       f"plain {q['plain']:.4f} ms, unfused half "
                       f"{q['unfused']:.4f} ms, bound {q['bound'][0]:.4f} ms "
                       f"({q['bound'][1]})")
+            for label, (ms, ys, yname, gf, e, sc) in r["fwd_launches"].items():
+                times = ", ".join(
+                    f"{w}-wide {v:.4f} ms ({gf / v:.1f} TFLOP/s)" if w
+                    else f"{v:.4f} ms ({gf / v:.1f} TFLOP/s)"
+                    for w, v in ms.items())
+                print(f"[kernels] block fwd launch {label} [{rows},{d}] t={t} "
+                      f"bf16 ({gf:.2f} GFLOP): graph replay {times}, {yname} "
+                      f"{ys:.4f} ms; max|err| {e:.3g} (|ref| {sc:.3g})")
             for label, (ms, ys, yname, gf, e, sc) in r["launches"].items():
                 print(f"[kernels] block bwd launch {label} [{rows},{d}] t={t} "
                       f"bf16 ({gf:.2f} GFLOP): graph replay {ms:.4f} ms "

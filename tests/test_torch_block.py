@@ -292,16 +292,115 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(blocks):
                                m["proj_w"])
     with pytest.raises(ValueError):          # inv of the wrong shape
         tb.attn_half_bwd_kernel(x, x, torch.zeros((30, 3)), *aw[:5], NH, T)
-    with pytest.raises(ValueError):          # a bf16 head wider than 64
-        xw = torch.zeros((3 * T, 72), dtype=torch.bfloat16)
-        tb.attn_half_bwd_kernel(xw, xw, torch.zeros((3 * T, 1)),
-                                torch.ones(72), torch.zeros(72),
-                                torch.zeros((72, 216)), torch.zeros(216),
-                                torch.zeros((72, 72)), 1, T)
     with pytest.raises(ValueError):          # a weight on another device
         tb.mlp_half_fwd_kernel(x, g, b, m["fc_w"].to("meta"), *mw[3:])
     with pytest.raises(RuntimeError):
         tb.attn_half(x.to("meta"), *aw, NH, T)
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_bf16_attention_half_refuses_heads_wider_than_64(which):
+    """The bf16 tensor-core cores take heads up to 64 wide; both attention
+    entry points refuse a wider one before any kernel is built."""
+    xw = torch.zeros((3 * T, 72), dtype=torch.bfloat16)
+    ws = (torch.ones(72), torch.zeros(72), torch.zeros((72, 216)),
+          torch.zeros(216), torch.zeros((72, 72)))
+    with pytest.raises(ValueError, match="up to 64 wide"):
+        if which == "forward":
+            tb.attn_half_fwd_kernel(xw, *ws, torch.zeros(72), 1, T)
+        else:
+            tb.attn_half_bwd_kernel(xw, xw, torch.zeros((3 * T, 1)), *ws, 1,
+                                    T)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["attn", "mlp"])
+def test_forward_launch_pieces_chain_to_the_plain_halves(blocks, which, dt):
+    """The plain versions of the forward chains' launches one at a time
+    (the LayerNorm, `product_plain` of kinds bias, bias_residual and
+    bias_gelu, `_attn_core_fwd`), chained as attn_half_fwd and
+    mlp_half_fwd launch them, equal the halves' plain versions bit for
+    bit: what the card holds each launch against composes to what it holds
+    the entry points against."""
+    _, td = DTYPES[dt]
+    p = tm.cast_weights(blocks[1][0], td)
+    x = torch.tensor(_inputs(3 * T, seed=4)[0]).to(td)
+    if which == "attn":
+        a, ln = p["attn"], p["ln_1"]
+        h = tb._ln(x, ln["g"], ln["b"])[0]
+        qkv = tb.product_plain(h, a["in_w"], "bias", a["in_b"])
+        o, inv = tb._attn_core_fwd(qkv, NH, T)
+        y = tb.product_plain(o, a["out_w"], "bias_residual", a["out_b"], x)
+        y_r, inv_r = tb.attn_half_fwd_plain(x, ln["g"], ln["b"], a["in_w"],
+                                            a["in_b"], a["out_w"],
+                                            a["out_b"], NH, T)
+        assert torch.equal(inv, inv_r)
+    else:
+        m, ln = p["mlp"], p["ln_2"]
+        h = tb._ln(x, ln["g"], ln["b"])[0]
+        act = tb.product_plain(h, m["fc_w"], "bias_gelu", m["fc_b"])
+        y = tb.product_plain(act, m["proj_w"], "bias_residual", m["proj_b"],
+                             x)
+        y_r = tb.mlp_half_fwd_plain(x, ln["g"], ln["b"], m["fc_w"],
+                                    m["fc_b"], m["proj_w"], m["proj_b"])
+    assert y.dtype == td and torch.equal(y, y_r)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["bias_residual", "bias_gelu"])
+def test_forward_product_pieces_match_jax(kind, dt):
+    """The two forward epilogues of `product_plain` against the TPU
+    kernels' own pieces: x + _matmul_bias(o, w, b) (the residual add of
+    the two halves) and _quick_gelu_f32(_matmul_bias(h, fc_w, fc_b))
+    rounded to dt (the MLP's fc).  float32 within 1e-5 of the largest
+    entry; bf16 within one step (both round at the same points)."""
+    jd, td = DTYPES[dt]
+    rs = np.random.RandomState(3)
+    a = rs.randn(30, D).astype(np.float32)
+    w = (rs.randn(D, 4 * D) * D ** -0.5).astype(np.float32)
+    b = (rs.randn(4 * D) * 0.02).astype(np.float32)
+    x = rs.randn(30, 4 * D).astype(np.float32)
+    ja, jw, jbias, jx = (jnp.asarray(v).astype(jd) for v in (a, w, b, x))
+    ta, tw, tbias, tx = (torch.tensor(v).to(td) for v in (a, w, b, x))
+    if kind == "bias_residual":
+        want = jx + jb._matmul_bias(ja, jw, jbias)
+        got = tb.product_plain(ta, tw, kind, tbias, tx)
+    else:
+        u = jb._matmul_bias(ja, jw, jbias).astype(jnp.float32)
+        want = jb._quick_gelu_f32(u)[0].astype(jd)
+        got = tb.product_plain(ta, tw, kind, tbias)
+    assert got.dtype == td and got.shape == want.shape
+    if dt == "float32":
+        np.testing.assert_allclose(_np(got), _np(want),
+                                   atol=1e-5 * np.abs(_np(want)).max())
+    else:
+        _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d,heads", [(13, 40, 2), (50, 32, 2),
+                                       (80, 128, 2)])
+def test_attn_core_fwd_matches_jax_core(t, d, heads, dt):
+    """`_attn_core_fwd`, the plain version the card holds its
+    tensor-core core forward against, against JAX's
+    pallas_block._attn_fwd_core called directly on one sample's qkv
+    [t, 3d] (bias 0.0): a 20-wide head at t = 13, one 64-key tile at 50,
+    two at 80.  inv within 1e-5 relative to each entry (float32 row sums
+    of the float32 e on both sides); o in float32 within 1e-5 of the
+    largest entry, in bf16 within one step (both round e before e v)."""
+    jd, td = DTYPES[dt]
+    qkv = np.random.RandomState(t).randn(t, 3 * d).astype(np.float32)
+    o_j, inv_j = jb._attn_fwd_core(jnp.asarray(qkv).astype(jd), 0.0, heads,
+                                   jd)
+    o_t, inv_t = tb._attn_core_fwd(torch.tensor(qkv).to(td), heads, t)
+    assert o_t.dtype == td and inv_t.dtype == torch.float32
+    assert o_t.shape == (t, d) and inv_t.shape == (t, heads)
+    np.testing.assert_allclose(_np(inv_t), _np(inv_j), rtol=1e-5)
+    if dt == "float32":
+        np.testing.assert_allclose(_np(o_t), _np(o_j),
+                                   atol=1e-5 * np.abs(_np(o_j)).max())
+    else:
+        _assert_bf16_close(o_t, o_j)
 
 
 def test_library_names_follow_the_source_and_the_shared_headers(

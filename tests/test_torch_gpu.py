@@ -475,14 +475,26 @@ def test_block_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         BL.attn_half(x, *aw, 3, 10)
     with pytest.raises(ValueError):      # width not a multiple of 8
         BL.mlp_half_fwd_kernel(torch.zeros((30, 36), device="cuda"), *mw)
+    xw = torch.zeros((30, 72), dtype=torch.bfloat16, device="cuda")
+    ww = [torch.zeros(shape, device="cuda") for shape in
+          ((72,), (72,), (72, 216), (216,), (72, 72), (72,))]
+    with pytest.raises(ValueError):      # a bf16 head wider than 64
+        BL.attn_half_fwd_kernel(xw, *ww, 1, 10)
+    with pytest.raises(ValueError):      # a width the product does not take
+        BL.product_kernel(xw, ww[4].bfloat16(), "bias", ww[-1].bfloat16(),
+                          width=64)
 
 
-def _block_fn(cuda, rows, t, d, heads):
-    """Closures of the two bf16 backward entry points on one input."""
+def _block_fn(cuda, rows, t, d, heads, forward=False):
+    """Closures of the two bf16 backward entry points (or forward ones)
+    on one input."""
     x, dy, p = _block(cuda, rows, d, torch.bfloat16)
     a, m = p["attn"], p["mlp"]
     aw = (p["ln_1"]["g"], p["ln_1"]["b"], a["in_w"], a["in_b"], a["out_w"])
     mw = (p["ln_2"]["g"], p["ln_2"]["b"], m["fc_w"], m["fc_b"], m["proj_w"])
+    if forward:
+        return (lambda: BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t),
+                lambda: BL.mlp_half_fwd_kernel(x, *mw, m["proj_b"]))
     _, inv = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
     return (lambda: BL.attn_half_bwd_kernel(x, dy, inv, *aw, heads, t),
             lambda: BL.mlp_half_bwd_kernel(x, dy, *mw))
@@ -498,6 +510,31 @@ def test_bf16_block_backward_is_deterministic(cuda, rows, t, d, heads):
         assert torch.equal(fn(), fn())
 
 
+@pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
+                                            (16 * 80, 80, 768, 12)])
+def test_bf16_block_forward_is_deterministic(cuda, rows, t, d, heads):
+    """Two launches of each bf16 forward entry point give the same bits,
+    y and inv: no split-K, no atomics, the row sums in a fixed order."""
+    for fn in _block_fn(cuda, rows, t, d, heads, forward=True):
+        first, again = fn(), fn()
+        if isinstance(first, tuple):
+            assert all(torch.equal(u, v) for u, v in zip(first, again))
+        else:
+            assert torch.equal(first, again)
+
+
+def _product_case(cuda, kind, m, k, n):
+    """a [m, k], w ([k, n] or, for the `@ w^T` kinds, [n, k]), bias [n]
+    and aux [m, n] (u or the residual) where the kind takes them, bf16."""
+    def r(*shape, std=1.0):
+        return (torch.randn(shape, generator=cuda, device="cuda")
+                * std).bfloat16()
+    need_bias, need_aux = BL._NEEDS[kind]
+    shape = (n, k) if kind in BL._W_T else (k, n)
+    return (r(m, k), r(*shape, std=k ** -0.5), r(n) if need_bias else None,
+            r(m, n) if need_aux else None)
+
+
 @pytest.mark.parametrize("kind", ["bias", "store", "store_f32", "gelu_back"])
 @pytest.mark.parametrize("m,k,n", [(9500, 768, 2304), (91, 40, 160)])
 def test_block_backward_products_match_plain(cuda, kind, m, k, n):
@@ -506,20 +543,61 @@ def test_block_backward_products_match_plain(cuda, kind, m, k, n):
     another order), 1e-5 for the float32 store.  `gelu_back` reads u at
     the accumulator's coordinates; u varies everywhere, so a wrong map of
     wgmma's accumulator layout fails here.  91 x 160 fills no tile."""
-    a = torch.randn((m, k), generator=cuda, device="cuda").bfloat16()
-    shape = (k, n) if kind == "bias" else (n, k)
-    w = (torch.randn(shape, generator=cuda, device="cuda")
-         * k ** -0.5).bfloat16()
-    aux = {"bias": torch.randn((n,), generator=cuda, device="cuda"),
-           "gelu_back": torch.randn((m, n), generator=cuda,
-                                    device="cuda")}.get(kind)
-    aux = None if aux is None else aux.bfloat16()
-    before = kernels.LAUNCHES["block_bwd_product"]
-    got = BL.bwd_product_kernel(a, w, kind, aux)
-    assert kernels.LAUNCHES["block_bwd_product"] == before + 1
-    ref = BL.bwd_product_plain(a, w, kind, aux)
+    a, w, bias, aux = _product_case(cuda, kind, m, k, n)
+    before = kernels.LAUNCHES["block_product"]
+    got = BL.product_kernel(a, w, kind, bias, aux)
+    assert kernels.LAUNCHES["block_product"] == before + 1
+    ref = BL.product_plain(a, w, kind, bias, aux)
     assert got.dtype == ref.dtype and got.shape == (m, n)
     assert _rel(got, ref) <= (1e-5 if kind == "store_f32" else 2 ** -6)
+
+
+@pytest.mark.parametrize("width", [256, 128])
+@pytest.mark.parametrize("launch", ["qkv", "out", "fc", "proj"])
+@pytest.mark.parametrize("rows,d", [(9500, 768), (91, 40), (16 * 80, 768)])
+def test_block_forward_products_match_plain(cuda, width, launch, rows, d):
+    """The forward chains' four products alone, at both tile widths, at
+    their shapes (qkv h [R, D] in_w [D, 3D] + in_b; out-proj x + o out_w
+    [D, D] + out_b; fc quick_gelu(h fc_w [D, 4D] + fc_b); proj x + a p_w
+    [4D, D] + p_b) against their plain versions, 2^-6 relative.  The
+    residual x varies everywhere, so an epilogue that read it at other
+    coordinates than its accumulator's fails here; D = 40 makes N = 40,
+    less than one 64-column box of w."""
+    kind, k, n = {"qkv": ("bias", d, 3 * d), "out": ("bias_residual", d, d),
+                  "fc": ("bias_gelu", d, 4 * d),
+                  "proj": ("bias_residual", 4 * d, d)}[launch]
+    a, w, bias, aux = _product_case(cuda, kind, rows, k, n)
+    before = kernels.LAUNCHES["block_product"]
+    got = BL.product_kernel(a, w, kind, bias, aux, width)
+    assert kernels.LAUNCHES["block_product"] == before + 1
+    ref = BL.product_plain(a, w, kind, bias, aux)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, n)
+    assert _rel(got, ref) <= 2 ** -6
+
+
+@pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
+                                            (91, 13, 40, 2),
+                                            (16 * 72, 72, 768, 12),
+                                            (16 * 80, 80, 768, 12)])
+def test_block_tensor_core_attention_forward_matches_plain(cuda, rows, t, d,
+                                                           heads):
+    """The bf16 core forward alone against `_attn_core_fwd`: o at 2^-6
+    relative; inv at 1e-5 relative to each entry, since both sum the
+    float32 e (summing the bf16-rounded e instead drifts ~1e-4, and a row
+    sum that counted a zero-filled key past t would gain 1 a key).  One
+    and two 64-key tiles, and a head 20 wide, padded to 64."""
+    x, _, p = _block(cuda, rows, d, torch.bfloat16)
+    a = p["attn"]
+    h = BL._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
+    qkv = BL._mm_bias(h, a["in_w"], a["in_b"])
+    before = kernels.LAUNCHES["block_core_fwd"]
+    o, inv = BL.core_fwd_kernel(qkv, heads, t)
+    assert kernels.LAUNCHES["block_core_fwd"] == before + 1
+    o_r, inv_r = BL._attn_core_fwd(qkv, heads, t)
+    assert o.dtype == torch.bfloat16 and inv.dtype == torch.float32
+    assert bool(torch.isfinite(o).all())
+    assert _rel(o, o_r) <= 2 ** -6
+    assert ((inv - inv_r).abs() / inv_r.abs()).max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
