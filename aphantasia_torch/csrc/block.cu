@@ -551,9 +551,6 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// cuTensorMapEncodeTiled failed (a code no cudaError_t takes)
-constexpr int ERR_TENSOR_MAP = 100001;
-
 // One 128 x BN tile of C = A B through `ep`: A [M, K] row-major; B [K, N]
 // row-major (MN-major, read as 64-column boxes) or, with BT, B = W^T for
 // W [N, K] row-major (K-major, one box).  blockIdx: x = column tile,
@@ -691,26 +688,6 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
       ep.store8(rg0 + STEP * i, n, v, pre[i]);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A tensor map over the row-major bf16 matrix [rows, cols] (cols a
@@ -1727,11 +1704,6 @@ int block_smem_bytes(int t, int hd, int backward) {
   return (int)(backward ? core_bwd_smem(t, hd) : core_fwd_smem(t, hd));
 }
 
-const char* kernel_error_string(int code) {
-  if (code == ERR_TENSOR_MAP)
-    return "cuTensorMapEncodeTiled refused a tensor map (or the CUDA "
-           "library offers no such entry point)";
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* kernel_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

@@ -80,9 +80,6 @@ constexpr int TC_STAGE_BYTES = TC_A_BYTES + TC_BN / TC_BOXN * TC_BOX_BYTES;
 constexpr int TC_SMEM = TC_STAGES * TC_STAGE_BYTES + 1024;  // + alignment
 static_assert(TC_STAGE_BYTES % 1024 == 0, "stages keep 1024-byte alignment");
 
-// cuTensorMapEncodeTiled failed (a code no cudaError_t takes)
-constexpr int ERR_TENSOR_MAP = 100001;
-
 // pass 1 (kRows): A = frame window rows of channel ch, B = wxt[s],
 //   dst = t1 (bf16), rows r0.. of the channel's k_h, zeros to ceil64(k_h);
 // pass 2: A = wyw[s], B = t1[s, ch], dst = out (float32), rows of M.
@@ -203,26 +200,6 @@ win_tc_kernel(const __grid_constant__ CUtensorMap amap,
              acc[4 * j + 2 * h + 1]);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A bf16 tensor map over a 3-D tensor of dims (d0, d1, d2), innermost
@@ -464,11 +441,6 @@ int win_cut_fwd(const void* img, const void* geo, const void* wyw,
                     kw_max, (cudaStream_t)stream);
 }
 
-const char* kernel_error_string(int code) {
-  if (code == ERR_TENSOR_MAP)
-    return "cuTensorMapEncodeTiled refused a tensor map (or the CUDA "
-           "library offers no such entry point)";
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* kernel_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

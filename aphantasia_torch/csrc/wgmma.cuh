@@ -1,24 +1,74 @@
 // Hopper (sm_90a) building blocks of the port's TMA-fed wgmma tiles:
 // mbarriers, 2-D and 3-D TMA tile loads, shared-memory matrix descriptors
-// and two warpgroup products with bf16 operands and float32 accumulators:
+// and warpgroup products with float32 accumulators.  bf16 operands:
 //   wgmma.m64n224k16, B MN-major (csrc/cutout_win.cu, the windowed cutout
 //     of aphantasia_tpu/ops/pallas_cutout_win.py:windowed_cut_fwd);
 //   wgmma.m64n256k16 and m64n128k16, B K-major or MN-major (csrc/block.cu,
 //     the products of the fused block's backward halves,
 //     pallas_block.py:_attn_half_bwd and _mlp_half_bwd).
-// What bounds their callers on the H100 is operations (989 TFLOP/s bf16);
-// these pieces keep the tensor cores fed from shared memory with no
-// register or instruction spent on the copies.  aphantasia_torch/kernels.py
+// tf32 operands, A from registers: wgmma.m64n112k8 and m64n232k8 (csrc/shift.cu,
+//   the 3xTF32 DFT products of aphantasia_tpu/ops/pallas_shift.py:_run).
+// What bounds their callers on the H100 is operations (989 TFLOP/s bf16,
+// 495 tf32); these pieces keep the tensor cores fed from shared memory
+// with no register or instruction spent on the copies.  On the host side:
+// the tensor-map encoder every library reaches through the runtime, and
+// the libraries' common error strings.  aphantasia_torch/kernels.py
 // hashes every header of csrc/ into each library's name, so an edited
 // header rebuilds them.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// ---- host: tensor maps and the libraries' error codes -------------------
+
+// cuTensorMapEncodeTiled failed (a code no cudaError_t takes)
+constexpr int ERR_TENSOR_MAP = 100001;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point
+// query (no -lcuda); null when the CUDA library offers none
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the message of a code a library's C functions return
+const char* error_string(int code) {
+  if (code == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map (or the CUDA "
+           "library offers no such entry point)";
+  return cudaGetErrorString((cudaError_t)code);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the dynamic shared memory p rounded up to a multiple of A bytes, by an
+// offset from p: the compiler still knows the result for shared memory
+// and accesses it with shared loads and stores (a round trip through
+// uintptr_t would leave it a generic pointer)
+template <int A>
+__device__ __forceinline__ unsigned char* smem_align(unsigned char* p) {
+  return p + ((A - (smem_u32(p) & (A - 1))) & (A - 1));
 }
 
 // ---- mbarriers ---------------------------------------------------------
@@ -88,10 +138,63 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+// tma_load_2d into the same offset `dst` of every CTA of the cluster in
+// `mask`, completing on each one's barrier at the offset of `bar`
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const void* map,
+                                                      uint64_t* bar, int x0,
+                                                      int x1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(x0), "r"(x1)
+      : "memory");
+}
+
+// one arrival on the barrier at the offset of `bar` in CTA `rank` of the
+// cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// every thread of every CTA of the cluster: the barrier of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// ask L2 for the box of the 2-D tensor map `map` at (x0, x1), innermost
+// first, ahead of a later tma_load_2d of it
+__device__ __forceinline__ void tma_prefetch_2d(const void* map, int x0,
+                                                int x1) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.2d.L2.global.tile [%0, {%1, %2}];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1)
+      : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle: 1 = 128-byte, 2 = 64-byte.
+// offsets (16-byte units) and the swizzle: 1 = 128-byte, 2 = 64-byte,
+// 3 = 32-byte.
 __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo, uint32_t swz) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
@@ -286,6 +389,132 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
     wgmma_m64n256k16_bf16<TB>(d, da, db);
   else
     wgmma_m64n128k16_bf16<TB>(d, da, db);
+}
+
+// ---- tf32 (csrc/shift.cu) ----------------------------------------------
+
+// v rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, as a float32 bit pattern whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xFFFFE000u;
+}
+
+// The tf32 products take A from registers: for a k8 slice, thread t of the
+// warpgroup holds A[r][c] with r = 16 * (t / 32) + (t % 32) / 4 + 8 * (i & 1)
+// and c = t % 4 + 4 * (i >> 1) in a[i] (mma.m16n8k8's tf32 A fragment, one
+// per warp).  For 32-bit types wgmma has no transpose: B is K-major, an N
+// row's 8 K values (32 bytes) contiguous, 8-row groups 256 bytes apart
+// with the 32-byte swizzle (what a TMA box 8 floats wide writes with
+// CU_TENSOR_MAP_SWIZZLE_32B).  The accumulator layout is the bf16
+// products': d[4 j + 2 h + e] holds row 16 * (t / 32) + (t % 32) / 4 + 8 h,
+// column 8 j + 2 (t % 4) + e.
+
+// d[64 x 112] += A[64 x 8] . B[8 x 112] in tf32 for one warpgroup, A from
+// registers, B K-major from shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_m64n112k8_tf32(float (&d)[56],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 232] += A[64 x 8] . B[8 x 232] in tf32 for one warpgroup, A from
+// registers, B K-major from shared memory through its descriptor.
+__device__ __forceinline__ void wgmma_m64n232k8_tf32(float (&d)[116],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %121, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n232k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115"
+      "}, {%116, %117, %118, %119}, %120, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x N] += A . B in tf32 for N = 112 or 232 (the two above)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (N == 112)
+    wgmma_m64n112k8_tf32(d, a, db);
+  else
+    wgmma_m64n232k8_tf32(d, a, db);
 }
 
 }  // namespace

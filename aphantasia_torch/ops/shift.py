@@ -11,6 +11,20 @@ phase rotation, synthesis product, keeping the output columns
 -shift with the windows exchanged (`_pfs_bwd`, pallas_shift.py:123); both
 directions count under `frac_shift`.
 
+The kernel runs both products on the tensor cores in 3xTF32 (each float32
+operand split into tf32 hi and lo parts, three products summed in
+float32), bound by those operations: 81.6 GFLOP on the 226 packed
+spectrum columns at [134400, 224], 0.165 ms at 495 TFLOP/s (the kernel
+pads the spectrum to 232 columns and issues 84 GFLOP), where one tf32
+product would be too coarse for float32's 1e-4 and the CUDA cores'
+float32 FMAs take 0.41 ms for the products alone.
+The spectrum stays in registers between the two products (csrc/shift.cu
+explains the layout); `_kernel_mats` builds the matrices as the kernel
+reads them, once per geometry.  One product holds NA = 232 spectrum
+columns (116 frequencies, n <= 230); a longer signal runs in chunks of
+116 frequencies, one launch each, every launch after the first adding to
+the output (`spectrum_chunks`).
+
 CUDA tensors launch the kernel; CPU tensors run `frac_shift_plain`;
 anything else raises.
 """
@@ -24,8 +38,15 @@ import torch
 from aphantasia_torch import kernels
 
 _SIGNATURES = {
-    "frac_shift": [kernels.PTR] * 5 + [kernels.INT] * 6 + [kernels.PTR],
+    "frac_shift": [kernels.PTR] * 5 + [kernels.INT] * 8 + [kernels.PTR],
+    "tf32_probe": [kernels.PTR] * 3 + [kernels.INT] * 2 + [kernels.PTR],
 }
+PASS = 112    # output columns of one synthesis pass (csrc/shift.cu)
+NA = 232      # spectrum columns of one product: 116 frequencies
+# The K order within each 8-wide slice of both products: position p holds
+# row _SLICE[p], so the accumulator's column pair (2q, 2q + 1) of the
+# spectrum is the A fragment's (q, q + 4) of the synthesis.
+_SLICE = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def _mats(n: int, device: str):
@@ -34,23 +55,71 @@ def _mats(n: int, device: str):
     return _packed_tensors(n, torch.float32, device)
 
 
-def _round4(k: int) -> int:
-    return -(-k // 4) * 4
+def _round_up(k: int, m: int) -> int:
+    return -(-k // m) * m
+
+
+def spectrum_chunks(n: int) -> tuple:
+    """The first frequency of each chunk of NA / 2 frequencies that
+    covers the nf = n/2 + 1 of length n: one launch each."""
+    return tuple(range(0, n // 2 + 1, NA // 2))
+
+
+def tf32_round(t):
+    """float32 t rounded to tf32 as `cvt.rna.tf32.f32` rounds (to nearest,
+    ties away from zero, 10 mantissa bits; the low 13 bits zero)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t):
+    """(hi, lo) = (tf32(t), tf32(t - hi)): the 3xTF32 parts of t."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def slice_order(k: int):
+    """Row indices that put a K axis of length k (a multiple of 8) in the
+    kernel's order within each 8-wide slice."""
+    base = torch.arange(0, k, 8)[:, None]
+    return (base + torch.tensor(_SLICE)[None, :]).reshape(-1)
+
+
+def _interleave(m, nf: int, dim: int):
+    """The packed [re | im] halves of a DFT matrix along `dim` as (re_0,
+    im_0, re_1, im_1, ...)."""
+    re, im = m.narrow(dim, 0, nf), m.narrow(dim, nf, nf)
+    return torch.stack([re, im], dim=dim + 1).flatten(dim, dim + 1)
 
 
 @functools.lru_cache(maxsize=32)
 def _kernel_mats(n: int, in_offset: int, n_in: int, out_start: int,
                  n_out: int, device: str):
-    """The matrices as the kernel reads them: the analysis rows of the
-    input window [n_in, lda] and the synthesis columns of the output window
-    [2nf, lds], row-major and zero-padded to lda, lds = multiples of 4."""
+    """The matrices as the kernel reads them, K-major and split, one
+    (ana^T, syn^T) pair for each chunk of `spectrum_chunks(n)`: ana^T
+    [2 NA, kp] (hi rows, then lo rows) from the input window's analysis
+    rows, and syn^T [2 s_rows, NA] from the output window's synthesis
+    columns; the chunk's spectrum interleaved, K rows in `slice_order`,
+    zero-padded to NA, kp = n_in and s_rows = n_out rounded up to 8 and
+    to PASS."""
     ana, syn = _mats(n, device)
-    nc = ana.shape[1]
-    a = torch.zeros((n_in, _round4(nc)), device=device)
-    a[:, :nc] = ana[in_offset:in_offset + n_in]
-    b = torch.zeros((nc, _round4(n_out)), device=device)
-    b[:, :n_out] = syn[:, out_start:out_start + n_out]
-    return a, b
+    nf = n // 2 + 1
+    kp, s_rows = _round_up(n_in, 8), _round_up(n_out, PASS)
+    ana = _interleave(ana, nf, 1)[in_offset:in_offset + n_in]
+    syn = _interleave(syn, nf, 0)[:, out_start:out_start + n_out]
+    pairs = []
+    for k0 in spectrum_chunks(n):
+        cols = slice(2 * k0, min(2 * nf, 2 * k0 + NA))
+        width = cols.stop - cols.start
+        a = torch.zeros((kp, NA), device=device)
+        a[:n_in, :width] = ana[:, cols]
+        b = torch.zeros((NA, s_rows), device=device)
+        b[:width, :n_out] = syn[cols]
+        a = a[slice_order(kp).to(device)].t()
+        b = b[slice_order(NA).to(device)].t()
+        pairs.append((torch.cat(tf32_split(a)).contiguous(),
+                      torch.cat(tf32_split(b)).contiguous()))
+    return tuple(pairs)
 
 
 def frac_shift_plain(x, shift, n: int, in_offset: int, out_window):
@@ -71,7 +140,8 @@ def frac_shift_plain(x, shift, n: int, in_offset: int, out_window):
 
 
 def frac_shift_kernel(x, shift, n: int, in_offset: int, out_window):
-    """Launch the kernel: [R, out_window[1]] float32."""
+    """Launch the kernel, once for each spectrum chunk (one count):
+    [R, out_window[1]] float32."""
     if x.dtype != torch.float32 or x.ndim != 2:
         raise TypeError("frac_shift kernel takes a float32 [R, n_in] tensor, "
                         f"got {x.dtype} {tuple(x.shape)}")
@@ -84,17 +154,41 @@ def frac_shift_kernel(x, shift, n: int, in_offset: int, out_window):
         raise ValueError(f"frac_shift windows ({in_offset}, {n_in}) / "
                          f"{tuple(out_window)} leave the length {n}")
     lib = kernels.library("shift", _SIGNATURES)
+    # TMA reads x by rows of a multiple of 16 bytes
     x = x.contiguous()
+    if n_in % 4:
+        x = torch.nn.functional.pad(x, (0, 4 - n_in % 4))
+    x = kernels.aligned(x)
     shift = shift.float().contiguous()
-    ana, syn = _kernel_mats(n, in_offset, n_in, start, size, str(x.device))
+    mats = _kernel_mats(n, in_offset, n_in, start, size, str(x.device))
     out = torch.empty((rows, size), dtype=torch.float32, device=x.device)
-    code = lib.frac_shift(x.data_ptr(), shift.data_ptr(), ana.data_ptr(),
-                          syn.data_ptr(), out.data_ptr(), rows, n_in, n,
-                          ana.shape[1], size, syn.shape[1],
-                          kernels.stream_ptr(x))
-    kernels.check(lib, code, "frac_shift")
+    # the first chunk writes out, the later ones add to it
+    for k0, (ana, syn) in zip(spectrum_chunks(n), mats):
+        code = lib.frac_shift(x.data_ptr(), shift.data_ptr(), ana.data_ptr(),
+                              syn.data_ptr(), out.data_ptr(), rows,
+                              x.shape[1], n_in, n, k0, ana.shape[1],
+                              syn.shape[0] // 2, size, kernels.stream_ptr(x))
+        kernels.check(lib, code, "frac_shift")
     kernels.LAUNCHES["frac_shift"] += 1
     return out
+
+
+def tf32_product_probe(a, b):
+    """The kernel's tf32 wgmma alone, for the card tests: a [64, k] . b
+    [k, N] (k a multiple of 8, N = 112 or 232) as one tf32 product
+    with b K-major in `slice_order`, brought in by TMA as the kernel's
+    matrices are.  float32 [64, N]."""
+    k, width = b.shape
+    if a.shape != (64, k) or a.dtype != torch.float32 or not a.is_cuda:
+        raise TypeError("tf32 probe takes a float32 CUDA a [64, k]")
+    lib = kernels.library("shift", _SIGNATURES)
+    a = kernels.aligned(a)
+    bt = b.float()[slice_order(k).to(b.device)].t().contiguous()
+    c = torch.empty((64, width), dtype=torch.float32, device=a.device)
+    code = lib.tf32_probe(a.data_ptr(), bt.data_ptr(), c.data_ptr(), k,
+                          width, kernels.stream_ptr(a))
+    kernels.check(lib, code, "tf32_probe")
+    return c
 
 
 class _FracShiftFn(torch.autograd.Function):

@@ -65,7 +65,7 @@ OUT_DIR = os.path.join(ROOT, "build", "smoke")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and op/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 
 # every kernel of the port: the C wrapper name in kernels.LAUNCHES ->
 # (source in the repo, the TPU kernel it replaces)
@@ -349,7 +349,9 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
 
 
 def check_cutout(seed=0):
-    """Cutout kernel against `cutout_plain` at 1280x720, S=200, M=224."""
+    """Cutout kernel against `cutout_plain` at 1280x720, S=200, M=224; the
+    backward also against itself, two launches and a CUDA-graph replay,
+    bit for bit."""
     import torch
     from aphantasia_torch.ops import cutout as C
     from aphantasia_torch.ops.sampler import CutoutSampler, _contract
@@ -368,10 +370,18 @@ def check_cutout(seed=0):
     torch.cuda.synchronize()
     fe, fs = max_err(out, ref.detach())
     ge, gs = max_err(dimg, dref)
-    # float32 throughout; the backward's atomics add in a run-dependent order
+    # float32 throughout, each side summing in its own order
     tol_f, tol_g = 1e-5, 1e-4
     check(fe <= tol_f * max(fs, 1.0), f"cutout fwd: max |err| {fe:.3g}")
     check(ge <= tol_g * max(gs, 1.0), f"cutout grad: max |err| {ge:.3g}")
+    again = C.cutout_bwd_kernel(gout, *taps, tuple(img.shape))
+    graph, replayed = capture(lambda: C.cutout_bwd_kernel(
+        gout, *taps, tuple(img.shape)))
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(again, dimg) and torch.equal(replayed, dimg),
+          "cutout bwd: two launches or a graph replay differ in their bits")
+    del graph, again, replayed
     res = {"fwd_err": fe, "fwd_scale": fs, "grad_err": ge, "grad_scale": gs,
            "tol_fwd": tol_f, "tol_grad": tol_g}
     del ref, dref
@@ -394,6 +404,15 @@ def check_cutout(seed=0):
     lib_fb = cuda_ms(lambda: torch.autograd.grad(
         _contract(i_req, wy, wx, torch.float32), i_req, gout), iters=5)
     res["lib_bwd"] = max(lib_fb - res["lib_fwd"], 0.0)
+    # how unevenly the crops load the backward's tiles: crops a tile meets
+    rng = C.tile_ranges(*C.in_frame(taps[0], taps[1], h),
+                        *C.in_frame(taps[2], taps[3], w), h, w)
+    nby, nbx = -(-h // C.TILE), -(-w // C.TILE)
+    hit_y = rng[:, :nby, 0] <= rng[:, :nby, 1]
+    hit_x = rng[:, nby:nby + nbx, 0] <= rng[:, nby:nby + nbx, 1]
+    per_tile = (hit_y[:, :, None] & hit_x[:, None, :]).sum(0).float()
+    res["tile_crops"] = (per_tile.min().item(), per_tile.median().item(),
+                         per_tile.max().item())
     tap_bytes = 4 * s * m * 4 * 4
     res["bound_fwd"] = bound(3 * h * w * 4 + tap_bytes + s * 3 * m * m * 4,
                              s * 3 * m * m * 40, "f32")
@@ -526,6 +545,8 @@ def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
     import numpy as np
     import torch
     from aphantasia_torch.ops import shift as SH
+    # the plain version's products in full float32, whatever the caller set
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((rows, n_in), generator=g, device="cuda")
     sh = (torch.rand((rows,), generator=g, device="cuda") * 2 - 1) * 6.0
@@ -540,8 +561,8 @@ def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
     torch.cuda.synchronize()
     fe, fs = max_err(out, ref.detach())
     ge, gs = max_err(dx, dref)
-    # float32 sums of ~2n products in another order than cuBLAS's, and the
-    # phase's sin/cos in another library
+    # 3xTF32 products keep float32's accuracy, summed in another order than
+    # cuBLAS's; the phase's sin/cos in another library
     tol = 1e-4
     res = {"fwd_err": fe, "fwd_scale": fs, "grad_err": ge, "grad_scale": gs,
            "tol_rel": tol}
@@ -565,9 +586,15 @@ def check_shift(rows, n_in, n, in_offset, out_window, timed=False, seed=0):
     res["fft"] = cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(x, n=n)
                                                  * phase, n=n))
     nf2 = 2 * (n // 2 + 1)
-    ops = 2 * rows * (n_in * nf2 + nf2 * out_window[1]) + 6 * rows * nf2
     nbytes = 4 * rows * (n_in + out_window[1] + 1) + 4 * 2 * n * nf2
-    res["bound"] = bound(nbytes, ops, "f32")
+    # the design that runs: three tf32 products each on the 2nf packed
+    # spectrum columns the function needs (not the kernel's padding); the
+    # float32-FMA bound of the old design beside it
+    res["bound"] = bound(nbytes, 3 * 2 * rows * nf2 * (n_in + out_window[1]),
+                         "tf32")
+    res["bound_f32"] = bound(nbytes, 2 * rows * (n_in * nf2
+                                                 + nf2 * out_window[1])
+                             + 6 * rows * nf2, "f32")
     return res
 
 
@@ -1055,7 +1082,10 @@ def phase_kernels(report):
     cut = check_cutout()
     print(f"[kernels] cutout fwd max|err| {cut['fwd_err']:.3g} (|ref| "
           f"{cut['fwd_scale']:.3g}), grad max|err| {cut['grad_err']:.3g} "
-          f"(|ref| {cut['grad_scale']:.3g})")
+          f"(|ref| {cut['grad_scale']:.3g}); the backward repeats bit for "
+          f"bit (two launches, a graph replay); crops a 32x32 tile meets: "
+          f"min {cut['tile_crops'][0]:.0f}, median {cut['tile_crops'][1]:.0f}"
+          f", max {cut['tile_crops'][2]:.0f}")
     for k in ("fwd", "bwd"):
         print(f"[kernels] cutout {k} S=200 M=224 720x1280: kernel "
               f"{cut['ms_' + k]:.4f} ms (graph replay "
@@ -1096,7 +1126,10 @@ def phase_kernels(report):
             (134400, 224, 224, 0, (0, 224), True),
             (96, 16, 24, 4, (0, 24), False),
             (96, 24, 24, 0, (4, 16), False),
-            (40, 12, 12, 0, (0, 12), False)):
+            (40, 12, 12, 0, (0, 12), False),
+            (1000, 20, 26, 3, (3, 17), False),
+            (300, 250, 250, 0, (0, 250), False),
+            (200, 336, 336, 0, (0, 336), False)):
         r = check_shift(rows, n_in, n, off, win, timed=timed)
         print(f"[kernels] frac_shift [{rows},{n_in}] n={n} in_offset={off} "
               f"out_window={win}: fwd max|err| {r['fwd_err']:.3g} (|ref| "
@@ -1107,7 +1140,8 @@ def phase_kernels(report):
             print(f"[kernels] frac_shift [{rows},{n_in}] float32: kernel "
                   f"{r['ms']:.4f} ms (graph replay {r['graph']:.4f}), plain "
                   f"{r['plain']:.4f} ms, rfft/irfft route {r['fft']:.4f} ms, bound "
-                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, 3xTF32; float32 "
+                  f"FMAs {r['bound_f32'][0]:.4f} ms)")
     wcut, win_err = None, 0.0
     for kind, dtype, timed in (("main", torch.bfloat16, True),
                                ("main", torch.float32, False),

@@ -9,7 +9,9 @@ weights and the row pass to bf16 (pallas_cutout.py:107, :60-64), three
 roundings of 2^-8 each, so the forward against it is held to 2e-2 on
 values in [0, 1.2]; its backward stays float32 and keeps 1e-4.  The CUDA
 kernel is held against the plain version on the card
-(tests/test_torch_gpu.py and chip_smoke.py's kernel phase).
+(tests/test_torch_gpu.py and chip_smoke.py's kernel phase).  The
+backward's range pre-pass (its plain twin `tile_ranges`) must enclose
+every weighted tap exactly: a tap it misses is a term the kernel drops.
 """
 import numpy as np
 import jax
@@ -130,3 +132,39 @@ def test_checked_refuses_bad_taps():
             torch.zeros(2, 4, 4, dtype=torch.int32), torch.zeros(2, 4, 4))
     with pytest.raises(TypeError):
         C._checked(img, *taps)
+
+
+@pytest.mark.parametrize("h,w,s,m,align", [(40, 56, 6, 24, "uniform"),
+                                           (72, 100, 8, 24, "overscan"),
+                                           (72, 100, 8, 24, "overmax"),
+                                           (40, 56, 6, 64, "uniform")])
+def test_tile_ranges_enclose_every_weighted_tap(h, w, s, m, align):
+    """On JAX-drawn boxes (uniform, the overscan tile maps whose taps are
+    not monotone in m, and crops larger than the 40x56 frame whose
+    out-of-frame taps are clamped with no weight): every tap with a weight
+    lies inside its sample's range for its band and for its pixel; a band
+    or pixel no weighted tap reaches has an empty range."""
+    _, _, ts, tb, _, _ = _setup(h, w, s, m, align)
+    yidx, yw, xidx, xw = ts.tap_indices(tb)
+    yidx, yw = C.in_frame(yidx, yw, h)
+    xidx, xw = C.in_frame(xidx, xw, w)
+    table = C.tile_ranges(yidx, yw, xidx, xw, h, w).numpy()
+    nby = -(-h // C.TILE)
+    rows_at, cols_at, width = C.table_layout(h, w)
+    assert table.shape == (s, width, 2)
+    assert rows_at % 2 == 0 and cols_at % 2 == 0 and width % 2 == 0
+    # (taps, weights, offset of the band ranges, of the pixel ranges)
+    for idx, wts, band0, pix0, n in ((yidx, yw, 0, rows_at, h),
+                                     (xidx, xw, nby, cols_at, w)):
+        idx, wts = idx.numpy(), wts.numpy()
+        reached = np.zeros(table.shape[:2], bool)
+        for smp, q, t in zip(*np.nonzero(wts)):
+            for col in (band0 + idx[smp, q, t] // C.TILE,
+                        pix0 + idx[smp, q, t]):
+                lo, hi = table[smp, col]
+                assert lo <= q <= hi, (smp, q, t, col, lo, hi)
+                reached[smp, col] = True
+        for part in (slice(band0, band0 + -(-n // C.TILE)),
+                     slice(pix0, pix0 + n)):
+            nonempty = table[:, part, 0] <= table[:, part, 1]
+            assert (nonempty == reached[:, part]).all()

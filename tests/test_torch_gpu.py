@@ -15,11 +15,14 @@ o = sum_j p_j v_j / l by at most 2^-9 p_j |v_j|, errors of random sign
 over the row's keys, so the forward parts from the plain version by a
 rounding step of the output (2^-8 relative) plus a sum of such terms
 well inside it, as the card shows at every tested t; cutout
-1e-5 forward and 1e-4 relative on the gradient (float32 atomics add in a
-run-dependent order); perspective warp 1e-5 relative in float32 and 2^-7
+1e-5 forward and 1e-4 relative on the gradient (float32 sums in another
+order than the plain version's; the backward's own order is fixed, so it
+repeats bit for bit); perspective warp 1e-5 relative in float32 and 2^-7
 in bf16, forward and gradient (the same float32 arithmetic, the gradient
 summed in another order, each side rounding once); fractional shift 1e-4
-relative (float32 DFT products summed in another order than cuBLAS's);
+relative (3xTF32 DFT products, float32's accuracy summed in another order
+than cuBLAS's, which runs in full float32 here: allow_tf32 off); the tf32
+product alone exact on small integers;
 windowed cutout 1e-5 relative in float32 and 2^-7 in bf16 (both sides
 sum in float32 and round the intermediate to bf16 once, so a sum near a
 rounding boundary may round the other way: one bf16 step); LayerNorm
@@ -100,12 +103,33 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol, t, heads, causal,
     assert _rel(gk, gp) <= 5 * tol
 
 
-@pytest.mark.parametrize("h,w,s,m", [(720, 1280, 24, 224), (40, 56, 6, 64)])
-def test_cutout_kernel_matches_plain(cuda, h, w, s, m):
+def _cutout_taps(cuda, h, w, s, m, align="uniform", edge=False):
+    """Taps of s crops from the sampler; `edge` pushes every crop against
+    a frame edge (offset 0 or the largest) on each axis."""
+    sampler = CutoutSampler((h, w), s, m, align, 0.4, use_pallas=True)
+    boxes = sampler.sample_boxes(cuda)
+    if edge:
+        hp, wp = sampler.padded_size
+        low = torch.rand((2, s), generator=cuda, device="cuda") < 0.5
+        boxes = Boxes(boxes.csize,
+                      torch.where(low[0], 0, wp - boxes.csize).int(),
+                      torch.where(low[1], 0, hp - boxes.csize).int())
+    return sampler.tap_indices(boxes)
+
+
+@pytest.mark.parametrize("h,w,s,m,align,edge", [
+    pytest.param(720, 1280, 24, 224, "uniform", False, id="720-1280-24-224"),
+    pytest.param(40, 56, 6, 64, "uniform", False, id="40-56-6-64"),
+    pytest.param(720, 1280, 24, 224, "overscan", False, id="overscan"),
+    pytest.param(720, 1280, 24, 224, "uniform", True, id="edge-pushed"),
+    pytest.param(40, 56, 6, 64, "overscan", True, id="small-overscan-edge")])
+def test_cutout_kernel_matches_plain(cuda, monkeypatch, h, w, s, m, align,
+                                     edge):
     """Also a frame smaller than the crops (40x56 < 64): out-of-frame taps
-    carry no weight."""
-    sampler = CutoutSampler((h, w), s, m, "uniform", 0.4, use_pallas=True)
-    taps = sampler.tap_indices(sampler.sample_boxes(cuda))
+    carry no weight; under overscan the tile maps fold the taps, so a
+    crop reaches a tile from two places."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    taps = _cutout_taps(cuda, h, w, s, m, align, edge)
     img = torch.rand((3, h, w), generator=cuda, device="cuda",
                      requires_grad=True)
     co = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
@@ -115,6 +139,32 @@ def test_cutout_kernel_matches_plain(cuda, h, w, s, m):
     (gp,) = torch.autograd.grad(ref, img, co)
     assert (out - ref).abs().max().item() <= 1e-5
     assert _rel(gk, gp) <= 1e-4
+
+
+@pytest.mark.parametrize("align", ["uniform", "overscan"])
+def test_cutout_backward_is_deterministic(cuda, align):
+    """The backward at 200 crops of 224 from 720x1280 gives the same bits
+    on two launches and when captured into a CUDA graph and replayed (no
+    atomics: each pixel is one sum in a fixed order); one count a call."""
+    s, m = 200, 224
+    taps = _cutout_taps(cuda, 720, 1280, s, m, align)
+    g = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
+    before = kernels.LAUNCHES["cutout_bwd"]
+    a = C.cutout_bwd_kernel(g, *taps, (3, 720, 1280))
+    b = C.cutout_bwd_kernel(g, *taps, (3, 720, 1280))
+    assert kernels.LAUNCHES["cutout_bwd"] == before + 2
+    assert torch.equal(a, b)
+    eager, replayed = _captured(
+        lambda: C.cutout_bwd_kernel(g, *taps, (3, 720, 1280)))
+    assert torch.equal(eager, a) and torch.equal(replayed, a)
+
+
+@pytest.mark.parametrize("h,w", [(720, 1280), (40, 56), (33, 97)])
+def test_cutout_range_table_width_matches_the_plain_layout(cuda, h, w):
+    """The library's table width, by which the wrapper sizes the range
+    table, is the one `table_layout` (and so `tile_ranges`) lays out."""
+    lib = kernels.library("cutout", C._SIGNATURES)
+    assert lib.cutout_table_width(h, w) == C.table_layout(h, w)[2]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -206,11 +256,18 @@ def test_persp_kernels_match_plain(cuda, dtype, tol, kind, h, w):
 
 @pytest.mark.parametrize("rows,n_in,n,off,win", [
     (4096, 224, 224, 0, (0, 224)), (96, 16, 24, 4, (0, 24)),
-    (96, 24, 24, 0, (4, 16)), (40, 12, 12, 0, (0, 12))])
-def test_shift_kernel_matches_plain(cuda, rows, n_in, n, off, win):
+    (96, 24, 24, 0, (4, 16)), (40, 12, 12, 0, (0, 12)),
+    (1000, 20, 26, 3, (3, 17)), (300, 250, 250, 0, (0, 250)),
+    (200, 336, 336, 0, (0, 336))])
+def test_shift_kernel_matches_plain(cuda, monkeypatch, rows, n_in, n, off,
+                                    win):
     """Kernel C forward, and its backward (the same kernel at -shift with
     the windows exchanged) against autograd's transpose of the plain
-    version."""
+    version, in full float32.  Also rows, windows and an odd n_out that
+    are no multiple of the tiles (the backward then reads rows of 17), and
+    spectra past one product's 232 columns (two launches, the second
+    adding to the first's output)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     x = torch.randn((rows, n_in), generator=cuda, device="cuda")
     sh = (torch.rand((rows,), generator=cuda, device="cuda") * 2 - 1) * 6.0
     co = torch.randn((rows, win[1]), generator=cuda, device="cuda")
@@ -225,9 +282,24 @@ def test_shift_kernel_matches_plain(cuda, rows, n_in, n, off, win):
     assert _rel(out, ref) <= 1e-4 and _rel(gk, gp) <= 1e-4
 
 
+@pytest.mark.parametrize("n", [112, 232])
+@pytest.mark.parametrize("k", [8, 224])
+def test_tf32_wgmma_product_is_exact_on_small_integers(cuda, monkeypatch, n,
+                                                       k):
+    """The tf32 wgmma with A from registers and B K-major through a
+    32-byte-swizzled TMA box, in the slice order the shift kernel uses:
+    bit for bit torch.matmul's (tf32 allowed) on integers in [-8, 8],
+    whose products and sums float32 holds exactly."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    a = torch.randint(-8, 9, (64, k), generator=cuda, device="cuda").float()
+    b = torch.randint(-8, 9, (k, n), generator=cuda, device="cuda").float()
+    assert torch.equal(SH.tf32_product_probe(a, b), a @ b)
+
+
 def test_elastic_switch_routes_the_shift_through_the_kernel(cuda,
                                                             monkeypatch):
     from aphantasia_torch.ops.sep_warp import fractional_shift
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     x = torch.rand((4, 3, 64, 64), generator=cuda, device="cuda")
     sh = torch.rand((4, 1, 64), generator=cuda, device="cuda") * 4 - 2
     plain = fractional_shift(x, sh, axis=-2)
