@@ -59,14 +59,24 @@
 // The warp-level tile pieces live in csrc/attn_tile.cuh.  The bf16 kernels
 // take hd = 64, the head width of every CLIP tower.
 //
-// float32 inputs run the scalar kernels of the first design: a block per
-// (sample, head) with two [t, hd] float32 matrices of that head in shared
-// memory (K, V in the forward; the backward in two phases, dq with K, V
-// resident, then dk, dv with Q, dO resident).  The tensor cores have no
-// float32 product (TF32 keeps about three digits, against a 2e-5
-// tolerance), and the card's main path runs in bf16: float32 serves the
-// card-against-CPU checks.  Their shared memory grows with t (156 KB at
-// t = 257), so they refuse t past about 420 (`attn_smem_bytes`).
+// float32 inputs run FMA tiles with the same structure and no tensor cores
+// (TF32 keeps about three digits, against a 2e-5 tolerance; the card's main
+// path runs in bf16, so float32 serves the card-against-CPU checks and the
+// float32 towers): 256 threads a block as a 16 x 16 grid, each thread a 4 x
+// 4 piece of a 64 x 64 score tile and 4 rows x hd/16 columns of the output.
+//   forward: a block per (sample, head, 64-row query tile) walks 64-key
+//     tiles of K and V staged in shared memory, keeps an online softmax
+//     (running max, partial row sums) in registers, writes P to a [64][65]
+//     tile and adds P V into registers.
+//   backward: two launches, one call, as the bf16 pair: dq per query tile
+//     over the key tiles, then dk, dv per key tile over the query tiles of
+//     Q and dO; p = exp(s - lse) from the saved lse, rs = rowdot(dO, O) by
+//     one function in one order for both; no atomics, every sum in a fixed
+//     order, so two runs give the same bits.
+// Shared memory is a few [64][hd + 1] tiles (67 KB forward, 84 KB dq, 100
+// KB dk/dv at hd = 64) whatever t is, so any t runs; hd up to 128.  The
+// tiles are bound by FMA issue and shared-memory loads, not by bytes (8
+// scalar loads feed the 16 multiply-adds of a 4 x 4 piece).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,8 +85,6 @@
 #include "attn_tile.cuh"
 
 namespace {
-
-constexpr size_t kMaxSmem = 232448;  // per-block limit on sm_90
 
 // ------------------------------------------------- bf16 tensor-core tiles
 
@@ -423,199 +431,330 @@ int launch_bwd_bf16(const void* qkv, const void* dout, const void* out,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ float32, scalar
+// ---------------------------------------------------- float32, FMA tiles
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kF32Threads = 256;   // a 16 x 16 grid: tx = tid & 15, ty = tid >> 4
+constexpr int kF32Rows = 64;       // query rows, and keys, of a tile
+constexpr int kF32MaxHd = 128;     // head width the register tiles hold
+constexpr int kF32Cols = kF32MaxHd / 16;   // head columns a thread holds
+constexpr int kPld = kF32Rows + 1;         // row stride of a score tile
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// shared memory of each kernel in floats: [64][hd + 1] operand tiles, [64][65]
+// score tiles and two 64-row vectors; none of it depends on t
+size_t f32_fwd_smem(int hd) {
+  return sizeof(float) * (3 * kF32Rows * (hd + 1) + kF32Rows * kPld);
+}
+size_t f32_dq_smem(int hd) {
+  return sizeof(float) * (4 * kF32Rows * (hd + 1) + kF32Rows * kPld +
+                          2 * kF32Rows);
+}
+size_t f32_dkv_smem(int hd) {
+  return sizeof(float) * (4 * kF32Rows * (hd + 1) + 2 * kF32Rows * kPld +
+                          2 * kF32Rows);
+}
+
+// rows 0 .. n_rows - 1 of a [64, hd] tile whose rows lie `stride` floats
+// apart, into dst[64][ld]; rows past n_rows are zero
+__device__ __forceinline__ void f32_tile_load(float* dst, const float* src,
+                                              int64_t stride, int n_rows,
+                                              int hd, int ld) {
+  for (int e = threadIdx.x; e < kF32Rows * hd; e += kF32Threads) {
+    const int r = e / hd, c = e - r * hd;
+    dst[r * ld + c] = r < n_rows ? src[r * stride + c] : 0.f;
+  }
+}
+
+// acc[i][j] += a[ty + 16 i] . b[tx + 16 j] over hd: a thread's 4 x 4 piece
+// of a 64 x 64 product of two [64][ld] tiles
+__device__ __forceinline__ void f32_abt(float (&acc)[4][4], const float* a,
+                                        const float* b, int hd, int ld,
+                                        int tx, int ty) {
+  for (int k = 0; k < hd; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[(ty + 16 * i) * ld + k];
+      bv[i] = b[(tx + 16 * i) * ld + k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// o[i][j] += sum over r < n of p[ty + 16 i][r] * v[r][tx + 16 j]: a
+// thread's rows of a [64][65] score tile times a [64][ld] tile
+__device__ __forceinline__ void f32_pb(float (&o)[4][kF32Cols], const float* p,
+                                       const float* v, int n, int hd, int ld,
+                                       int tx, int ty) {
+  for (int r = 0; r < n; ++r) {
+    float pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * kPld + r];
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const int col = tx + 16 * j;
+      if (col < hd) {
+        const float x = v[r * ld + col];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], x, o[i][j]);
+      }
+    }
+  }
+}
+
+// over the 16 threads of a tile row (one half-warp)
+__device__ __forceinline__ float row_max16(float v) {
+  for (int o = 1; o < 16; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+__device__ __forceinline__ float row_sum16(float v) {
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-size_t fwd_smem(int t, int hd) {
-  return sizeof(float) * (2 * (size_t)t * (hd + 1) + kWarps * (size_t)hd + kWarps * (size_t)t);
-}
-size_t bwd_smem(int t, int hd) {
-  return sizeof(float) * (2 * (size_t)t * (hd + 1) + 2 * kWarps * (size_t)hd +
-                          2 * kWarps * (size_t)t + 2 * (size_t)t);
+// lse and rs = rowdot(dO, O) of query rows i0 .. i0 + 63 (0 past t), four
+// threads a row in a fixed order: both backward passes call this one
+// function, so they use the same values
+__device__ __forceinline__ void f32_row_stats(float* lse_s, float* rs_s,
+                                              const float* dout,
+                                              const float* out,
+                                              const float* lse, int64_t rows0,
+                                              int i0, int t, int n_heads,
+                                              int h, int d, int hd) {
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const int row = i0 + r;
+  float rs = 0.f;
+  if (row < t) {
+    const int64_t off = (rows0 + row) * d + (int64_t)h * hd;
+    for (int c = part; c < hd; c += 4) rs = fmaf(dout[off + c], out[off + c], rs);
+  }
+  rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+  rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+  if (part == 0) {
+    rs_s[r] = rs;
+    lse_s[r] = row < t ? lse[(rows0 + row) * n_heads + h] : 0.f;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads)
 attn_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
                     float* __restrict__ lse, int t, int n_heads, int d,
-                    int causal, int valid_t, float scale) {
+                    int causal, int valid_t, int n_tiles, float scale) {
   extern __shared__ float smem[];
-  const int hd = d / n_heads;
-  const int ld = hd + 1;
-  float* ks = smem;
-  float* vs = ks + t * ld;
-  float* qbuf = vs + t * ld;          // [kWarps][hd], q row pre-scaled
-  float* pbuf = qbuf + kWarps * hd;   // [kWarps][t], scores -> exp
-  const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
-  const int64_t row0 = (int64_t)b * t;
+  const int hd = d / n_heads, ld = hd + 1;
+  float* qs = smem;
+  float* ks = qs + kF32Rows * ld;
+  float* vs = ks + kF32Rows * ld;
+  float* ps = vs + kF32Rows * ld;            // [64][kPld] probabilities
+  const int b = blockIdx.x / n_tiles, q0 = (blockIdx.x % n_tiles) * kF32Rows;
+  const int h = blockIdx.y;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t d3 = 3 * (int64_t)d;
-  const float* base = qkv + row0 * d3 + (int64_t)h * hd;
-  for (int e = threadIdx.x; e < t * hd; e += kThreads) {
-    const int j = e / hd, c = e - j * hd;
-    ks[j * ld + c] = base[j * d3 + d + c];
-    vs[j * ld + c] = base[j * d3 + 2 * d + c];
+  const float* base = qkv + (int64_t)b * t * d3 + (int64_t)h * hd;
+  // keys this tile's rows can see; past them nothing is loaded
+  const int kend = causal ? min(valid_t, q0 + kF32Rows) : valid_t;
+  f32_tile_load(qs, base + q0 * d3, d3, t - q0, hd, ld);
+  float m[4], l[4], o[4][kF32Cols];          // running max, partial sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) o[i][j] = 0.f;
   }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* q = qbuf + warp * hd;
-  float* p = pbuf + warp * t;
-  for (int i = warp; i < t; i += kWarps) {
-    for (int c = lane; c < hd; c += 32) q[c] = base[i * d3 + c] * scale;
-    __syncwarp();
-    const int kend = causal ? min(i + 1, valid_t) : valid_t;
-    float m = -INFINITY;
-    for (int j = lane; j < kend; j += 32) {
-      const float* kr = ks + j * ld;
-      float s = 0.f;
-      for (int c = 0; c < hd; ++c) s = fmaf(q[c], kr[c], s);
-      p[j] = s;
-      m = fmaxf(m, s);
+  for (int k0 = 0; k0 < kend; k0 += kF32Rows) {
+    const int nk = min(kF32Rows, kend - k0);
+    f32_tile_load(ks, base + k0 * d3 + d, d3, nk, hd, ld);
+    f32_tile_load(vs, base + k0 * d3 + 2 * d, d3, nk, hd, ld);
+    __syncthreads();
+    float s[4][4] = {};
+    f32_abt(s, qs, ks, hd, ld, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (key >= valid_t || (causal && key > row)) x = -INFINITY;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = row_max16(mx);
+      const float mu = mx == -INFINITY ? 0.f : mx;   // no key seen yet
+      const float alpha = expf(m[i] - mu);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - mu);
+        ps[(ty + 16 * i) * kPld + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + sum;
+      m[i] = mx;
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j) o[i][j] *= alpha;
     }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < kend; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      sum += e;
+    __syncthreads();
+    f32_pb(o, ps, vs, nk, hd, ld, tx, ty);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float sum = row_sum16(l[i]);
+    const int row = q0 + ty + 16 * i;
+    if (row >= t) continue;
+    const int64_t r = (int64_t)b * t + row;
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const int col = tx + 16 * j;
+      if (col < hd) out[r * d + (int64_t)h * hd + col] = o[i][j] / sum;
     }
-    sum = warp_sum(sum);
-    __syncwarp();
-    const float inv = 1.f / sum;
-    float* orow = out + (row0 + i) * d + (int64_t)h * hd;
-    for (int c = lane; c < hd; c += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < kend; ++j) acc = fmaf(p[j], vs[j * ld + c], acc);
-      orow[c] = acc * inv;
-    }
-    if (lane == 0) lse[(row0 + i) * n_heads + h] = m + logf(sum);
-    __syncwarp();
+    if (tx == 0) lse[r * n_heads + h] = m[i] + logf(sum);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                    const float* __restrict__ out, const float* __restrict__ lse,
-                    float* __restrict__ dqkv, int t, int n_heads, int d,
-                    int causal, int valid_t, float scale) {
+// backward pass 1: dq of one 64-row query tile, walking the key tiles
+__global__ void __launch_bounds__(kF32Threads)
+attn_bwd_dq_f32_kernel(const float* __restrict__ qkv,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ out,
+                       const float* __restrict__ lse,
+                       float* __restrict__ dqkv, int t, int n_heads, int d,
+                       int causal, int valid_t, int n_tiles, float scale) {
   extern __shared__ float smem[];
-  const int hd = d / n_heads;
-  const int ld = hd + 1;
-  float* ma = smem;                          // [t][ld]: K, then Q
-  float* mb = ma + t * ld;                   // [t][ld]: V, then dO
-  float* rows = mb + t * ld;                 // [2][kWarps][hd]
-  float* cols = rows + 2 * kWarps * hd;      // [2][kWarps][t]
-  float* lse_s = cols + 2 * kWarps * t;      // [t]
-  float* rs_s = lse_s + t;                   // [t], rowdot(do, o)
-  const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
-  const int64_t row0 = (int64_t)b * t;
+  const int hd = d / n_heads, ld = hd + 1;
+  float* qs = smem;
+  float* gs = qs + kF32Rows * ld;            // dO
+  float* ks = gs + kF32Rows * ld;
+  float* vs = ks + kF32Rows * ld;
+  float* dss = vs + kF32Rows * ld;           // [64][kPld] ds
+  float* lse_s = dss + kF32Rows * kPld;
+  float* rs_s = lse_s + kF32Rows;
+  const int b = blockIdx.x / n_tiles, q0 = (blockIdx.x % n_tiles) * kF32Rows;
+  const int h = blockIdx.y;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t d3 = 3 * (int64_t)d;
   const int64_t hoff = (int64_t)h * hd;
-  const float* base = qkv + row0 * d3 + hoff;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* r1 = rows + warp * hd;              // q_i, then k_j
-  float* r2 = rows + (kWarps + warp) * hd;   // do_i, then v_j
-  float* pc = cols + warp * t;               // p column of key j
-  float* dsc = cols + (kWarps + warp) * t;   // ds row of query i / column of key j
+  const int64_t rows0 = (int64_t)b * t;      // the sample's first row
+  const float* base = qkv + rows0 * d3 + hoff;
+  const int kend = causal ? min(valid_t, q0 + kF32Rows) : valid_t;
+  f32_tile_load(qs, base + q0 * d3, d3, t - q0, hd, ld);
+  f32_tile_load(gs, dout + (rows0 + q0) * d + hoff, d, t - q0, hd, ld);
+  f32_row_stats(lse_s, rs_s, dout, out, lse, rows0, q0, t, n_heads, h, d, hd);
+  float dq[4][kF32Cols] = {};
+  for (int k0 = 0; k0 < kend; k0 += kF32Rows) {
+    const int nk = min(kF32Rows, kend - k0);
+    f32_tile_load(ks, base + k0 * d3 + d, d3, nk, hd, ld);
+    f32_tile_load(vs, base + k0 * d3 + 2 * d, d3, nk, hd, ld);
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    f32_abt(s, qs, ks, hd, ld, tx, ty);
+    f32_abt(dp, gs, vs, hd, ld, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, row = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        float p = expf(s[i][j] * scale - lse_s[r]);
+        if (key >= valid_t || (causal && key > row)) p = 0.f;
+        dss[r * kPld + tx + 16 * j] = p * (dp[i][j] - rs_s[r]) * scale;
+      }
+    }
+    __syncthreads();
+    f32_pb(dq, dss, ks, nk, hd, ld, tx, ty);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= t) continue;
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const int col = tx + 16 * j;
+      if (col < hd) dqkv[(rows0 + row) * d3 + hoff + col] = dq[i][j];
+    }
+  }
+}
 
-  // phase 1: K, V resident; each warp takes query rows -> dq, rs
-  for (int e = threadIdx.x; e < t * hd; e += kThreads) {
-    const int j = e / hd, c = e - j * hd;
-    ma[j * ld + c] = base[j * d3 + d + c];
-    mb[j * ld + c] = base[j * d3 + 2 * d + c];
+// backward pass 2: dk and dv of one 64-key tile, walking the query tiles
+__global__ void __launch_bounds__(kF32Threads)
+attn_bwd_dkv_f32_kernel(const float* __restrict__ qkv,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ out,
+                        const float* __restrict__ lse,
+                        float* __restrict__ dqkv, int t, int n_heads, int d,
+                        int causal, int valid_t, int n_tiles, float scale) {
+  extern __shared__ float smem[];
+  const int hd = d / n_heads, ld = hd + 1;
+  float* ks = smem;
+  float* vs = ks + kF32Rows * ld;
+  float* qs = vs + kF32Rows * ld;
+  float* gs = qs + kF32Rows * ld;            // dO
+  float* pts = gs + kF32Rows * ld;           // [64 keys][kPld] p^T
+  float* dst = pts + kF32Rows * kPld;        // [64 keys][kPld] ds^T
+  float* lse_s = dst + kF32Rows * kPld;
+  float* rs_s = lse_s + kF32Rows;
+  const int b = blockIdx.x / n_tiles, j0 = (blockIdx.x % n_tiles) * kF32Rows;
+  const int h = blockIdx.y;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int64_t d3 = 3 * (int64_t)d;
+  const int64_t hoff = (int64_t)h * hd;
+  const int64_t rows0 = (int64_t)b * t;
+  const float* base = qkv + rows0 * d3 + hoff;
+  // keys of this tile that carry a gradient; the rest (and a tile past
+  // valid_t) get dk = dv = 0
+  const int n_keys = valid_t - j0;
+  float dk[4][kF32Cols] = {}, dv[4][kF32Cols] = {};
+  if (n_keys > 0) {
+    f32_tile_load(ks, base + j0 * d3 + d, d3, n_keys, hd, ld);
+    f32_tile_load(vs, base + j0 * d3 + 2 * d, d3, n_keys, hd, ld);
+    for (int i0 = causal ? j0 : 0; i0 < t; i0 += kF32Rows) {
+      const int nq = min(kF32Rows, t - i0);
+      f32_tile_load(qs, base + i0 * d3, d3, nq, hd, ld);
+      f32_tile_load(gs, dout + (rows0 + i0) * d + hoff, d, nq, hd, ld);
+      f32_row_stats(lse_s, rs_s, dout, out, lse, rows0, i0, t, n_heads, h, d,
+                    hd);
+      __syncthreads();
+      float s[4][4] = {}, dp[4][4] = {};     // key rows x query columns
+      f32_abt(s, ks, qs, hd, ld, tx, ty);
+      f32_abt(dp, vs, gs, hd, ld, tx, ty);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, key = j0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, qi = i0 + c;
+          float p = expf(s[i][j] * scale - lse_s[c]);
+          if (qi >= t || key >= valid_t || (causal && key > qi)) p = 0.f;
+          pts[r * kPld + c] = p;
+          dst[r * kPld + c] = p * (dp[i][j] - rs_s[c]) * scale;
+        }
+      }
+      __syncthreads();
+      f32_pb(dv, pts, gs, nq, hd, ld, tx, ty);   // dv += p^T do
+      f32_pb(dk, dst, qs, nq, hd, ld, tx, ty);   // dk += ds^T q
+      __syncthreads();
+    }
   }
-  for (int i = threadIdx.x; i < t; i += kThreads) lse_s[i] = lse[(row0 + i) * n_heads + h];
-  __syncthreads();
-  for (int i = warp; i < t; i += kWarps) {
-    const int64_t row = row0 + i;
-    float rs = 0.f;
-    for (int c = lane; c < hd; c += 32) {
-      r1[c] = base[i * d3 + c];
-      const float g = dout[row * d + hoff + c];
-      r2[c] = g;
-      rs = fmaf(g, out[row * d + hoff + c], rs);
-    }
-    rs = warp_sum(rs);
-    if (lane == 0) rs_s[i] = rs;
-    __syncwarp();
-    const float l = lse_s[i];
-    const int kend = causal ? min(i + 1, valid_t) : valid_t;
-    for (int j = lane; j < kend; j += 32) {
-      const float* kr = ma + j * ld;
-      const float* vr = mb + j * ld;
-      float s = 0.f, dp = 0.f;
-      for (int c = 0; c < hd; ++c) {
-        s = fmaf(r1[c], kr[c], s);
-        dp = fmaf(r2[c], vr[c], dp);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = j0 + ty + 16 * i;
+    if (key >= t) continue;
+    float* r = dqkv + (rows0 + key) * d3 + hoff;
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) {
+      const int col = tx + 16 * j;
+      if (col < hd) {
+        r[d + col] = dk[i][j];
+        r[2 * d + col] = dv[i][j];
       }
-      const float p = expf(s * scale - l);
-      dsc[j] = p * (dp - rs) * scale;
     }
-    __syncwarp();
-    float* dq = dqkv + row * d3 + hoff;
-    for (int c = lane; c < hd; c += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < kend; ++j) acc = fmaf(dsc[j], ma[j * ld + c], acc);
-      dq[c] = acc;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // phase 2: Q, dO resident; each warp takes key rows -> dk, dv
-  for (int e = threadIdx.x; e < t * hd; e += kThreads) {
-    const int i = e / hd, c = e - i * hd;
-    ma[i * ld + c] = base[i * d3 + c];
-    mb[i * ld + c] = dout[(row0 + i) * d + hoff + c];
-  }
-  __syncthreads();
-  for (int j = warp; j < t; j += kWarps) {
-    float* r = dqkv + (row0 + j) * d3 + hoff;
-    if (j >= valid_t) {                      // a masked key: no gradient
-      for (int c = lane; c < hd; c += 32) {
-        r[d + c] = 0.f;
-        r[2 * d + c] = 0.f;
-      }
-      continue;
-    }
-    for (int c = lane; c < hd; c += 32) {
-      r1[c] = base[j * d3 + d + c];
-      r2[c] = base[j * d3 + 2 * d + c];
-    }
-    __syncwarp();
-    const int i0 = causal ? j : 0;           // rows that see key j
-    for (int i = i0 + lane; i < t; i += 32) {
-      const float* qr = ma + i * ld;
-      const float* gr = mb + i * ld;
-      float s = 0.f, dp = 0.f;
-      for (int c = 0; c < hd; ++c) {
-        s = fmaf(qr[c], r1[c], s);
-        dp = fmaf(gr[c], r2[c], dp);
-      }
-      const float p = expf(s * scale - lse_s[i]);
-      pc[i] = p;
-      dsc[i] = p * (dp - rs_s[i]) * scale;
-    }
-    __syncwarp();
-    for (int c = lane; c < hd; c += 32) {
-      float ak = 0.f, av = 0.f;
-      for (int i = i0; i < t; ++i) {
-        ak = fmaf(dsc[i], ma[i * ld + c], ak);
-        av = fmaf(pc[i], mb[i * ld + c], av);
-      }
-      r[d + c] = ak;
-      r[2 * d + c] = av;
-    }
-    __syncwarp();
   }
 }
 
@@ -623,14 +762,16 @@ int launch_fwd_f32(const void* qkv, void* out, void* lse, int batch, int t,
                    int n_heads, int d, int causal, int valid_t,
                    cudaStream_t stream) {
   const int hd = d / n_heads;
-  const size_t smem = fwd_smem(t, hd);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  if (hd * n_heads != d || hd > kF32MaxHd) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (t + kF32Rows - 1) / kF32Rows;
+  const size_t smem = f32_fwd_smem(hd);
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attn_fwd_f32_kernel<<<batch * n_heads, kThreads, smem, stream>>>(
+  attn_fwd_f32_kernel<<<dim3(batch * n_tiles, n_heads), kF32Threads, smem,
+                        stream>>>(
       (const float*)qkv, (float*)out, (float*)lse, t, n_heads, d, causal,
-      valid_t, 1.f / sqrtf((float)hd));
+      valid_t, n_tiles, 1.f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
@@ -638,15 +779,27 @@ int launch_bwd_f32(const void* qkv, const void* dout, const void* out,
                    const void* lse, void* dqkv, int batch, int t, int n_heads,
                    int d, int causal, int valid_t, cudaStream_t stream) {
   const int hd = d / n_heads;
-  const size_t smem = bwd_smem(t, hd);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_f32_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (hd * n_heads != d || hd > kF32MaxHd) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (t + kF32Rows - 1) / kF32Rows;
+  const dim3 grid(batch * n_tiles, n_heads);
+  const float scale = 1.f / sqrtf((float)hd);
+  const size_t dq_smem = f32_dq_smem(hd), dkv_smem = f32_dkv_smem(hd);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_f32_kernel<<<batch * n_heads, kThreads, smem, stream>>>(
+  err = cudaFuncSetAttribute(attn_bwd_dkv_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dq_f32_kernel<<<grid, kF32Threads, dq_smem, stream>>>(
       (const float*)qkv, (const float*)dout, (const float*)out,
       (const float*)lse, (float*)dqkv, t, n_heads, d, causal, valid_t,
-      1.f / sqrtf((float)hd));
+      n_tiles, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkv_f32_kernel<<<grid, kF32Threads, dkv_smem, stream>>>(
+      (const float*)qkv, (const float*)dout, (const float*)out,
+      (const float*)lse, (float*)dqkv, t, n_heads, d, causal, valid_t,
+      n_tiles, scale);
   return (int)cudaGetLastError();
 }
 
@@ -656,7 +809,7 @@ extern "C" {
 
 // qkv [batch*t, 3d], out [batch*t, d] (bf16 if is_bf16 else f32), lse
 // [batch*t, n_heads] f32.  bf16 runs the tensor-core kernel (d = 64 x
-// n_heads, 16-byte aligned rows), float32 the scalar one.
+// n_heads, 16-byte aligned rows), float32 the FMA tiles (hd <= 128).
 int attn_fwd(const void* qkv, void* out, void* lse, int batch, int t, int n_heads,
              int d, int causal, int valid_t, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -674,12 +827,6 @@ int attn_bwd(const void* qkv, const void* dout, const void* out, const void* lse
                                    causal, valid_t, s)
                  : launch_bwd_f32(qkv, dout, out, lse, dqkv, batch, t, n_heads, d,
                                   causal, valid_t, s);
-}
-
-// Shared-memory bytes the float32 kernels need for (t, hd), so the caller
-// can refuse a shape before launching (the bf16 kernels' need is fixed).
-int attn_smem_bytes(int t, int hd, int backward) {
-  return (int)(backward ? bwd_smem(t, hd) : fwd_smem(t, hd));
 }
 
 const char* kernel_error_string(int code) {

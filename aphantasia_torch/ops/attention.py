@@ -11,10 +11,10 @@ JAX package pads tokens and merges samples to fit the TPU's tiles
 (sample, head) at its real token count, so none of that exists here.
 
 The kernel is chosen by dtype, once: bf16 runs the tensor-core tiles
-(head width 64, any token count), float32 the scalar kernels (whose
-shared memory grows with t).  `attention()` launches the kernels for a
-CUDA tensor and runs `attention_plain` for a CPU tensor; anything else
-raises.
+(head width 64), float32 the FMA tiles (head width up to 128); both walk
+keys in tiles of 64, so both take any token count.  `attention()`
+launches the kernels for a CUDA tensor and runs `attention_plain` for a
+CPU tensor; anything else raises.
 """
 from __future__ import annotations
 
@@ -28,9 +28,7 @@ _P, _I = kernels.PTR, kernels.INT
 _SIGNATURES = {
     "attn_fwd": [_P, _P, _P] + [_I] * 7 + [_P],
     "attn_bwd": [_P] * 5 + [_I] * 7 + [_P],
-    "attn_smem_bytes": [_I, _I, _I],
 }
-_SMEM_LIMIT = 232448
 
 
 def attention_plain(qkv, n_heads, t, causal=False, valid_t=None):
@@ -55,6 +53,7 @@ def attention_plain(qkv, n_heads, t, causal=False, valid_t=None):
 
 
 _BF16_HD = 64          # the head width of the bf16 tensor-core tiles
+_F32_MAX_HD = 128      # the widest head the float32 tiles hold
 
 
 def _check(qkv, n_heads, t, valid_t=None):
@@ -69,21 +68,16 @@ def _check(qkv, n_heads, t, valid_t=None):
         raise ValueError(f"attention: valid_t={valid_t} outside [1, {t}]")
 
 
-def _fits(lib, qkv, n_heads, t, backward):
-    """Refuse a shape the dtype's kernel does not take: the bf16 tiles take
-    head width 64 only; the float32 kernels hold two [t, hd] matrices in
-    shared memory, which caps t."""
+def _fits(qkv, n_heads):
+    """Refuse a head width the dtype's kernel does not take: the bf16
+    tiles take 64 only, the float32 tiles up to 128.  Neither limits t."""
     hd = qkv.shape[1] // 3 // n_heads
-    if qkv.dtype == torch.bfloat16:
-        if hd != _BF16_HD:
-            raise ValueError(f"bf16 attention kernel takes head width "
-                             f"{_BF16_HD}, got {hd}")
-        return
-    need = lib.attn_smem_bytes(t, hd, int(backward))
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"float32 attention kernel needs {need} bytes of "
-                         f"shared memory at t={t}, hd={hd}; the limit is "
-                         f"{_SMEM_LIMIT}")
+    if qkv.dtype == torch.bfloat16 and hd != _BF16_HD:
+        raise ValueError(f"bf16 attention kernel takes head width "
+                         f"{_BF16_HD}, got {hd}")
+    if qkv.dtype == torch.float32 and hd > _F32_MAX_HD:
+        raise ValueError(f"float32 attention kernel takes head width up to "
+                         f"{_F32_MAX_HD}, got {hd}")
 
 
 def attention_fwd_kernel(qkv, n_heads, t, causal=False, valid_t=None):
@@ -93,8 +87,8 @@ def attention_fwd_kernel(qkv, n_heads, t, causal=False, valid_t=None):
     qkv = kernels.aligned(qkv)
     r, d3 = qkv.shape
     d = d3 // 3
+    _fits(qkv, n_heads)
     lib = kernels.library("attention", _SIGNATURES)
-    _fits(lib, qkv, n_heads, t, False)
     out = torch.empty((r, d), device=qkv.device, dtype=qkv.dtype)
     lse = torch.empty((r, n_heads), device=qkv.device, dtype=torch.float32)
     code = lib.attn_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -108,7 +102,7 @@ def attention_fwd_kernel(qkv, n_heads, t, causal=False, valid_t=None):
 
 def attention_bwd_kernel(qkv, dout, out, lse, n_heads, t, causal=False,
                          valid_t=None):
-    """Launch the backward kernel (bf16: two launches, dq then dk and dv,
+    """Launch the backward kernel (two launches, dq then dk and dv,
     counted once): dqkv [R, 3D] in qkv's dtype."""
     _check(qkv, n_heads, t, valid_t)
     qkv = kernels.aligned(qkv)
@@ -117,8 +111,8 @@ def attention_bwd_kernel(qkv, dout, out, lse, n_heads, t, causal=False,
     lse = lse.float().contiguous()
     r, d3 = qkv.shape
     d = d3 // 3
+    _fits(qkv, n_heads)
     lib = kernels.library("attention", _SIGNATURES)
-    _fits(lib, qkv, n_heads, t, True)
     dqkv = torch.empty_like(qkv)
     code = lib.attn_bwd(qkv.data_ptr(), dout.data_ptr(), out.data_ptr(),
                         lse.data_ptr(), dqkv.data_ptr(), r // t, t, n_heads,

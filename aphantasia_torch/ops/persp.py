@@ -28,13 +28,13 @@ import math
 import torch
 
 from aphantasia_torch import kernels
-from aphantasia_torch.ops.perspective import _inverse_coeffs, homography_warp
+from aphantasia_torch.ops.perspective import homography_warp
 
 FAMILIES = ("persp", "rotate")
 
 _SIGNATURES = {
     "persp_fwd": [kernels.PTR] * 4 + [kernels.INT] * 5 + [kernels.PTR],
-    "persp_bwd": [kernels.PTR] * 5 + [kernels.INT] * 5 + [kernels.PTR],
+    "persp_bwd": [kernels.PTR] * 4 + [kernels.INT] * 5 + [kernels.PTR],
 }
 _MAX_C = 4
 
@@ -72,11 +72,13 @@ def _checked(img, coef, flags):
     if coef.device != img.device or flags.device != img.device:
         raise ValueError("perspective coeffs, flags and image must share a "
                          "device")
-    return img.contiguous(), coef.contiguous(), flags.contiguous()
+    # 16-byte aligned: the kernels copy and store in 16-byte vectors
+    return kernels.aligned(img), coef.contiguous(), flags.contiguous()
 
 
 def persp_fwd_kernel(img, coef, flags):
-    """Launch kernel A: the warped [S,C,H,W] in img's dtype."""
+    """Launch kernel A: the warped [S,C,H,W] in img's dtype (a flag-0
+    sample copied)."""
     img, coef, flags = _checked(img, coef, flags)
     s, c, h, w = img.shape
     out = torch.empty_like(img)
@@ -91,14 +93,14 @@ def persp_fwd_kernel(img, coef, flags):
 
 
 def persp_bwd_kernel(g, coef, flags):
-    """Launch kernel B: d_img [S,C,H,W] for d_out `g`, in g's dtype."""
+    """Launch kernel B: d_img [S,C,H,W] for d_out `g`, in g's dtype (a
+    flag-0 sample's g copied)."""
     g, coef, flags = _checked(g, coef, flags)
     s, c, h, w = g.shape
-    inv = _inverse_coeffs(coef).contiguous()
     dimg = torch.empty_like(g)
     lib = kernels.library("persp", _SIGNATURES)
-    code = lib.persp_bwd(g.data_ptr(), coef.data_ptr(), inv.data_ptr(),
-                         flags.data_ptr(), dimg.data_ptr(), s, c, h, w,
+    code = lib.persp_bwd(g.data_ptr(), coef.data_ptr(), flags.data_ptr(),
+                         dimg.data_ptr(), s, c, h, w,
                          int(g.dtype == torch.bfloat16),
                          kernels.stream_ptr(g))
     kernels.check(lib, code, "persp_bwd")

@@ -87,13 +87,43 @@ def test_bf16_tiles_take_head_width_64_at_any_token_count():
     is bounded by the tile, not by t); another head width, or a valid_t
     outside [1, t], is refused before any launch."""
     bf = torch.bfloat16
-    assert A._fits(None, torch.zeros((2 * 577, 3 * 1024), dtype=bf), 16,
-                   577, True) is None
+    assert A._fits(torch.zeros((2 * 577, 3 * 1024), dtype=bf), 16) is None
     with pytest.raises(ValueError, match="head width"):
-        A._fits(None, torch.zeros((10, 3 * 64), dtype=bf), 2, 5, False)
+        A._fits(torch.zeros((10, 3 * 64), dtype=bf), 2)
     with pytest.raises(ValueError, match="valid_t"):
         A._check(torch.zeros((10, 3 * 128), dtype=bf), 2, 5, valid_t=6)
     A._check(torch.zeros((10, 3 * 128), dtype=bf), 2, 5, valid_t=5)
+
+
+def test_float32_tiles_take_any_token_count():
+    """The float32 tiles walk keys 64 at a time, so no t is refused (the
+    first design held whole [t, hd] matrices and stopped near t = 420);
+    only a head wider than the register tiles' 128 is."""
+    f32 = torch.float32
+    for t in (420, 577, 1024, 4096):
+        assert A._fits(torch.zeros((t, 3 * 1024), dtype=f32), 16) is None
+    assert A._fits(torch.zeros((4, 3 * 256), dtype=f32), 2) is None
+    with pytest.raises(ValueError, match="up to 128"):
+        A._fits(torch.zeros((4, 3 * 256), dtype=f32), 1)
+
+
+def test_long_sequence_matches_jax():
+    """ViT-L/14@336px's t = 577 in float32 at a narrow width (b = 2, two
+    heads of 16) against the JAX padded core, which the JAX towers take at
+    this t (its flat kernel refuses t = 577: `flat_geometry` is None); the
+    two layouts are the same memory."""
+    b, t, h, hd = 2, 577, 2, 16
+    d = h * hd
+    x = _qkv(6, b, t, 3 * d)
+    co = _qkv(7, b, t, d)
+    out_j, vjp = jax.vjp(lambda q: attention_core(q, h), jnp.asarray(x))
+    (g_j,) = vjp(jnp.asarray(co))
+    out_t, g_t = _torch_vjp(lambda q: A.attention_core_flat(q, h, t),
+                            x.reshape(b * t, 3 * d), co.reshape(b * t, d))
+    np.testing.assert_allclose(out_t, np.asarray(out_j).reshape(b * t, d),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(g_t, np.asarray(g_j).reshape(b * t, 3 * d),
+                               atol=2e-5, rtol=2e-4)
 
 
 def test_cuda_tensor_never_falls_back(monkeypatch):

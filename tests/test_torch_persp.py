@@ -174,23 +174,154 @@ def _window_reach(coef, h, w):
     return reach
 
 
+# the CUDA backward's tile of input pixels, its row and entry capacity and
+# its slacks (csrc/persp.cu: kQx, kQy, kMaxRows, kEntries, kSlack, kEps,
+# kEpsRel)
+_TILE_X, _TILE_Y, _MAX_ROWS, _ENTRIES = 32, 32, 128, 2272
+_SLACK, _EPS, _EPS_REL = .25, .05, 1e-3
+
+
+def _p_star(inv, xs, ys):
+    """The output position whose sample lands on input position (xs, ys)
+    (pixel indices): the inverse map, [S,1,1] coefficients."""
+    m = [inv[:, i, j].reshape(-1, *[1] * (xs.ndim - 1)) for i in range(3)
+         for j in range(3)]
+    xq, yq = xs + 0.5, ys + 0.5
+    den = m[6] * xq + m[7] * yq + m[8]
+    return ((m[0] * xq + m[1] * yq + m[2]) / den - 0.5,
+            (m[3] * xq + m[4] * yq + m[5]) / den - 0.5, den)
+
+
+def _row_interval(coef, py, x0s, x1s, y0s, y1s, w):
+    """The output pixels of row py whose sample lands in [x0s, x1s] x
+    [y0s, y1s], as (lo, hi) cut to the frame, solved as the kernel does
+    (`row_interval`); every argument broadcasts."""
+    a, b, c, d, e, f, g, h = coef.unbind(-1)
+    yy = py + 0.5
+    hd, bx, by = h * yy + 1, b * yy + c, e * yy + f
+    lo = torch.full_like(yy * a, -np.inf)
+    hi = torch.full_like(lo, np.inf)
+    for kx, r, ge in ((a - (x0s + .5) * g, (x0s + .5) * hd - bx, True),
+                      (a - (x1s + .5) * g, (x1s + .5) * hd - bx, False),
+                      (d - (y0s + .5) * g, (y0s + .5) * hd - by, True),
+                      (d - (y1s + .5) * g, (y1s + .5) * hd - by, False)):
+        flat = kx.abs() < 1e-12
+        bad = flat & ((r > 0) if ge else (r < 0))
+        x = r / torch.where(flat, torch.ones_like(kx), kx)
+        if ge:
+            lo = torch.where(~flat & (kx > 0), torch.maximum(lo, x), lo)
+            hi = torch.where(~flat & (kx < 0), torch.minimum(hi, x), hi)
+        else:
+            hi = torch.where(~flat & (kx > 0), torch.minimum(hi, x), hi)
+            lo = torch.where(~flat & (kx < 0), torch.maximum(lo, x), lo)
+        lo = torch.where(bad, torch.full_like(lo, np.inf), lo)
+        hi = torch.where(bad, torch.full_like(hi, -np.inf), hi)
+    return (torch.clamp(torch.ceil(lo - .5), 0, w),
+            torch.clamp(torch.floor(hi - .5), -1, w - 1))
+
+
+def _geometry_misses(coef, h, w):
+    """Brute force over every output pixel p and each in-frame tap q it
+    reads: the pairs where p lies outside the rows or the row interval of
+    q's tile, or outside q's window (within the tile's reach of p*(q)), as
+    the CUDA backward reckons them; and the most rows and entries a tile
+    holds.  Returns (misses, rows, entries)."""
+    coef = torch.tensor(coef)
+    inv = tp._inverse_coeffs(coef)
+    s = coef.shape[0]
+    tx0 = torch.arange(0, w, _TILE_X, dtype=torch.float32)[None, None, :]
+    ty0 = torch.arange(0, h, _TILE_Y, dtype=torch.float32)[None, :, None]
+    x0s = tx0 - 1 - _SLACK
+    x1s = torch.clamp(tx0 + _TILE_X, max=w) - 1 + 1 + _SLACK
+    y0s = ty0 - 1 - _SLACK
+    y1s = torch.clamp(ty0 + _TILE_Y, max=h) - 1 + 1 + _SLACK
+    corners = [_p_star(inv, xs.expand(s, *ty0.shape[1:2], tx0.shape[2]),
+                       ys.expand(s, ty0.shape[1], tx0.shape[2]))
+               for xs in (x0s, x1s) for ys in (y0s, y1s)]
+    pys = torch.stack([cn[1] for cn in corners])
+    dens = torch.stack([cn[2] for cn in corners])
+    assert bool(((dens > 0).all(0) | (dens < 0).all(0)).all())
+    by0 = torch.clamp(torch.floor(pys.amin(0)), 0, h)
+    by1 = torch.clamp(torch.ceil(pys.amax(0)), -1, h - 1)
+    rows = int((by1 - by0 + 1).clamp(min=0).max())
+    # how far p* moves for a step of up to a pixel on each axis: the
+    # numerators of dp/dx, dp/dy are linear in one coordinate, D^2 is
+    # least at a corner
+    mm = [inv[:, i // 3, i % 3][:, None, None] for i in range(9)]
+    min_d2 = (dens ** 2).amin(0)
+    xa, xb, ya, yb = x0s + .5, x1s + .5, y0s + .5, y1s + .5
+
+    def reach(r0, r1, r2):
+        ax, bx = r0 * mm[7] - mm[6] * r1, r0 * mm[8] - mm[6] * r2
+        ay, by = r1 * mm[6] - mm[7] * r0, r1 * mm[8] - mm[7] * r2
+        return ((torch.maximum((ax * ya + bx).abs(), (ax * yb + bx).abs())
+                 + torch.maximum((ay * xa + by).abs(), (ay * xb + by).abs()))
+                / min_d2 * (1 + _EPS_REL) + _EPS)
+    reach_x, reach_y = reach(*mm[0:3]), reach(*mm[3:6])
+    # entries: the rows' interval lengths summed, per tile
+    r = torch.arange(rows, dtype=torch.float32)
+    py = by0[..., None] + r
+    cf = coef[:, None, None, None, :]
+    lo, hi = _row_interval(cf, py, x0s[..., None], x1s[..., None],
+                           y0s[..., None], y1s[..., None], w)
+    length = torch.where(py <= by1[..., None], (hi - lo + 1).clamp(min=0),
+                         torch.zeros_like(lo))
+    entries = int(length.sum(-1).max())
+    # every (p, q) pair by brute force
+    xx, yy = tp._grids(h, w, "cpu")
+    sx, sy = tp._src_positions(coef, xx, yy)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    px, py = (xx - 0.5).expand(s, h, w), (yy - 0.5).expand(s, h, w)
+    sidx = torch.arange(s)[:, None, None].expand(s, h, w)
+    misses = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            qx, qy = x0 + dx, y0 + dy
+            ok = (qx >= 0) & (qx < w) & (qy >= 0) & (qy < h)
+            qx, qy = qx.clamp(0, w - 1), qy.clamp(0, h - 1)
+            tx = (qx // _TILE_X).long()
+            ty = (qy // _TILE_Y).long()
+            lo, hi = _row_interval(
+                coef[sidx], py, x0s[0, 0, tx], x1s[0, 0, tx],
+                y0s[0, ty, 0], y1s[0, ty, 0], w)
+            inside = ((py >= by0[sidx, ty, tx]) & (py <= by1[sidx, ty, tx])
+                      & (px >= lo) & (px <= hi))
+            cx, cy, _ = _p_star(inv, qx, qy)
+            rx, ry = reach_x[sidx, ty, tx], reach_y[sidx, ty, tx]
+            inside &= ((px >= torch.ceil(cx - rx)) & (px <= torch.floor(cx + rx))
+                       & (py >= torch.ceil(cy - ry))
+                       & (py <= torch.floor(cy + ry)))
+            misses += int((ok & ~inside).sum())
+    return misses, rows, entries
+
+
 def test_backward_window_covers_the_families():
     """The CUDA backward walks output pixels within 3 of round(dst(q)):
     enough at every extreme corner draw of the distortion-0.33 family (the
-    JAX package's window-bound draws) and at +-30 deg rotations."""
-    h = w = 224
-    dw, dh = int(0.33 * (w // 2)), int(0.33 * (h // 2))
-    los_his = [(0, dw), (0, dh), (w - dw - 1, w - 1), (0, dh),
-               (w - dw - 1, w - 1), (h - dh - 1, h - 1),
-               (0, dw), (h - dh - 1, h - 1)]
-    pts = np.array(list(itertools.product(*los_his)), np.float32)
-    sp = torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
-                      dtype=torch.float32)
-    corners = tp.perspective_coeffs(sp, torch.tensor(pts).reshape(-1, 4, 2))
-    rot = tp.rotation_coeffs_for(torch.tensor([-30.0, -21.0, 13.0, 30.0]),
-                                 h, w)
-    for coef in torch.split(corners, 32) + (rot,):
-        assert _window_reach(coef.numpy(), h, w) <= 3
+    JAX package's window-bound draws) and at +-30 deg rotations.  The rows
+    and row intervals of its tiles, and each pixel's window (the tile's
+    reach around its inverse position), hold every output pixel that
+    reaches a pixel, at 224x224 and on a 200x216 frame, within the
+    capacities there, so no block of either family leaves the
+    shared-memory walk."""
+    for h, w in ((224, 224), (200, 216)):
+        dw, dh = int(0.33 * (w // 2)), int(0.33 * (h // 2))
+        los_his = [(0, dw), (0, dh), (w - dw - 1, w - 1), (0, dh),
+                   (w - dw - 1, w - 1), (h - dh - 1, h - 1),
+                   (0, dw), (h - dh - 1, h - 1)]
+        pts = np.array(list(itertools.product(*los_his)), np.float32)
+        sp = torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
+                          dtype=torch.float32)
+        corners = tp.perspective_coeffs(sp,
+                                        torch.tensor(pts).reshape(-1, 4, 2))
+        rot = tp.rotation_coeffs_for(
+            torch.tensor([-30.0, -21.0, 0.0, 13.0, 30.0]), h, w)
+        drawn, _ = _family(7, 32, h, w, p=1.0)
+        for coef in torch.split(corners, 32) + (rot, torch.tensor(drawn)):
+            assert _window_reach(coef.numpy(), h, w) <= 3
+            misses, rows, entries = _geometry_misses(coef.numpy(), h, w)
+            assert misses == 0
+            assert rows <= _MAX_ROWS and entries <= _ENTRIES, (rows, entries)
 
 
 def test_wrappers_raise_for_a_device_without_a_kernel():
