@@ -563,8 +563,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap amap,
   using G = Gemm<BN>;
   __shared__ __align__(8) uint64_t full[G::STAGES], empty[G::STAGES];
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = smem_align<1024>(smem_raw);
   const int r0 = blockIdx.y * GM_BM, n0 = blockIdx.x * BN;
   const int nk = (K + GM_BK - 1) / GM_BK;
   const int tid = threadIdx.x;

@@ -1,26 +1,53 @@
-// Cutout crop-and-resize for Hopper (sm_90a): forward gather, backward
-// owner-computes gather.
+// Cutout crop-and-resize for Hopper (sm_90a): a separable forward with
+// the TPU kernel's bf16 roundings, and a backward owner-computes gather.
 //
 // Replaces the Pallas TPU kernels of aphantasia_tpu/ops/pallas_cutout.py:
 //   _pallas_cut_fwd (pallas_call at :109, body _fwd_kernel :56) and
 //   _pallas_cut_bwd (pallas_call at :139, body _bwd_kernel :68).
 //
-// Computes, for S samples of an M x M bicubic crop of a C x H x W frame,
-//   out[s,c,m,n] = sum_a sum_b yw[s,m,a] * xw[s,n,b] * img[c, yidx[s,m,a], xidx[s,n,b]]
-//   d_img[c,y,x] = sum over (s,m,n,a,b) with yidx=y, xidx=x of yw * xw * g[s,c,m,n]
+// For S samples of an M x M bicubic crop of a C x H x W float32 frame,
+// with per-sample taps yidx/yw, xidx/xw [S,M,4]:
+//   wy[m,y] = bf16(float32 sum, in tap order, of row m's y-taps on y)
+//   tmp[m,x] = bf16(sum_y wy[m,y] * bf16(img[c,y,x]))   (float32 sum)
+//   out[s,c,m,n] = sum_x tmp[m,x] * wx[n,x]              (float32 sum)
+//   d_img[c,y,x] = sum over (s,m,n,a,b) with yidx=y, xidx=x of
+//                  yw * xw * g[s,c,m,n]                  (float32 weights)
+// wx is built from the x-taps as wy from the y-taps.  These are the TPU
+// kernel's roundings (pallas_cutout.py:60-65, :107).  A product of two
+// bf16 values is exact in float32, so only the order of each sum is
+// free: every sum runs over the distinct taps of a row or column in
+// ascending frame index, the order of the dense product, as the plain
+// version (ops/cutout.py:rounded_fwd) takes it.
 //
-// The TPU kernel builds dense Wy [M,H] / Wx [W,M] matrices per sample from
-// the taps and runs two MXU matmuls, because the MXU is what a TPU has.  On
-// Hopper the work is 16 multiply-adds per output, so a dense matmul would
-// do ~H/4 times the arithmetic; the direct gather does only the 16.
-//
-// What bounds it on the H100: the forward writes S*C*M*M float32 outputs
-// (120 MB at S=200, M=224, C=3) and reads the 11 MB frame, which stays in
-// the 50 MB L2 across all samples, so the floor is the output write at
-// 3.35 TB/s.  The design: one block per (output row m, sample s), one
-// thread per output column n; the row's four y-taps sit in shared memory,
-// each thread loads its four x-taps once (16-byte vector loads) and reuses
-// them for all C channels; stores are coalesced along n.
+// The forward writes S*C*M*M float32 outputs (120 MB at S=200, M=224,
+// C=3: 0.040 ms at 3.35 TB/s).  A direct 16-tap gather from the float32
+// frame made 48 scattered reads an output (1.9 GB through L1 and L2 at
+// that size).  The design here is separable, as the TPU kernel is:
+//   - a block owns one sample, a band of kFwdRows output rows and up to
+//     256 output columns.  Its threads sort, merge and round the taps of
+//     the band's rows and of its columns (each distinct pixel's summed
+//     weight rounded once), list the frame rows the band reaches (at most
+//     4 a row, ascending) and the span of frame columns its columns reach;
+//   - it stages those frame rows, kFwdPiece columns a stage, from a bf16
+//     copy of the frame (one small launch in the same call, so a stage
+//     is a plain 16-byte cp.async a thread) into a ring of 2 to 4 stages
+//     in shared memory, the next ones in flight while the row pass runs
+//     on this one, so a frame row comes from L2 once for the band however
+//     many of its rows reach it.  Staging from the float32 frame instead,
+//     rounded on the way in, moves twice the bytes out of L2 and was
+//     measured slower than the copy's launch costs (PERF.md, PR 12);
+//   - the row pass computes the rounded tmp [band][span] in shared
+//     memory; then each thread takes one output column, keeps its four
+//     taps in registers, gathers them from tmp for every row of the band
+//     and writes a coalesced row of outputs a warp.
+// A span wider than the tmp buffer (wide frames, or overscan taps folded
+// across the frame) is walked in pieces of it in ascending x; each output
+// carries its sum from piece to piece, so the order stays ascending.
+// The walk is bound by L2 and instructions, not by the output bytes: the
+// staging moves about 0.4 GB from L2 at the size above (each sample's
+// crop region once a band, in bf16), and the row pass costs 4 FMAs and
+// 4 unpacks a tmp value, with barriers around every stage.  No atomics:
+// the bits repeat from run to run and under CUDA-graph replay.
 //
 // The backward reads g (120 MB) about once and writes d_img (11 MB): the
 // same byte bound, 0.040 ms.  A scatter of every g element into its 16
@@ -62,46 +89,347 @@
 // such taps count nowhere.
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-__global__ void cutout_fwd_kernel(const float* __restrict__ img,
-                                  const int* __restrict__ yidx,
-                                  const float* __restrict__ yw,
-                                  const int* __restrict__ xidx,
-                                  const float* __restrict__ xw,
-                                  float* __restrict__ out,
-                                  int c, int h, int w, int m) {
-  const int row = blockIdx.x;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdRows = 16;      // output rows a block (a band)
+constexpr int kFwdCols = 256;     // output columns a block, at most
+constexpr int kFwdPiece = 128;    // frame columns staged at a time
+constexpr int kFwdSpan = 768;     // tmp columns a block holds at most
+
+// The bf16 copy of the frame the forward stages from: RNE, as
+// img.astype(bfloat16) (pallas_cutout.py:107).
+__global__ void frame_bf16_kernel(const float* __restrict__ img,
+                                  __nv_bfloat16* __restrict__ dst,
+                                  int64_t n) {
+  const int64_t i = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) * 8;
+  if (i + 8 <= n) {
+    const float4 a = *reinterpret_cast<const float4*>(img + i);
+    const float4 b = *reinterpret_cast<const float4*>(img + i + 4);
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+    h[0] = __floats2bfloat162_rn(a.x, a.y);
+    h[1] = __floats2bfloat162_rn(a.z, a.w);
+    h[2] = __floats2bfloat162_rn(b.x, b.y);
+    h[3] = __floats2bfloat162_rn(b.z, b.w);
+    *reinterpret_cast<uint4*>(dst + i) = q;
+  } else {
+    for (int64_t j = i; j < n; ++j) dst[j] = __float2bfloat16_rn(img[j]);
+  }
+}
+
+// One row's (or column's) four taps, as the dense bf16 matrix holds them:
+// sorted by index (adjacent swaps, so taps on one index keep their
+// order), the first tap of each index carrying the float32 sum of that
+// index's weights in tap order rounded to bf16, the others weight 0; a
+// tap of weight 0 gets index -1.
+__device__ __forceinline__ void distinct_taps(int4 iv, float4 wv,
+                                              int (&ix)[4], float (&w)[4]) {
+  ix[0] = iv.x; ix[1] = iv.y; ix[2] = iv.z; ix[3] = iv.w;
+  w[0] = wv.x; w[1] = wv.y; w[2] = wv.z; w[3] = wv.w;
+  const int order[6][2] = {{0, 1}, {1, 2}, {0, 1}, {2, 3}, {1, 2}, {0, 1}};
+#pragma unroll
+  for (int t = 0; t < 6; ++t) {
+    const int a = order[t][0], b = order[t][1];
+    if (ix[a] > ix[b]) {
+      const int ti = ix[a]; ix[a] = ix[b]; ix[b] = ti;
+      const float tw = w[a]; w[a] = w[b]; w[b] = tw;
+    }
+  }
+  float sum[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float acc = w[k];
+#pragma unroll
+    for (int j = k + 1; j < 4; ++j) acc += ix[j] == ix[k] ? w[j] : 0.f;
+    sum[k] = (k > 0 && ix[k] == ix[k - 1]) ? 0.f : acc;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = __bfloat162float(__float2bfloat16_rn(sum[k]));
+    if (w[k] == 0.f) ix[k] = -1;
+  }
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// A stage of the walk over a block's frame columns: channel ch, piece p
+// of tw columns from x_base, kFwdPiece columns from sp within it.
+struct Stage {
+  int ch, p, sp;
+};
+
+// The forward's shared memory for a block of nb output columns and a tmp
+// buffer of tw columns: the column taps, the band's row lists, the ring
+// of staged frame rows (kFwdRing bytes) and tmp.
+constexpr int kFwdRing = 2 * 4 * kFwdRows * kFwdPiece * 2 + 8192;
+inline int fwd_smem(int nb, int tw) {
+  return nb * 32 + 3 * 4 * kFwdRows * 4 + 16 + kFwdRing +
+         kFwdRows * tw * 2;
+}
+
+// cp.async.wait_group n: all but the n most recent stages have landed
+__device__ __forceinline__ void wait_ring(int n) {
+  if (n >= 3) cp_async_wait<3>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<1>();
+}
+
+// blockIdx.y = s; blockIdx.x = band * ncols + column chunk: the band's
+// output rows [band * kFwdRows, +kFwdRows), the chunk's columns
+// [chunk * nb, +nb).  Frame img16 [c,h,w] bf16 (rows 16-byte aligned
+// when vec), taps as the wrapper clamps them, out [s,c,m,m] float32.
+// The block walks its span of frame columns in pieces of tw (one where
+// it fits), each piece kFwdPiece columns a stage, channel by channel.
+// Thread t stages and computes the row pass of band row t / 16, frame
+// columns 8 (t % 16) .. + 7 of each stage, and after a piece adds the
+// terms of output column t's taps in that piece to its sums for every
+// band row: pieces ascend in x, and a column's taps too, so each sum runs
+// in ascending x.
+__global__ void __launch_bounds__(kFwdThreads, 3)
+cutout_fwd_kernel(const __nv_bfloat16* __restrict__ img16,
+                  const int* __restrict__ yidx, const float* __restrict__ yw,
+                  const int* __restrict__ xidx, const float* __restrict__ xw,
+                  float* __restrict__ out, int c, int h, int w, int m,
+                  int nb, int tw, int ncols, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int4* xt = reinterpret_cast<int4*>(smem_raw);            // [nb]
+  float4* xv = reinterpret_cast<float4*>(xt + nb);         // [nb]
+  int* ent = reinterpret_cast<int*>(xv + nb);              // [4 kFwdRows]
+  int* slot = ent + 4 * kFwdRows;                           // [4 kFwdRows]
+  int* rows = slot + 4 * kFwdRows;                          // [4 kFwdRows]
+  int* span = rows + 4 * kFwdRows;                          // lo, hi, nrows
+  // the ring of stages of staged frame rows [nrows][kFwdPiece], then tmp
+  __nv_bfloat16* fr = reinterpret_cast<__nv_bfloat16*>(span + 4);
+  __nv_bfloat16* tmp = fr + kFwdRing / 2;                   // [rows][tw]
+  const int tid = threadIdx.x, lane = tid & 31;
   const int smp = blockIdx.y;
-  __shared__ int ys[4];
-  __shared__ float yws[4];
-  const int64_t tap_row = ((int64_t)smp * m + row) * 4;
-  if (threadIdx.x < 4) {
-    ys[threadIdx.x] = yidx[tap_row + threadIdx.x];
-    yws[threadIdx.x] = yw[tap_row + threadIdx.x];
+  const int m0 = blockIdx.x / ncols * kFwdRows;
+  const int n0 = blockIdx.x % ncols * nb;
+  const int mr = min(kFwdRows, m - m0), nr = min(nb, m - n0);
+  if (tid == 0) {
+    span[0] = 0x7fffffff;
+    span[1] = -1;
   }
   __syncthreads();
-  const int64_t plane = (int64_t)h * w;
-  for (int n = threadIdx.x; n < m; n += blockDim.x) {
-    const int64_t tap_col = ((int64_t)smp * m + n) * 4;
-    const int4 xi = *reinterpret_cast<const int4*>(xidx + tap_col);
-    const float4 xv = *reinterpret_cast<const float4*>(xw + tap_col);
-    for (int ch = 0; ch < c; ++ch) {
-      const float* base = img + ch * plane;
-      float acc = 0.f;
+  // the columns' taps and the span of frame columns they reach
+  int lo = 0x7fffffff, hi = -1;
+  for (int j = tid; j < nb; j += kFwdThreads) {
+    int ix[4] = {-1, -1, -1, -1};
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (j < nr) {
+      const int64_t at = ((int64_t)smp * m + n0 + j) * 4;
+      distinct_taps(*reinterpret_cast<const int4*>(xidx + at),
+                    *reinterpret_cast<const float4*>(xw + at), ix, wt);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float* r = base + (int64_t)ys[a] * w;
-        const float v = xv.x * __ldg(r + xi.x) + xv.y * __ldg(r + xi.y) +
-                        xv.z * __ldg(r + xi.z) + xv.w * __ldg(r + xi.w);
-        acc = fmaf(yws[a], v, acc);
-      }
-      out[(((int64_t)smp * c + ch) * m + row) * m + n] = acc;
+      for (int k = 0; k < 4; ++k)
+        if (ix[k] >= 0) {
+          lo = min(lo, ix[k]);
+          hi = max(hi, ix[k]);
+        }
     }
+    xt[j] = make_int4(ix[0], ix[1], ix[2], ix[3]);
+    xv[j] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0 && lo <= hi) {
+    atomicMin(&span[0], lo);
+    atomicMax(&span[1], hi);
+  }
+  // this thread's band row and its taps; ent lists the frame row of
+  // every weighted tap of the band
+  const int q = tid / 16, grp = tid % 16;
+  int ry[4] = {-1, -1, -1, -1};
+  float rw[4] = {0.f, 0.f, 0.f, 0.f};
+  if (q < mr) {
+    const int64_t at = ((int64_t)smp * m + m0 + q) * 4;
+    distinct_taps(*reinterpret_cast<const int4*>(yidx + at),
+                  *reinterpret_cast<const float4*>(yw + at), ry, rw);
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ent[4 * q + k] = ry[k];
+  }
+  __syncthreads();
+  // the band's distinct frame rows, ascending, by warp 0 (two entries a
+  // lane): an entry is first if no earlier entry names its row, and a
+  // row's place is the count of first entries below it
+  if (tid < 32) {
+    const unsigned all = 0xffffffffu;
+    const int v0 = ent[tid], v1 = ent[tid + 32];
+    bool f0 = v0 >= 0, f1 = v1 >= 0;
+    for (int src = 0; src < 32; ++src) {
+      const int a = __shfl_sync(all, v0, src);
+      const int b = __shfl_sync(all, v1, src);
+      f0 = f0 && !(src < tid && a == v0);
+      f1 = f1 && a != v1 && !(src < tid && b == v1);
+    }
+    const unsigned fa = __ballot_sync(all, f0);
+    const unsigned fb = __ballot_sync(all, f1);
+    int r0 = 0, r1 = 0;
+    for (int src = 0; src < 32; ++src) {
+      const int a = __shfl_sync(all, v0, src);
+      const int b = __shfl_sync(all, v1, src);
+      const bool ua = fa >> src & 1, ub = fb >> src & 1;
+      r0 += (ua && a < v0) + (ub && b < v0);
+      r1 += (ua && a < v1) + (ub && b < v1);
+    }
+    const int count = __popc(fa) + __popc(fb);
+    // entries on one row write the same value to the same place
+    if (v0 >= 0) rows[r0] = v0;
+    if (v1 >= 0) rows[r1] = v1;
+    // a tap of weight 0 reads the first staged row, times 0
+    slot[tid] = v0 >= 0 ? r0 : 0;
+    slot[tid + 32] = v1 >= 0 ? r1 : 0;
+    if (tid == 0) span[2] = count;
+  }
+  __syncthreads();
+  const int x_lo = span[0], x_hi = span[1], nrows = span[2];
+  if (nrows == 0 || x_lo > x_hi) {
+    // no weighted tap: every sum is empty
+    for (int ch = 0; ch < c; ++ch)
+      for (int it = tid; it < mr * nr; it += kFwdThreads)
+        out[(((int64_t)smp * c + ch) * m + m0 + it / nr) * m + n0 +
+            it % nr] = 0.f;
+    return;
+  }
+  int sl[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) sl[k] = slot[4 * q + k] * kFwdPiece;
+  // the ring: as many stages of the band's rows as kFwdRing holds, at
+  // most 4 (2 for 64 rows)
+  const int stage_elems = nrows * kFwdPiece;
+  const int nslots = min(4, kFwdRing / 2 / stage_elems);
+  const int x_base = x_lo & ~7;
+  const int npieces = (x_hi + 1 - x_base + tw - 1) / tw;
+  auto piece_w = [&](int p) { return min(tw, x_hi + 1 - x_base - p * tw); };
+  // this thread stages columns 8 grp .. + 7 of the staged rows q + 16 i
+  int64_t row_at[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    row_at[i] = q + 16 * i < nrows ? (int64_t)rows[q + 16 * i] * w : 0;
+  const int j = grp * 8;
+  // stage st's frame rows into ring slot b, by cp.async where a row's
+  // eight values lie whole in a 16-byte aligned row, else one at a time
+  auto issue = [&](Stage st, int b) {
+    const int x = x_base + st.p * tw + st.sp + j;
+    if (st.ch >= c || j >= min(kFwdPiece, piece_w(st.p) - st.sp)) return;
+    const __nv_bfloat16* plane = img16 + (int64_t)st.ch * h * w + x;
+    __nv_bfloat16* dst = fr + b * stage_elems + j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q + 16 * i;
+      if (r >= nrows) break;
+      const __nv_bfloat16* src = plane + row_at[i];
+      if (vec && x + 8 <= w) {
+        cp_async16(dst + r * kFwdPiece, src);
+      } else {
+        uint4 v;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          e[t] = x + t < w ? src[t] : __float2bfloat16_rn(0.f);
+        *reinterpret_cast<uint4*>(dst + r * kFwdPiece) = v;
+      }
+    }
+  };
+  auto next = [&](Stage st) {
+    st.sp += kFwdPiece;
+    if (st.sp >= piece_w(st.p)) {
+      st.sp = 0;
+      if (++st.p == npieces) {
+        st.p = 0;
+        ++st.ch;
+      }
+    }
+    return st;
+  };
+  // this thread's output column, its taps and its sums
+  const int jc = min(tid, nb - 1);
+  const int4 cxi = xt[jc];
+  const float4 cxw = xv[jc];
+  const int cix[4] = {cxi.x, cxi.y, cxi.z, cxi.w};
+  const float cwv[4] = {cxw.x, cxw.y, cxw.z, cxw.w};
+  float acc[kFwdRows] = {};
+  Stage cur = {0, 0, 0}, ahead = cur;
+  for (int i = 0; i < nslots - 1; ++i, ahead = next(ahead)) {
+    issue(ahead, i);
+    cp_async_commit();
+  }
+  for (int k = 0; cur.ch < c; ++k, cur = next(cur), ahead = next(ahead)) {
+    issue(ahead, (k + nslots - 1) % nslots);
+    cp_async_commit();
+    wait_ring(nslots - 1);
+    __syncthreads();
+    // the row pass: tmp = bf16(sum over the row's taps, ascending)
+    const int pw = piece_w(cur.p);
+    if (q < mr && cur.sp + j < pw) {
+      const __nv_bfloat16* f = fr + k % nslots * stage_elems + j;
+      float a[8] = {};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint4 v = *reinterpret_cast<const uint4*>(f + sl[t]);
+        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[2 * e] = fmaf(rw[t], bf_lo(u[e]), a[2 * e]);
+          a[2 * e + 1] = fmaf(rw[t], bf_hi(u[e]), a[2 * e + 1]);
+        }
+      }
+      uint4 o;
+      __nv_bfloat162* ho = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ho[e] = __floats2bfloat162_rn(a[2 * e], a[2 * e + 1]);
+      *reinterpret_cast<uint4*>(tmp + q * tw + cur.sp + j) = o;
+    }
+    if (cur.sp + kFwdPiece >= pw) {
+      __syncthreads();
+      // the column pass over this piece: a tap outside it adds 0 times
+      // the piece's first value, so each sum stays in ascending x
+      const int xp0 = x_base + cur.p * tw;
+      int off[4];
+      float wk[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = cix[e] >= xp0 && cix[e] < xp0 + pw;
+        off[e] = in ? cix[e] - xp0 : 0;
+        wk[e] = in ? cwv[e] : 0.f;
+      }
+      const bool last = cur.p == npieces - 1;
+      if (tid < nr) {
+        float* dst =
+            out + (((int64_t)smp * c + cur.ch) * m + m0) * m + n0 + tid;
+#pragma unroll
+        for (int i = 0; i < kFwdRows; ++i) {
+          if (i >= mr) break;
+          const __nv_bfloat16* trow = tmp + i * tw;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i] = fmaf(wk[e], __bfloat162float(trow[off[e]]), acc[i]);
+          if (last) {
+            dst[(int64_t)i * m] = acc[i];
+            acc[i] = 0.f;
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -498,23 +826,39 @@ bool map_4b(CUtensorMap* map, const void* base, bool is_float, int rank,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int block_threads(int m) {
-  const int t = ((m + 31) / 32) * 32;
-  return t < 256 ? t : 256;
-}
-
 }  // namespace
 
 extern "C" {
 
-// img [c,h,w] f32; yidx/xidx [s,m,4] int32; yw/xw [s,m,4] f32; out [s,c,m,m] f32.
-int cutout_fwd(const void* img, const void* yidx, const void* yw,
-               const void* xidx, const void* xw, void* out,
+// img [c,h,w] f32; img16 [c,h,w] bf16 scratch; yidx/xidx [s,m,4] int32
+// and yw/xw [s,m,4] f32 (taps clamped into the frame, weight 0 where one
+// was outside), 16-byte aligned; out [s,c,m,m] f32.  The bf16 copy of
+// the frame, then the separable forward.
+int cutout_fwd(const void* img, void* img16, const void* yidx,
+               const void* yw, const void* xidx, const void* xw, void* out,
                int c, int h, int w, int s, int m, void* stream) {
-  dim3 grid(m, s);
-  cutout_fwd_kernel<<<grid, block_threads(m), 0, (cudaStream_t)stream>>>(
-      (const float*)img, (const int*)yidx, (const float*)yw, (const int*)xidx,
-      (const float*)xw, (float*)out, c, h, w, m);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int64_t n = (int64_t)c * h * w;
+  frame_bf16_kernel<<<(unsigned)((n + 8 * 256 - 1) / (8 * 256)), 256, 0,
+                      st>>>((const float*)img, (__nv_bfloat16*)img16, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the output columns in chunks of at most kFwdCols, a multiple of 4
+  const int ncols = (m + kFwdCols - 1) / kFwdCols;
+  const int nb = ((m + ncols - 1) / ncols + 3) / 4 * 4;
+  // room for the whole span of a crop where the frame allows it: the
+  // span starts on a multiple of 8 at most 7 columns left of the crop
+  const int tw = min(kFwdSpan, (w + 7 + 7) / 8 * 8);
+  const int smem = fwd_smem(nb, tw);
+  err = cudaFuncSetAttribute(cutout_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nbands = (m + kFwdRows - 1) / kFwdRows;
+  cutout_fwd_kernel<<<dim3(nbands * ncols, s), kFwdThreads, smem, st>>>(
+      (const __nv_bfloat16*)img16, (const int*)yidx, (const float*)yw,
+      (const int*)xidx, (const float*)xw, (float*)out, c, h, w, m, nb, tw,
+      ncols, w % 8 == 0);
   return (int)cudaGetLastError();
 }
 

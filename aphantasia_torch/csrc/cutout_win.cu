@@ -92,8 +92,7 @@ win_tc_kernel(const __grid_constant__ CUtensorMap amap,
               int m, int mp, int kh_max) {
   __shared__ __align__(8) uint64_t full[TC_STAGES], empty[TC_STAGES];
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = smem_align<1024>(smem_raw);
   const int sc = blockIdx.z;
   const int s = sc / c, ch = sc - s * c;
   const int rb = geo[4 * s], cb = geo[4 * s + 1];

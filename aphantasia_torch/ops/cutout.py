@@ -1,20 +1,31 @@
 """The cutout crop-and-resize as a hand-written CUDA kernel pair
 (csrc/cutout.cu), with its plain PyTorch version beside it.
 
-    out[s,c,m,n] = sum_a sum_b yw[s,m,a] * xw[s,n,b]
-                   * img[c, yidx[s,m,a], xidx[s,n,b]]
-
 Replaces the Pallas kernels of aphantasia_tpu/ops/pallas_cutout.py:
-`_pallas_cut_fwd` (pallas_call at :109) and `_pallas_cut_bwd` (:139).  The
-TPU kernel builds dense Wy/Wx per sample and runs two MXU matmuls with the
-frame pinned in VMEM; here each output is a direct 16-tap gather, so no
-dense matrix and no [S,C,M,W] intermediate exist.  The backward
-(`_pallas_cut_bwd`'s transpose, bound by reading g once: 0.040 ms at S=200,
-M=224, 720x1280) has each block own a 32x32 tile of d_img and gather what
-the crops put there, walking the samples in order after a pre-pass that
-finds which rows and columns of each crop reach each tile: every pixel is
-written once, by one sum in a fixed order, so no float32 atomics and the
-same bits on every run (csrc/cutout.cu explains the design).
+`_pallas_cut_fwd` (pallas_call at :109) and `_pallas_cut_bwd` (:139).
+The forward computes the TPU kernel's function, roundings included: for
+each sample s and channel c,
+
+    wy[m, y] = bf16(sum of row m's y-taps on y, in tap order, float32)
+    tmp[m, x] = bf16(sum_y wy[m, y] * bf16(img[c, y, x]))      float32 sums
+    out[s, c, m, n] = sum_x tmp[m, x] * wx[n, x]                float32
+
+with wx built as wy from the x-taps.  A product of two bf16 values is
+exact in float32, so only the sum order is free: both the plain version
+and the kernel add the distinct taps of a row or column in ascending
+frame index, the order of the dense product.  The backward
+(`_pallas_cut_bwd`) is the float32 transpose of the unrounded gather
+`gather_f32`, with float32 weights on a float32 gradient.
+
+On the card the forward is separable, as the TPU kernel is: a block owns
+one sample and a band of output rows, stages the frame rows that the
+band's taps reach as bf16 in shared memory, computes the rounded row pass
+there and gathers the column taps from it.  The backward has each block
+own a 32x32 tile of d_img and gather what the crops put there, walking
+the samples in order after a pre-pass that finds which rows and columns
+of each crop reach each tile: every pixel is written once, by one sum in
+a fixed order, so no float32 atomics and the same bits on every run
+(csrc/cutout.cu explains both designs).
 
 `cutout()` launches the kernels for a CUDA image and runs `cutout_plain`
 for a CPU image; anything else raises.
@@ -26,7 +37,7 @@ import torch
 from aphantasia_torch import kernels
 
 _SIGNATURES = {
-    "cutout_fwd": [kernels.PTR] * 6 + [kernels.INT] * 5 + [kernels.PTR],
+    "cutout_fwd": [kernels.PTR] * 7 + [kernels.INT] * 5 + [kernels.PTR],
     "cutout_bwd": [kernels.PTR] * 8 + [kernels.INT] * 7 + [kernels.PTR],
     "cutout_table_width": [kernels.INT] * 2,
 }
@@ -47,10 +58,11 @@ def in_frame(idx, wts, n):
             torch.where(ok, wts, torch.zeros_like(wts)))
 
 
-def cutout_plain(img, yidx, yw, xidx, xw):
-    """Plain PyTorch version: rows first (gather + weight over the 4
-    y-taps -> [S,C,M,W]), then columns (gather + weight over the 4
-    x-taps).  Differentiable through autograd."""
+def gather_f32(img, yidx, yw, xidx, xw):
+    """The unrounded float32 cutout, whose transpose is the backward: rows
+    first (gather + weight over the 4 y-taps -> [S,C,M,W]), then columns
+    (gather + weight over the 4 x-taps).  Differentiable through
+    autograd."""
     c, h, w = img.shape
     s, m, _ = yidx.shape
     yidx, yw = in_frame(yidx, yw, h)
@@ -61,6 +73,74 @@ def cutout_plain(img, yidx, yw, xidx, xw):
     xi = xidx.long().reshape(s, 1, 1, m * 4).expand(s, c, m, m * 4)
     cols = torch.gather(tmp, 3, xi).reshape(s, c, m, m, 4)   # [S,C,M,N,4]
     return torch.einsum("scmnb,snb->scmn", cols, xw)
+
+
+def distinct_taps(idx, wts):
+    """Each row's 4 taps in ascending index (a stable sort, so taps on one
+    index keep their order), the first tap of each index carrying the
+    float32 sum of that index's weights in tap order rounded once to bf16,
+    the others weight 0: the rows of the TPU kernel's dense bf16 matrix.
+    Returns (idx int64, weights float32 holding bf16 values)."""
+    si, order = torch.sort(idx.long(), dim=-1, stable=True)
+    sw = torch.gather(wts, -1, order)
+    cols = []
+    for k in range(4):
+        acc = sw[..., k]
+        for j in range(k + 1, 4):
+            acc = acc + torch.where(si[..., j] == si[..., k], sw[..., j], 0.0)
+        if k:
+            acc = torch.where(si[..., k] == si[..., k - 1], 0.0, acc)
+        cols.append(acc)
+    return si, torch.stack(cols, -1).to(torch.bfloat16).float()
+
+
+def rounded_fwd(img, yidx, yw, xidx, xw):
+    """The TPU kernel's forward (module docstring), float32 [S,C,M,M]:
+    each sum runs over a row's or column's distinct taps in ascending
+    frame index, one term at a time."""
+    c, h, w = img.shape
+    s, m, _ = yidx.shape
+    yi, wy = distinct_taps(*in_frame(yidx, yw, h))
+    xi, wx = distinct_taps(*in_frame(xidx, xw, w))
+    imgb = img.to(torch.bfloat16).float()
+    tmp = 0.0
+    for k in range(4):                                       # [C,S,M,W]
+        tmp = tmp + imgb[:, yi[..., k]] * wy[None, ..., k, None]
+    tmp = tmp.to(torch.bfloat16).float().transpose(0, 1)     # [S,C,M,W]
+    out = 0.0
+    for k in range(4):
+        at = xi[:, None, None, :, k].expand(s, c, m, m)
+        out = out + torch.gather(tmp, 3, at) * wx[:, None, None, :, k]
+    return out
+
+
+class _PlainFn(torch.autograd.Function):
+    """`rounded_fwd` with the float32 transpose of `gather_f32` as its
+    backward, as the TPU kernel's custom VJP pairs them; autograd through
+    the bf16 casts would round the gradient."""
+
+    @staticmethod
+    def forward(ctx, img, yidx, yw, xidx, xw):
+        ctx.save_for_backward(yidx, yw, xidx, xw)
+        ctx.img_shape = tuple(img.shape)
+        return rounded_fwd(img, yidx, yw, xidx, xw)
+
+    @staticmethod
+    def backward(ctx, g):
+        taps = ctx.saved_tensors
+        with torch.enable_grad():
+            # gather_f32 is linear in the image: its gradient does not
+            # depend on the point
+            x = torch.zeros(ctx.img_shape, dtype=torch.float32,
+                            device=g.device, requires_grad=True)
+            (dimg,) = torch.autograd.grad(gather_f32(x, *taps), x, g)
+        return dimg, None, None, None, None
+
+
+def cutout_plain(img, yidx, yw, xidx, xw):
+    """Plain PyTorch version of the kernel pair: `rounded_fwd` forward,
+    `gather_f32`'s float32 transpose backward."""
+    return _PlainFn.apply(img, yidx, yw, xidx, xw)
 
 
 def _even(k):
@@ -121,15 +201,20 @@ def _checked(img, yidx, yw, xidx, xw):
 
 
 def cutout_fwd_kernel(img, yidx, yw, xidx, xw):
-    """Launch the forward kernel: float32 [S,C,M,M]."""
+    """Launch the forward (the frame's bf16 copy, then the separable
+    kernel; one count): float32 [S,C,M,M]."""
     img, yidx, yw, xidx, xw = _checked(img, yidx, yw, xidx, xw)
     c, h, w = img.shape
     s, m, _ = yidx.shape
     out = torch.empty((s, c, m, m), device=img.device, dtype=torch.float32)
+    img16 = torch.empty((c, h, w), device=img.device, dtype=torch.bfloat16)
+    img, yidx, yw, xidx, xw = (kernels.aligned(t)
+                               for t in (img, yidx, yw, xidx, xw))
     lib = kernels.library("cutout", _SIGNATURES)
-    code = lib.cutout_fwd(img.data_ptr(), yidx.data_ptr(), yw.data_ptr(),
-                          xidx.data_ptr(), xw.data_ptr(), out.data_ptr(),
-                          c, h, w, s, m, kernels.stream_ptr(img))
+    code = lib.cutout_fwd(img.data_ptr(), img16.data_ptr(), yidx.data_ptr(),
+                          yw.data_ptr(), xidx.data_ptr(), xw.data_ptr(),
+                          out.data_ptr(), c, h, w, s, m,
+                          kernels.stream_ptr(img))
     kernels.check(lib, code, "cutout_fwd")
     kernels.LAUNCHES["cutout_fwd"] += 1
     return out

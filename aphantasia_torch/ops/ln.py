@@ -10,7 +10,9 @@ with one-pass float32 moments (var = E[x^2] - E[x]^2), y and dx in x's
 dtype and dy cast to x's dtype first.  It replaces the Pallas kernels
 `_ln_fwd` (pallas_call at pallas_ln.py:88) and `_ln_bwd` (:114).  The
 backward is complete (dx, dg, db) although the CLIP towers are frozen, as
-the TPU kernel's is.
+the TPU kernel's is: one pass over the rows computes dx and per-block
+partial column sums of dg and db, and a second launch adds the partials
+in a fixed order (csrc/ln.cu explains the design).
 
 `layer_norm_fused` launches the kernels for CUDA tensors and runs the
 plain versions for CPU tensors; anything else raises.  `eligible` is the
@@ -24,7 +26,9 @@ import torch
 from aphantasia_torch import kernels
 
 _BR = 512          # the TPU kernel's row block; the gate asks for two
-_BWD_ROWS = 16     # rows per block of the CUDA backward's first launch
+# the CUDA backward's blocks: one an H100 SM, each of 16 warps, so its
+# partial column sums are at most 132 rows whatever the row count
+_BWD_BLOCKS = 132
 
 _SIGNATURES = {
     "ln_fwd": [kernels.PTR] * 5 + [kernels.INT] * 2 + [kernels.FLOAT,
@@ -90,9 +94,15 @@ def ln_fwd_kernel(x, g, b, eps=1e-5):
     return y, stat
 
 
+def bwd_blocks(rows):
+    """The backward's grid, a function of the row count alone."""
+    return min(rows, _BWD_BLOCKS)
+
+
 def ln_bwd_kernel(x, g, stat, dy):
     """Launch the backward kernels: (dx in x's dtype, dg, db float32 [D]).
-    Both launches are one call, counted once under `ln_bwd`."""
+    Both launches (the rows with their partial column sums, then the sum
+    of the partials) are one call, counted once under `ln_bwd`."""
     _check(x, g)
     rows, d = x.shape
     if tuple(stat.shape) != (rows, 2) or tuple(dy.shape) != (rows, d):
@@ -102,7 +112,7 @@ def ln_bwd_kernel(x, g, stat, dy):
     dy = kernels.aligned(dy.to(x.dtype))
     g = kernels.aligned(g.float())
     stat = stat.float().contiguous()
-    nblk = -(-rows // _BWD_ROWS)
+    nblk = bwd_blocks(rows)
     dx = torch.empty_like(x)
     part = torch.empty((2, nblk, d), dtype=torch.float32, device=x.device)
     dg = torch.empty((d,), dtype=torch.float32, device=x.device)
@@ -110,7 +120,7 @@ def ln_bwd_kernel(x, g, stat, dy):
     lib = kernels.library("ln", _SIGNATURES)
     code = lib.ln_bwd(x.data_ptr(), g.data_ptr(), stat.data_ptr(),
                       dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                      dg.data_ptr(), db.data_ptr(), rows, d, _BWD_ROWS,
+                      dg.data_ptr(), db.data_ptr(), rows, d, nblk,
                       int(x.dtype == torch.bfloat16), kernels.stream_ptr(x))
     kernels.check(lib, code, "ln_bwd")
     kernels.LAUNCHES["ln_bwd"] += 1

@@ -36,7 +36,12 @@ def resize_axis_taps(out_size: int, in_size, offset=0):
     in_size = torch.as_tensor(in_size, dtype=torch.float32)
     offset = torch.as_tensor(offset, device=in_size.device)
     i = torch.arange(out_size, dtype=torch.float32, device=in_size.device)
-    step = (in_size - 1.0) / max(out_size - 1, 1)
+    # a true division on every device: CUDA divides a tensor by a Python
+    # scalar as a multiply by its reciprocal, an ulp off the CPU's (and
+    # JAX's) quotient for most sizes, and the `--pallas` cut rounds these
+    # weights to bf16, where an ulp can flip a rounding
+    step = (in_size - 1.0) / torch.full_like(in_size,
+                                             float(max(out_size - 1, 1)))
     src = i * step[..., None]
     y0 = torch.floor(src)
     w = cubic_tap_weights(src - y0)

@@ -351,9 +351,9 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
 
 
 def check_cutout(seed=0):
-    """Cutout kernel against `cutout_plain` at 1280x720, S=200, M=224; the
-    backward also against itself, two launches and a CUDA-graph replay,
-    bit for bit."""
+    """Cutout kernels against `cutout_plain` at 1280x720, S=200, M=224;
+    each also against itself, two launches and a CUDA-graph replay, bit
+    for bit."""
     import torch
     from aphantasia_torch.ops import cutout as C
     from aphantasia_torch.ops.sampler import CutoutSampler, _contract
@@ -372,18 +372,24 @@ def check_cutout(seed=0):
     torch.cuda.synchronize()
     fe, fs = max_err(out, ref.detach())
     ge, gs = max_err(dimg, dref)
-    # float32 throughout, each side summing in its own order
+    # the forward: both sides round the frame, the weights and the row
+    # pass to bf16 and sum the distinct taps in ascending frame index; the
+    # gradient: float32, each side summing in its own order
     tol_f, tol_g = 1e-5, 1e-4
     check(fe <= tol_f * max(fs, 1.0), f"cutout fwd: max |err| {fe:.3g}")
     check(ge <= tol_g * max(gs, 1.0), f"cutout grad: max |err| {ge:.3g}")
-    again = C.cutout_bwd_kernel(gout, *taps, tuple(img.shape))
-    graph, replayed = capture(lambda: C.cutout_bwd_kernel(
-        gout, *taps, tuple(img.shape)))
-    graph.replay()
-    torch.cuda.synchronize()
-    check(torch.equal(again, dimg) and torch.equal(replayed, dimg),
-          "cutout bwd: two launches or a graph replay differ in their bits")
-    del graph, again, replayed
+    for k, first, fn in (
+            ("fwd", out, lambda: C.cutout_fwd_kernel(img, *taps)),
+            ("bwd", dimg, lambda: C.cutout_bwd_kernel(
+                gout, *taps, tuple(img.shape)))):
+        again = fn()
+        graph, replayed = capture(fn)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(again, first) and torch.equal(replayed, first),
+              f"cutout {k}: two launches or a graph replay differ in their "
+              "bits")
+        del graph, again, replayed
     res = {"fwd_err": fe, "fwd_scale": fs, "grad_err": ge, "grad_scale": gs,
            "tol_fwd": tol_f, "tol_grad": tol_g}
     del ref, dref
@@ -708,7 +714,8 @@ def check_win_cutout(kind, dtype, timed=False, seed=0):
 def check_ln(rows, d, dtype, timed=False, seed=0):
     """The LayerNorm kernels against `ln_fwd_plain` / `ln_bwd_plain` (y,
     stat, dx, dg, db), and, when `timed`, their times beside the plain
-    versions, `F.layer_norm` and its autograd backward, and the bounds."""
+    versions, `F.layer_norm` and `native_layer_norm_backward`, and the
+    bounds."""
     import torch
     import torch.nn.functional as F
     from aphantasia_torch.ops import ln as L
@@ -745,8 +752,7 @@ def check_ln(rows, d, dtype, timed=False, seed=0):
     res["ms_bwd"] = cuda_ms(lambda: L.ln_bwd_kernel(x, g, stat, dy))
     res["plain_fwd"] = cuda_ms(lambda: L.ln_fwd_plain(x, g, b))
     res["plain_bwd"] = cuda_ms(lambda: L.ln_bwd_plain(x, g, stat, dy))
-    xr, gr, br = (t.clone().requires_grad_(True) for t in (x, g, b))
-    gl, bl = gr.to(dtype), br.to(dtype)
+    gl, bl = g.to(dtype), b.to(dtype)
     res["lib_fwd"] = cuda_ms(lambda: F.layer_norm(x, (d,), gl, bl, 1e-5))
     res["graph_fwd"] = graph_ms(lambda: L.ln_fwd_kernel(x, g, b))
     res["graph_bwd"] = graph_ms(lambda: L.ln_bwd_kernel(x, g, stat, dy))
@@ -756,10 +762,15 @@ def check_ln(rows, d, dtype, timed=False, seed=0):
     res["host_fwd"] = host_us(lambda: L.ln_fwd_kernel(x, g, b))
     res["host_lib_fwd"] = host_us(lambda: F.layer_norm(x, (d,), gl, bl,
                                                        1e-5))
-    lib_fb = cuda_ms(lambda: torch.autograd.grad(
-        F.layer_norm(xr, (d,), gr.to(dtype), br.to(dtype), 1e-5),
-        (xr, gr, br), dy))
-    res["lib_bwd"] = max(lib_fb - res["lib_fwd"], 0.0)
+    # the library's backward as one call: dx, dg and db, the weight in
+    # x's dtype, from the saved mean and rstd
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], gl, bl, 1e-5)
+
+    def lib_bwd():
+        return torch.ops.aten.native_layer_norm_backward(
+            dy, x, [d], mean, rstd, gl, bl, [True, True, True])
+    res["lib_bwd"] = cuda_ms(lib_bwd)
+    res["graph_lib_bwd"] = graph_ms(lib_bwd)
     es = x.element_size()
     n = rows * d
     # forward: x in, y out, g/b in, (mu, rstd) out; ~8 float32 operations
@@ -1101,8 +1112,8 @@ def phase_kernels(report):
     cut = check_cutout()
     print(f"[kernels] cutout fwd max|err| {cut['fwd_err']:.3g} (|ref| "
           f"{cut['fwd_scale']:.3g}), grad max|err| {cut['grad_err']:.3g} "
-          f"(|ref| {cut['grad_scale']:.3g}); the backward repeats bit for "
-          f"bit (two launches, a graph replay); crops a 32x32 tile meets: "
+          f"(|ref| {cut['grad_scale']:.3g}); both repeat bit for bit (two "
+          f"launches, a graph replay); crops a 32x32 tile meets: "
           f"min {cut['tile_crops'][0]:.0f}, median {cut['tile_crops'][1]:.0f}"
           f", max {cut['tile_crops'][2]:.0f}")
     for k in ("fwd", "bwd"):
@@ -1199,15 +1210,14 @@ def phase_kernels(report):
             for k, (e, sc) in r["errs"].items()))
         if timed:
             lnr = lnr or r
-            for k in ("fwd", "bwd"):
-                lib_graph = (f" (graph replay {r['graph_lib_fwd']:.4f})"
-                             if k == "fwd" else "")
+            for k, lib in (("fwd", "F.layer_norm"),
+                           ("bwd", "native_layer_norm_backward")):
                 print(f"[kernels] ln {k} [{rows},{d}] bf16: kernel "
                       f"{r['ms_' + k]:.4f} ms (graph replay "
                       f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} "
-                      f"ms, F.layer_norm {r['lib_' + k]:.4f} ms{lib_graph}, "
-                      f"bound {r['bound_' + k][0]:.4f} ms "
-                      f"({r['bound_' + k][1]})")
+                      f"ms, {lib} {r['lib_' + k]:.4f} ms (graph replay "
+                      f"{r['graph_lib_' + k]:.4f}), bound "
+                      f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
             print(f"[kernels] ln fwd [{rows},{d}] bf16 host cost: "
                   f"{r['host_fwd']:.2f} us a call (F.layer_norm "
                   f"{r['host_lib_fwd']:.2f} us), 1000 calls, one sync")
@@ -1611,10 +1621,13 @@ def phase_profile(only=(), steps: int = 6, active: int = 3):
 PARITY_LR = 0.05
 
 
-def _parity_setup(device, use_pallas, transform, persp="affine", count=6):
+def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
+                  host_decode=False):
     """A small float32 step (tiny ViT of width 128 and 17 tokens, 96x64
     frame, `count` cutouts at 64) with the same weights, start and prompts
-    on either device."""
+    on either device.  With `host_decode` the frame is decoded on the CPU
+    and moved to `device`, the gradient back the same way, so both
+    devices' cuts see the same frame bits."""
     import torch
     from aphantasia_torch.models.clip.model import CLIPConfig, clip_init
     from aphantasia_torch.ops.optim import build_optimizer
@@ -1628,6 +1641,13 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6):
     clip = clip_init(g, cfg)
     clip = {"visual": _tree_to(clip["visual"], device)}
     par = FFTParameterizer((64, 96), 1.5, 1.8)
+    if host_decode:
+        class HostDecode(FFTParameterizer):
+            def image(self, params, shift=None, contrast=1.0):
+                return super().image(
+                    params.cpu(), None if shift is None else shift.cpu(),
+                    contrast).to(params.device)
+        par = HostDecode((64, 96), 1.5, 1.8)
     p0 = par.init(g, sd=0.07).to(device)
     prompts = ((torch.randn((2, 64), generator=g).to(device),
                 torch.tensor([1.0, 0.5], device=device), -1.0),)
@@ -1657,16 +1677,24 @@ def phase_parity():
     transform two free-running steps: losses within 1e-4, params within
     2e-3 of the learning rate in the mean and 5e-2 at the worst element
     (Adam with b1 = 0 turns float32 noise in a near-zero gradient element
-    into a full-size update of that element).  The `fast` transform (its
-    affine, mixed and exact perspective) and `elastic` with the shift
-    kernel are held at one step (`_parity_one_step`)."""
+    into a full-size update of that element).  The `--pallas` cut rounds
+    the frame, its weights and its row pass to bf16, as the TPU kernel
+    does, so a float32 difference between cuFFT's decode and the CPU's
+    would flip a rounding: for those two steps both devices decode on the
+    CPU (`host_decode`), and the card runs the cut's kernels, the tower
+    and the optimiser on the same frame bits.  One step with the card's
+    own decode is held at loss 1e-4 and gradient 1e-3, as the switches'
+    paths are.  The `fast` transform (its affine, mixed and exact
+    perspective) and `elastic` with the shift kernel are held at one
+    step (`_parity_one_step`)."""
     import torch
     from aphantasia_torch import kernels
     from aphantasia_torch.step import to_device
+    _parity_one_step(True, "none", "affine", tol=(1e-4, 1e-3))
     for use_pallas in (True, False):
         runs = {}
         for dev in ("cpu", "cuda"):
-            c = _parity_setup(dev, use_pallas, "none")
+            c = _parity_setup(dev, use_pallas, "none", host_decode=use_pallas)
             g = torch.Generator().manual_seed(1)
             p, st = c["p0"].clone(), c["opt"].init(c["p0"])
             prev = torch.zeros((6, 64), device=dev)

@@ -3,14 +3,14 @@
 CutoutSampler (einsum path) and its Pallas cutout (interpret mode), on the
 same JAX-drawn boxes, forward and gradient.
 
-Tolerances: float32 paths 1e-5 on the forward and 1e-4 on the gradient
-(sum orders differ).  The Pallas forward rounds the frame, the dense
-weights and the row pass to bf16 (pallas_cutout.py:107, :60-64), three
-roundings of 2^-8 each, so the forward against it is held to 2e-2 on
-values in [0, 1.2]; its backward stays float32 and keeps 1e-4.  The CUDA
-kernel is held against the plain version on the card
-(tests/test_torch_gpu.py and chip_smoke.py's kernel phase).  The
-backward's range pre-pass (its plain twin `tile_ranges`) must enclose
+Tolerances: 1e-5 on the forward and 1e-4 on the gradient (float32 sums
+in another order).  The port's `use_pallas` forward computes the Pallas
+kernel's function, roundings included (the frame, the dense weights and
+the row pass to bf16, pallas_cutout.py:107, :60-64), and is held to it at
+1e-5; the float32 gather, whose transpose is the backward of both, is held
+to the dense einsum.  The CUDA kernels are held against the plain version
+on the card (tests/test_torch_gpu.py and chip_smoke.py's kernel phase).
+The backward's range pre-pass (its plain twin `tile_ranges`) must enclose
 every weighted tap exactly: a tap it misses is a term the kernel drops.
 """
 import numpy as np
@@ -70,25 +70,55 @@ def test_einsum_cut_matches_jax(h, w, chunk):
                                        (40, 56, "overscan"),
                                        (20, 28, "uniform")])
 def test_gather_plain_matches_jax_einsum(h, w, align):
-    """The kernel's plain version (16-tap gather, scatter backward) equals
-    the dense contraction, also where crops outgrow the frame (20x28 < M)."""
+    """The `use_pallas` sampler equals the JAX `use_pallas` sampler (the
+    Pallas cutout in interpret mode, bf16 roundings included), and the
+    float32 gather whose transpose is its backward equals the dense
+    contraction, also where crops outgrow the frame (20x28 < M)."""
     js, boxes, ts, tb, img, co = _setup(h, w, 6, 24, align)
-    ts = CutoutSampler((h, w), 6, 24, align, 0.4, use_pallas=True)
+    jp = JSampler((h, w), 6, 24, align, 0.4, use_pallas=True)
+    tp = CutoutSampler((h, w), 6, 24, align, 0.4, use_pallas=True)
+    out_j, g_j = _jax_vjp(lambda x: jp.cut(x, boxes), img, co)
+    out_t, g_t = _torch_vjp(lambda x: tp.cut(x, tb), img, co)
+    np.testing.assert_allclose(out_t, out_j, atol=1e-5)
+    np.testing.assert_allclose(g_t, g_j, atol=1e-4)
     out_j, g_j = _jax_vjp(lambda x: js.cut(x, boxes), img, co)
-    out_t, g_t = _torch_vjp(lambda x: ts.cut(x, tb), img, co)
+    out_t, g_t = _torch_vjp(
+        lambda x: C.gather_f32(x, *ts.tap_indices(tb)), img, co)
     np.testing.assert_allclose(out_t, out_j, atol=1e-5)
     np.testing.assert_allclose(g_t, g_j, atol=1e-4)
 
 
-def test_gather_plain_matches_pallas_interpret():
-    h, w, s, m = 40, 56, 5, 24
-    js, boxes, ts, tb, img, co = _setup(h, w, s, m)
-    js = JSampler((h, w), s, m, "uniform", 0.4, use_pallas=True)
+@pytest.mark.parametrize("h,w,align", [(40, 56, "uniform"),
+                                       (40, 56, "overscan"),
+                                       (20, 28, "uniform")])
+def test_gather_plain_matches_pallas_interpret(h, w, align):
+    """`cutout` on CPU tensors (the plain version) against `pallas_cut` in
+    interpret mode: the bf16 roundings of the forward, summed over each
+    row's and column's distinct taps in ascending frame index, and the
+    float32 transpose as the gradient; uniform crops, overscan's folded
+    taps and crops larger than a 20x28 frame (M = 24)."""
+    s, m = 5, 24
+    _, boxes, ts, tb, img, co = _setup(h, w, s, m, align)
+    js = JSampler((h, w), s, m, align, 0.4, use_pallas=True)
     out_j, g_j = _jax_vjp(lambda x: pallas_cut(js, x, boxes), img, co)
     out_t, g_t = _torch_vjp(lambda x: C.cutout(x, *ts.tap_indices(tb)),
                             img, co)
-    np.testing.assert_allclose(out_t, out_j, atol=2e-2)
+    np.testing.assert_allclose(out_t, out_j, atol=1e-5)
     np.testing.assert_allclose(g_t, g_j, atol=1e-4)
+
+
+def test_distinct_taps_sum_each_pixel_once():
+    """Taps on one index (the clamped crop edge, overscan folding) give one
+    weight, their float32 sum in tap order rounded once to bf16, at the
+    index's first place in ascending order; the others weigh 0."""
+    idx = torch.tensor([[[5, 3, 5, 4], [0, 0, 1, 2]]], dtype=torch.int32)
+    wts = torch.tensor([[[0.1, 0.2, 0.3, 0.4], [0.5, 0.25, 0.125, 1 / 3]]])
+    si, sw = C.distinct_taps(idx, wts)
+    assert si.tolist() == [[[3, 4, 5, 5], [0, 0, 1, 2]]]
+    bf = lambda v: torch.as_tensor(v, dtype=torch.float32).bfloat16().item()
+    assert sw.tolist() == [[[bf(0.2), bf(0.4), bf(torch.tensor(0.1) + 0.3),
+                             0.0],
+                            [bf(0.75), 0.0, bf(0.125), bf(1 / 3)]]]
 
 
 @pytest.mark.parametrize("h,w", [(48, 80), (80, 48)])

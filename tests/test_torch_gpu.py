@@ -15,9 +15,12 @@ o = sum_j p_j v_j / l by at most 2^-9 p_j |v_j|, errors of random sign
 over the row's keys, so the forward parts from the plain version by a
 rounding step of the output (2^-8 relative) plus a sum of such terms
 well inside it, as the card shows at every tested t; cutout
-1e-5 forward and 1e-4 relative on the gradient (float32 sums in another
-order than the plain version's; the backward's own order is fixed, so it
-repeats bit for bit); perspective warp 1e-5 relative in float32 and 2^-7
+1e-5 forward (kernel and plain version round the frame, the weights and
+the row pass to bf16 alike and sum each row's and column's distinct taps
+in ascending frame index, so only the compiler's float32 arithmetic could
+part them) and 1e-4 relative on the gradient (float32 sums in another
+order than the plain version's); both kernels' own orders are fixed, so
+they repeat bit for bit; perspective warp 1e-5 relative in float32 and 2^-7
 in bf16, forward and gradient (the same float32 arithmetic, the gradient
 summed in another order, each side rounding once); fractional shift 1e-4
 relative (3xTF32 DFT products, float32's accuracy summed in another order
@@ -107,9 +110,11 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol, gtol, t, heads,
     assert _rel(gk, gp) <= gtol
 
 
-def _cutout_taps(cuda, h, w, s, m, align="uniform", edge=False):
+def _cutout_taps(cuda, h, w, s, m, align="uniform", edge=False,
+                 full=False):
     """Taps of s crops from the sampler; `edge` pushes every crop against
-    a frame edge (offset 0 or the largest) on each axis."""
+    a frame edge (offset 0 or the largest) on each axis; `full` makes
+    every crop the whole (square) frame."""
     sampler = CutoutSampler((h, w), s, m, align, 0.4, use_pallas=True)
     boxes = sampler.sample_boxes(cuda)
     if edge:
@@ -118,22 +123,34 @@ def _cutout_taps(cuda, h, w, s, m, align="uniform", edge=False):
         boxes = Boxes(boxes.csize,
                       torch.where(low[0], 0, wp - boxes.csize).int(),
                       torch.where(low[1], 0, hp - boxes.csize).int())
+    if full:
+        zero = torch.zeros_like(boxes.offx)
+        boxes = Boxes(torch.full_like(boxes.csize, min(h, w)), zero, zero)
     return sampler.tap_indices(boxes)
 
 
-@pytest.mark.parametrize("h,w,s,m,align,edge", [
-    pytest.param(720, 1280, 24, 224, "uniform", False, id="720-1280-24-224"),
-    pytest.param(40, 56, 6, 64, "uniform", False, id="40-56-6-64"),
-    pytest.param(720, 1280, 24, 224, "overscan", False, id="overscan"),
-    pytest.param(720, 1280, 24, 224, "uniform", True, id="edge-pushed"),
-    pytest.param(40, 56, 6, 64, "overscan", True, id="small-overscan-edge")])
+@pytest.mark.parametrize("h,w,s,m,align,edge,full", [
+    pytest.param(720, 1280, 24, 224, "uniform", False, False,
+                 id="720-1280-24-224"),
+    pytest.param(40, 56, 6, 64, "uniform", False, False, id="40-56-6-64"),
+    pytest.param(720, 1280, 24, 224, "overscan", False, False,
+                 id="overscan"),
+    pytest.param(720, 1280, 24, 224, "uniform", True, False,
+                 id="edge-pushed"),
+    pytest.param(40, 56, 6, 64, "overscan", True, False,
+                 id="small-overscan-edge"),
+    pytest.param(720, 1920, 24, 224, "uniform", False, False,
+                 id="720-1920-24-224"),
+    pytest.param(300, 300, 8, 224, "uniform", False, True,
+                 id="whole-frame")])
 def test_cutout_kernel_matches_plain(cuda, monkeypatch, h, w, s, m, align,
-                                     edge):
+                                     edge, full):
     """Also a frame smaller than the crops (40x56 < 64): out-of-frame taps
     carry no weight; under overscan the tile maps fold the taps, so a
-    crop reaches a tile from two places."""
+    crop reaches a tile from two places and the forward's span of frame
+    columns is walked in pieces; crops that are the whole frame."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    taps = _cutout_taps(cuda, h, w, s, m, align, edge)
+    taps = _cutout_taps(cuda, h, w, s, m, align, edge, full)
     img = torch.rand((3, h, w), generator=cuda, device="cuda",
                      requires_grad=True)
     co = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
@@ -145,21 +162,27 @@ def test_cutout_kernel_matches_plain(cuda, monkeypatch, h, w, s, m, align,
     assert _rel(gk, gp) <= 1e-4
 
 
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
 @pytest.mark.parametrize("align", ["uniform", "overscan"])
-def test_cutout_backward_is_deterministic(cuda, align):
-    """The backward at 200 crops of 224 from 720x1280 gives the same bits
+def test_cutout_kernels_are_deterministic(cuda, kind, align):
+    """Each kernel at 200 crops of 224 from 720x1280 gives the same bits
     on two launches and when captured into a CUDA graph and replayed (no
-    atomics: each pixel is one sum in a fixed order); one count a call."""
+    atomics: each output is one sum in a fixed order); one count a
+    call."""
     s, m = 200, 224
     taps = _cutout_taps(cuda, 720, 1280, s, m, align)
-    g = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
-    before = kernels.LAUNCHES["cutout_bwd"]
-    a = C.cutout_bwd_kernel(g, *taps, (3, 720, 1280))
-    b = C.cutout_bwd_kernel(g, *taps, (3, 720, 1280))
-    assert kernels.LAUNCHES["cutout_bwd"] == before + 2
+    if kind == "fwd":
+        img = torch.rand((3, 720, 1280), generator=cuda, device="cuda")
+        run = lambda: C.cutout_fwd_kernel(img, *taps)  # noqa: E731
+    else:
+        g = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
+        run = lambda: C.cutout_bwd_kernel(g, *taps,  # noqa: E731
+                                          (3, 720, 1280))
+    before = kernels.LAUNCHES["cutout_" + kind]
+    a, b = run(), run()
+    assert kernels.LAUNCHES["cutout_" + kind] == before + 2
     assert torch.equal(a, b)
-    eager, replayed = _captured(
-        lambda: C.cutout_bwd_kernel(g, *taps, (3, 720, 1280)))
+    eager, replayed = _captured(run)
     assert torch.equal(eager, a) and torch.equal(replayed, a)
 
 
@@ -456,11 +479,15 @@ def test_windowed_switch_routes_the_cut_through_the_kernel(cuda,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2 ** -7)])
 @pytest.mark.parametrize("rows,d", [(9500, 768), (1799, 1024), (1201, 256),
-                                    (2048, 512), (1201, 1280)])
+                                    (2048, 512), (1201, 1280), (1024, 128),
+                                    (7, 128), (1201, 2048)])
 def test_ln_kernels_match_plain(cuda, dtype, tol, rows, d):
-    """Forward and backward through layer_norm_fused; 1201 and 1799 rows
-    are not multiples of the backward's row block.  The backward is
-    deterministic: a second run gives the same bits."""
+    """Forward and backward through layer_norm_fused; 1201, 1799 and 7
+    rows are not multiples of any block of the backward; 1024 is the
+    gate's least; 2048 columns take the backward's general path (wider
+    than its registers hold).  The backward is deterministic: a second run
+    and a CUDA-graph replay give the same bits (its column sums add
+    per-block partials in a fixed order, with no atomics)."""
     x = (torch.randn((rows, d), generator=cuda, device="cuda") * 2
          + 0.5).to(dtype)
     g = torch.randn((d,), generator=cuda, device="cuda") * 0.5 + 1.0
@@ -477,8 +504,11 @@ def test_ln_kernels_match_plain(cuda, dtype, tol, rows, d):
     assert y.dtype == dtype and grads[0].dtype == dtype
     assert _rel(y, yr) <= tol and _rel(grads[0], ref[0]) <= tol
     assert _rel(grads[1], ref[1]) <= 1e-5 and _rel(grads[2], ref[2]) <= 1e-5
-    again = L.ln_bwd_kernel(x, g, L.ln_fwd_kernel(x, g, b)[1], co)
+    stat = L.ln_fwd_kernel(x, g, b)[1]
+    again = L.ln_bwd_kernel(x, g, stat, co)
     assert all(torch.equal(a, b_) for a, b_ in zip(again, grads))
+    _, replayed = _captured(lambda: L.ln_bwd_kernel(x, g, stat, co))
+    assert all(torch.equal(r, b_) for r, b_ in zip(replayed, grads))
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -108,3 +108,22 @@ def test_tower_layer_norm_reads_the_switch_at_each_call(monkeypatch):
     assert type(three_d.grad_fn).__name__ != "_LayerNormFnBackward"
     np.testing.assert_allclose(fused.detach().numpy(),
                                plain.detach().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 16, 17, 131, 132, 133, 1024, 1201,
+                                  1799, 4240, 9500, 100000])
+def test_backward_blocks_cover_every_row_once(rows):
+    """The CUDA backward's grid (`bwd_blocks`, a function of the row count
+    alone): one block an H100 SM (132), at most one a row; block b takes
+    rows [b rb, b rb + rb) with rb = ceil(rows / blocks), as csrc/ln.cu
+    splits them, so every row falls in exactly one block (a block past the
+    last row writes zero partial sums)."""
+    nblk = tln.bwd_blocks(rows)
+    assert nblk == min(rows, 132)
+    rb = -(-rows // nblk)
+    owner = np.full(rows, -1)
+    for b in range(nblk):
+        lo, hi = b * rb, min(b * rb + rb, rows)
+        assert (owner[lo:hi] == -1).all()
+        owner[lo:hi] = b
+    assert (owner >= 0).all()
