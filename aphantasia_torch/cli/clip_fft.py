@@ -6,9 +6,18 @@ outputs: JPEG frames and config.txt in a run directory, an mp4 beside it,
 and a `.pt` snapshot with --save_pt.  Runs on the CUDA device unless
 `--device cpu` is given; without a GPU it raises.
 
+The training loop takes the JAX CLI's chunked path when `opt_step`
+divides `steps`: `frames_per_dispatch` frame groups (one step, the frame's
+render, `opt_step - 1` steps) a dispatch through
+`step.build_train_loop_frames`, which on the card captures the first
+group into a CUDA graph after running it eagerly and replays it for the
+rest, with the losses read and the frames pulled once a dispatch.
+Otherwise it runs the per-step loop.  `--profile DIR` writes a
+torch.profiler trace of the loop into DIR.
+
 Flags whose features are not ported yet raise: --dwt, --sync, --aest,
---dualmod, --spatial, --mesh, --fleet, --profile and models other than
-ViT-B/32, ViT-B/16 and ViT-L/14 (ROADMAP.md lists them).
+--dualmod, --spatial, --mesh, --fleet and models other than ViT-B/32,
+ViT-B/16 and ViT-L/14 (ROADMAP.md lists them).
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m ViT-L/14
@@ -40,9 +49,11 @@ from aphantasia_torch.models.clip.model import PORTED_MODELS
 from aphantasia_torch.ops.optim import build_optimizer
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
+from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
-                                   build_train_step)
+                                   build_train_loop_frames, build_train_step,
+                                   frames_per_dispatch)
 from aphantasia_torch.utils import save_cfg, txt_clean
 
 # the JAX CLI's list and ViT-L/14, which the JAX package's illustra and
@@ -121,7 +132,6 @@ def check_ported(a) -> None:
         ('--dwt', a.dwt), ('--sync', a.sync != 0), ('--aest', a.aest != 0),
         ('--dualmod', a.dualmod is not None), ('--spatial', a.spatial > 1),
         ('--mesh', a.mesh not in (None, '0', '1')), ('--fleet', a.fleet),
-        ('--profile', a.profile),
         ('--model ' + a.model, a.model not in PORTED_MODELS)) if on]
     if unported:
         raise NotImplementedError(
@@ -133,19 +143,40 @@ def check_ported(a) -> None:
 class RunResult:
     params: torch.Tensor          # final spectrum params
     losses: list                  # one float per step
-    step_seconds: list            # host wall time per step (synchronized)
+    # host wall time per step, synchronized: on the chunked path each step
+    # of a dispatch gets its wall over its steps, and the first frame
+    # group (the eager group and the graph's capture) its own
+    step_seconds: list
     samples: int                  # cutouts per step after the budget
     out_name: str                 # run directory / file stem under out_dir
     video: str | None             # the video written, if any
+
+
+@dataclasses.dataclass
+class RunSetup:
+    """What a run builds before its training loop."""
+    par: FFTParameterizer
+    sampler: CutoutSampler
+    clip_cfg: object              # the tower's CLIPConfig
+    clip_vis: dict                # its vision weights in the compute dtype
+    prompts: list                 # (embs [K,D], wts [K], coeff) groups
+    settings: StepSettings
+    optimizer: object
+    draw: object                  # draw(generator) -> StepDraws
+    gen: torch.Generator          # the run's generator, after the init
+    gen_params: torch.Tensor      # the start spectrum
+    out_name: str
+    tempdir: str                  # the run directory (frames, config.txt)
 
 
 def main(argv=None):
     run(get_args(argv))
 
 
-def run(a, on_step=None) -> RunResult:
-    """The whole run; `on_step(i)`, if given, is called after step i (a
-    profiler's schedule hangs on it)."""
+def setup(a) -> RunSetup:
+    """The run's parameterizer, tower, prompts and step pieces, and its
+    output directory with config.txt (`a` is updated as the JAX CLI
+    updates it: size, modsize, samples)."""
     check_ported(a)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
@@ -206,8 +237,6 @@ def run(a, on_step=None) -> RunResult:
         expand=a.expand, noise=a.noise, sync=a.sync, transform=a.transform,
         persp=resolve_persp(a.persp), clip_dtype=dtype)
     draw = build_draw_fn(sampler, settings, tuple(gen_params.shape))
-    step = build_train_step(par, sampler, clip1.cfg, settings, optimizer)
-    render = build_render(par)
     clip_vis = clip1.vision(dtype)
 
     # ---- output dirs ------------------------------------------------------
@@ -216,32 +245,77 @@ def run(a, on_step=None) -> RunResult:
     tempdir = os.path.join(a.out_dir, out_name)
     os.makedirs(tempdir, exist_ok=True)
     save_cfg(a, tempdir, 'config.txt')
+    return RunSetup(par, sampler, clip1.cfg, clip_vis, prompts, settings,
+                    optimizer, draw, gen, gen_params, out_name, tempdir)
+
+
+def run(a, on_step=None) -> RunResult:
+    """The whole run; `on_step(i)`, if given, is called after step i (on
+    the chunked path after the step's dispatch; a profiler's schedule
+    hangs on it)."""
+    su = setup(a)
+    gen_params, out_name, tempdir = su.gen_params, su.out_name, su.tempdir
+    step_args = (su.par, su.sampler, su.clip_cfg, su.settings, su.optimizer)
 
     # ---- training loop ----------------------------------------------------
-    opt_state = optimizer.init(gen_params)
-    prev_enc = torch.zeros((a.samples, clip1.cfg.embed_dim), device=device)
+    opt_state = su.optimizer.init(gen_params)
+    prev_enc = torch.zeros((a.samples, su.clip_cfg.embed_dim),
+                           device=gen_params.device)
     tone = None
     if a.sharp != 0:
         tone = (lambda im: ((im / 255.0) ** (1 + a.sharp / 2.0) * 255)
                 .astype(np.uint8))
     pbar = ProgressBar(a.steps // a.opt_step) if a.verbose else None
     losses, seconds = [], []
-    with AsyncFrameWriter() as writer:
-        for i in range(a.steps):
-            t0 = time.perf_counter()
-            gen_params, opt_state, prev_enc, loss = step(
-                gen_params, opt_state, prev_enc, clip_vis, prompts, draw(gen),
-                i // a.opt_step)
-            losses.append(loss.item())        # waits for the step's work
-            seconds.append(time.perf_counter() - t0)
-            if i % a.opt_step == 0:
-                frame = render(gen_params, contrast=a.contrast).cpu().numpy()
-                writer.save(os.path.join(tempdir, '%04d.jpg' % (i // a.opt_step)),
-                            frame, tone)
-                if pbar is not None:
-                    pbar.upd()
-            if on_step is not None:
-                on_step(i)
+    # the JAX CLI's condition for its chunked loop; the random stream is
+    # the per-step loop's (one draw a step, in step order) either way
+    chunked = (a.opt_step > 0 and a.steps % a.opt_step == 0
+               and a.steps >= a.opt_step)
+    with trace(a.profile), AsyncFrameWriter() as writer:
+        if chunked:
+            n_frames = a.steps // a.opt_step
+            nf = frames_per_dispatch(tuple(a.size), n_frames)
+            loop = build_train_loop_frames(*step_args, a.opt_step, nf,
+                                           contrast=a.contrast)
+            for c in range(n_frames // nf):
+                t0 = time.perf_counter()
+                gen_params, opt_state, prev_enc, frames, dl = loop(
+                    gen_params, opt_state, prev_enc, su.clip_vis, su.prompts,
+                    lambda gstep: su.draw(su.gen), c * nf)
+                writer.save_batch([os.path.join(tempdir, '%04d.jpg' % f)
+                                   for f in range(c * nf, (c + 1) * nf)],
+                                  frames, tone)
+                losses += dl.tolist()     # the dispatch's one wait
+                wall = time.perf_counter() - t0
+                n = nf * a.opt_step
+                if c == 0:
+                    first = loop.group.first_seconds
+                    seconds += [first / a.opt_step] * a.opt_step
+                    wall, n = wall - first, n - a.opt_step
+                seconds += [wall / n] * n
+                for i in range(c * nf * a.opt_step, len(losses)):
+                    if pbar is not None and i % a.opt_step == 0:
+                        pbar.upd()
+                    if on_step is not None:
+                        on_step(i)
+        else:
+            step = build_train_step(*step_args)
+            render = build_render(su.par)
+            for i in range(a.steps):
+                t0 = time.perf_counter()
+                gen_params, opt_state, prev_enc, loss = step(
+                    gen_params, opt_state, prev_enc, su.clip_vis, su.prompts,
+                    su.draw(su.gen), i // a.opt_step)
+                losses.append(loss.item())        # waits for the step's work
+                seconds.append(time.perf_counter() - t0)
+                if i % a.opt_step == 0:
+                    frame = render(gen_params, contrast=a.contrast).cpu().numpy()
+                    writer.save(os.path.join(tempdir, '%04d.jpg' % (i // a.opt_step)),
+                                frame, tone)
+                    if pbar is not None:
+                        pbar.upd()
+                if on_step is not None:
+                    on_step(i)
 
     # ---- assembly ---------------------------------------------------------
     video = frames_to_video(tempdir, os.path.join(a.out_dir, f'{out_name}.mp4'))

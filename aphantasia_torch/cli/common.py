@@ -109,9 +109,9 @@ def apply_sample_budget(samples: int, model: str, dualmod=None,
 
 
 def add_parallel_flags(parser):
-    """The JAX CLIs' shared flags.  --pallas (the CUDA cutout kernel) and
-    --persp are ported; the others are accepted so that they can raise a
-    clear error."""
+    """The JAX CLIs' shared flags.  --pallas (the CUDA cutout kernel),
+    --persp and --profile are ported; the others are accepted so that
+    they can raise a clear error."""
     parser.add_argument('--mesh', default=None,
                         help='not ported: multi-device meshes (ROADMAP.md)')
     parser.add_argument('--persp', default=None,
@@ -124,7 +124,8 @@ def add_parallel_flags(parser):
                              "(equivalent env var: "
                              "APHANTASIA_EXACT_PERSP=mixed|1)")
     parser.add_argument('--profile', default=None,
-                        help='not ported: profiler traces (ROADMAP.md)')
+                        help='write a torch.profiler trace of the training '
+                             'loop into this directory')
     parser.add_argument('--pallas', action='store_true',
                         help='Use the hand-written CUDA cutout kernel')
     parser.add_argument('--fleet', default=None,

@@ -40,7 +40,8 @@ def opt_state_from_optax(state, device="cpu") -> OptState:
         if hasattr(s, "nu") and hasattr(s, "count"):
             nu_max = getattr(s, "nu_max", None)
             return OptState(
-                count=int(np.asarray(s.count)),
+                count=torch.as_tensor(np.asarray(s.count), dtype=torch.int32,
+                                      device=device),
                 mu=_tensor(s.mu, device).float(),
                 nu=_tensor(s.nu, device).float(),
                 nu_max=(None if nu_max is None

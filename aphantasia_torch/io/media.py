@@ -103,18 +103,22 @@ def frames_to_video(frame_dir: str, out_path: str, pattern: str = "%04d.jpg",
     return avi_path
 
 
-def _save_frame(path, frame, tone):
-    frame = to_uint8(frame)
+def _save_frame(path, frame, tone, ready=None):
+    if ready is not None:
+        ready.synchronize()
+    frame = to_uint8(np.asarray(frame))
     img_save(path, frame if tone is None else tone(frame))
 
 
 class AsyncFrameWriter:
     """Frame output off the training loop: `save()` takes a host array
-    (HWC, uint8 or float in [0,1]) and returns at once; a pool of encoder
-    threads applies img_save's float->uint8 normalisation, the optional
-    tone map and the JPEG encode (Pillow releases the GIL while it
-    compresses), and writes the file.  At most `max_pending` frames wait;
-    `close()` waits for all of them and raises the first error."""
+    (HWC, uint8 or float in [0,1]) and `save_batch()` a chunk's stacked
+    frames, and both return at once; a pool of encoder threads applies
+    img_save's float->uint8 normalisation, the optional tone map and the
+    JPEG encode (Pillow releases the GIL while it compresses), and writes
+    the file.  At most `max_pending` frames wait (a whole chunk, when it
+    has more); `close()` waits for all of them and raises the first
+    error."""
 
     def __init__(self, encoders: int | None = None, max_pending: int = 8):
         n = encoders or max(1, min(4, (os.cpu_count() or 1) - 1))
@@ -130,6 +134,29 @@ class AsyncFrameWriter:
         self._drain(self._max - 1)
         self._pending.append(
             self._pool.submit(_save_frame, path, np.asarray(frame), tone))
+
+    def save_batch(self, paths, stacked, tone=None):
+        """Enqueue a chunk: `stacked` [N,H,W,3] from a chunked dispatch
+        (step.py:build_train_loop_frames), one frame for each of `paths`.
+        A chunk on the card is pulled to the host in one non-blocking copy
+        into pinned memory, which the encoder threads wait for; the caller
+        does not wait."""
+        paths = list(paths)
+        if not paths:
+            return
+        ready = None
+        if getattr(stacked, "is_cuda", False):
+            import torch
+            host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                               pin_memory=True)
+            host.copy_(stacked, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            stacked = host
+        self._drain(max(self._max - len(paths), 0))
+        for i, path in enumerate(paths):
+            self._pending.append(self._pool.submit(
+                _save_frame, path, stacked[i], tone, ready))
 
     def close(self):
         try:

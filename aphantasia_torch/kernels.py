@@ -12,11 +12,14 @@ Every C entry point returns the `cudaError_t` of `cudaGetLastError()` right
 after its launch; `check()` raises on anything but success.  `LAUNCHES`
 counts the launches per kernel name: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
-main path went through.
+main path went through.  Under a CUDA graph a wrapper runs once, at the
+capture, when nothing launches: `CountedGraph` takes the capture's counts
+out of `LAUNCHES` and adds them again at each replay.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -42,6 +45,35 @@ BUILD_LOGS: dict = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+class CountedGraph:
+    """A `torch.cuda.CUDAGraph` whose replays count its kernels' launches.
+
+    `capture()` records the block into the graph (nothing runs) and keeps
+    the counts the wrappers added meanwhile apart from `LAUNCHES`;
+    `replay()` runs the graph and adds those counts, once per replay."""
+
+    def __init__(self):
+        import torch
+        self.graph = torch.cuda.CUDAGraph()
+        self.counts: collections.Counter = collections.Counter()
+
+    @contextlib.contextmanager
+    def capture(self, **kwargs):
+        import torch
+        before = LAUNCHES.copy()
+        try:
+            with torch.cuda.graph(self.graph, **kwargs):
+                yield
+        finally:
+            self.counts = LAUNCHES - before
+            LAUNCHES.clear()
+            LAUNCHES.update(before)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        LAUNCHES.update(self.counts)
 
 
 def _nvcc() -> str:

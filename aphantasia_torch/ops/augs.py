@@ -20,23 +20,33 @@ displacements by fractional shifts.  `none` only normalizes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 
 from aphantasia_torch.ops.persp import perspective_warp
 from aphantasia_torch.ops.perspective import (affine_fit_centered,
                                               perspective_coeffs,
                                               perspective_endpoints,
-                                              rotation_coeffs_for)
+                                              rotation_coeffs_for,
+                                              start_points)
 from aphantasia_torch.ops.resize import resize_cubic_last
 from aphantasia_torch.ops.sep_warp import affine_warp, fractional_shift
 from aphantasia_torch.params.color import clip_normalize
 
 # rotate angle choices: list(range(-30, 30)) + 20*[0]
-_ROT_ANGLES = np.asarray(list(range(-30, 30)) + [0] * 20, dtype=np.float32)
+_ROT_ANGLES = tuple(float(a) for a in list(range(-30, 30)) + [0] * 20)
+
+
+@functools.lru_cache(maxsize=32)
+def _table(values: tuple, device) -> torch.Tensor:
+    """A float32 choice table (angles, scales) on a device, built once per
+    device: a per-call host table is a pageable copy, which makes the
+    host wait for the card and which a CUDA graph refuses.  Shared: never
+    written to."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _rot_a2(angles_deg):
@@ -57,7 +67,7 @@ def _compose(a, b):
 
 
 def _angles(rot_idx, angles=_ROT_ANGLES):
-    return torch.as_tensor(angles, device=rot_idx.device)[rot_idx.long()]
+    return _table(angles, rot_idx.device)[rot_idx.long()]
 
 
 def random_rotate_affine(rot_idx, angles=_ROT_ANGLES):
@@ -85,8 +95,7 @@ def _pad_affine(s, h, pad_px, device):
 def _scale_affine(scale_idx, scales):
     """lucent random_scale: per-sample centred content scale, src =
     dst / scale."""
-    sc = torch.as_tensor(np.asarray(scales, np.float32),
-                         device=scale_idx.device)[scale_idx.long()]
+    sc = _table(scales, scale_idx.device)[scale_idx.long()]
     a2 = torch.eye(2, device=sc.device)[None] / sc[:, None, None]
     return torch.cat([a2, torch.zeros_like(a2[:, :, :1])], -1)
 
@@ -151,11 +160,6 @@ def draw_fast(generator: torch.Generator, s: int, h: int, w: int) -> FastDraws:
     return FastDraws(end, rot, draw_erasing(generator, s))
 
 
-def _start_points(h, w, device):
-    return torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
-                        dtype=torch.float32, device=device)
-
-
 def transforms_fast_affine(draws: FastDraws, cuts,
                            compute_dtype=torch.bfloat16):
     """The default `fast` pipeline: perspective as its affine fit, composed
@@ -163,7 +167,7 @@ def transforms_fast_affine(draws: FastDraws, cuts,
     erasing after, then CLIP normalize."""
     s, c, h, w = cuts.shape
     aff_p = affine_fit_centered(
-        perspective_coeffs(_start_points(h, w, cuts.device), draws.endpoints),
+        perspective_coeffs(start_points(h, w, cuts.device), draws.endpoints),
         h, w)
     aff = _compose(aff_p, random_rotate_affine(draws.rot_idx))
     cuts = affine_warp(cuts, aff, pad=56, compute_dtype=compute_dtype)
@@ -175,7 +179,7 @@ def _exact_perspective(draws: FastDraws, cuts):
     """The drawn homographies through the perspective kernel; a sample
     whose corners did not move is copied."""
     s, c, h, w = cuts.shape
-    start = _start_points(h, w, cuts.device)
+    start = start_points(h, w, cuts.device)
     coef = perspective_coeffs(start, draws.endpoints)
     flags = (torch.abs(draws.endpoints - start[None]).amax((1, 2)) > 0)
     return perspective_warp(cuts, coef, flags.to(torch.int32))
@@ -270,8 +274,8 @@ def transforms_elastic(draws: ElasticDraws, cuts,
     return clip_normalize(cuts)
 
 
-_LUCENT_SCALES = [1 + (i - 5) / 50.0 for i in range(11)]
-_LUCENT_ANGLES = np.asarray(list(range(-10, 11)) + [0] * 5, np.float32)
+_LUCENT_SCALES = tuple(1 + (i - 5) / 50.0 for i in range(11))
+_LUCENT_ANGLES = tuple(float(a) for a in list(range(-10, 11)) + [0] * 5)
 
 
 class LucentDraws(NamedTuple):
@@ -307,8 +311,8 @@ def transforms_lucent(draws: LucentDraws, cuts, compute_dtype=torch.bfloat16):
     return clip_normalize(cuts)
 
 
-_OPENAI_ANGLES = np.asarray(list(range(-20, 20)) + list(range(-10, 10))
-                            + list(range(-5, 5)) + [0] * 5, np.float32)
+_OPENAI_ANGLES = tuple(float(a) for a in list(range(-20, 20))
+                       + list(range(-10, 10)) + list(range(-5, 5)) + [0] * 5)
 
 
 class OpenAIDraws(NamedTuple):

@@ -2,6 +2,7 @@
 aphantasia_tpu.ops.losses).  The LAION aesthetic head is not ported yet."""
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -58,19 +59,27 @@ _SOBEL = np.asarray(
      [[-1, -2, -1], [0, 0, 0], [1, 2, 1]]], dtype=np.float32) / 8.0
 
 
+@functools.lru_cache(maxsize=32)
+def _filters(mode: str, device, dtype) -> torch.Tensor:
+    """The scharr [2,3,3,3] or sobel [2,1,3,3] filters on a device, built
+    once per device and dtype.  Shared: never written to."""
+    if mode == "scharr":
+        k = np.repeat(_SCHARR[:, None], 3, axis=1)
+    else:
+        k = _SOBEL[:, None]
+    return torch.as_tensor(k, device=device, dtype=dtype)
+
+
 def derivat(img, mode: str = "sobel"):
     """Sharpness measure of an NCHW image: 'naiv' finite differences,
     'scharr' conv, 'sobel' (kornia spatial_gradient equivalent)."""
     if mode == "scharr":
-        k = torch.as_tensor(np.repeat(_SCHARR[:, None], 3, axis=1),
-                            device=img.device, dtype=img.dtype)  # [2,3,3,3]
+        k = _filters(mode, img.device, img.dtype)
         return 0.2 * F.conv2d(img, k).abs().mean()
     if mode == "sobel":
         b, c, h, w = img.shape
         x = F.pad(img.reshape(b * c, 1, h, w), (1, 1, 1, 1), mode="reflect")
-        k = torch.as_tensor(_SOBEL[:, None], device=img.device,
-                            dtype=img.dtype)                     # [2,1,3,3]
-        return F.conv2d(x, k).abs().mean()
+        return F.conv2d(x, _filters(mode, img.device, img.dtype)).abs().mean()
     dx = (img[:, :, :, 1:] - img[:, :, :, :-1]).abs().mean()
     dy = (img[:, :, 1:, :] - img[:, :, :-1, :]).abs().mean()
     return 0.5 * (dx + dy)

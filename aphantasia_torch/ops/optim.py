@@ -11,6 +11,11 @@ chain step for step:
 all with eps 1e-8, plus the progressive ramp (`--prog`): lr goes linearly
 from 0.02*lrate to 2*lrate over the run, read at the step count before the
 update (optax's schedule convention).
+
+The step count is an int32 tensor on the params' device, increased in
+place, and the bias corrections and the ramp are computed from it on that
+device in float32, as optax computes them: a CUDA graph that captures the
+update replays it with the count it reads at each replay.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ def lr_schedule(lrate: float, steps: int, prog: bool = False):
 
 @dataclasses.dataclass
 class OptState:
-    count: int
+    count: torch.Tensor          # int32, 0-d, on the params' device
     mu: torch.Tensor
     nu: torch.Tensor
     nu_max: torch.Tensor | None = None
@@ -50,7 +55,8 @@ class Adam:
 
     def init(self, params: torch.Tensor) -> OptState:
         z = torch.zeros_like(params)
-        return OptState(0, z.clone(), z.clone(),
+        count = torch.zeros((), dtype=torch.int32, device=params.device)
+        return OptState(count, z.clone(), z.clone(),
                         z.clone() if self.amsgrad else None)
 
     def step(self, params: torch.Tensor, grads: torch.Tensor,
@@ -58,9 +64,11 @@ class Adam:
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         state.mu.mul_(self.b1).add_(grads, alpha=1.0 - self.b1)
         state.nu.mul_(self.b2).addcmul_(grads, grads, value=1.0 - self.b2)
-        state.count += 1
-        mu_hat = state.mu / (1.0 - self.b1 ** state.count)
-        nu_hat = state.nu / (1.0 - self.b2 ** state.count)
+        state.count.add_(1)
+        # optax's bias_correction: 1 - decay ** count in float32
+        count = state.count.float()
+        mu_hat = state.mu / (1.0 - torch.pow(self.b1, count))
+        nu_hat = state.nu / (1.0 - torch.pow(self.b2, count))
         if self.amsgrad:
             torch.maximum(state.nu_max, nu_hat, out=state.nu_max)
             nu_hat = state.nu_max

@@ -21,7 +21,19 @@ lives in the CUDA backward kernel (csrc/persp.cu).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=32)
+def start_points(h: int, w: int, device) -> torch.Tensor:
+    """The four corners [4,2] float32 of an h x w image (topleft, topright,
+    botright, botleft), built once per device: a per-call host table is a
+    pageable copy, which makes the host wait for the card and which a
+    CUDA graph refuses.  Shared: never written to."""
+    return torch.tensor([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
+                        dtype=torch.float32, device=device)
 
 
 def perspective_endpoints(generator: torch.Generator, s: int, h: int, w: int,
@@ -44,9 +56,7 @@ def perspective_endpoints(generator: torch.Generator, s: int, h: int, w: int,
     br = torch.stack([rint(w - dw - 1, w), rint(h - dh - 1, h)], -1)
     bl = torch.stack([rint(0, dw + 1), rint(h - dh - 1, h)], -1)
     endpoints = torch.stack([tl, tr, br, bl], 1).float()
-    startpoints = torch.tensor(
-        [[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]], dtype=torch.float32,
-        device=dev)
+    startpoints = start_points(h, w, dev)
     apply = (torch.rand(s, generator=generator, device=dev) < p)[:, None, None]
     endpoints = torch.where(apply, endpoints, startpoints.expand_as(endpoints))
     return startpoints, endpoints

@@ -21,6 +21,7 @@ through static index maps (ops/tile.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import NamedTuple
 
@@ -136,11 +137,20 @@ class Boxes(NamedTuple):
     offy: torch.Tensor
 
 
+@functools.lru_cache(maxsize=32)
+def _index_maps(frame_size: tuple, padded_size: tuple, device):
+    """The static padded->source maps of `pad_maps` as int32 tensors on a
+    device, built once per device: a per-call host table is a pageable
+    copy, which makes the host wait for the card and which a CUDA graph
+    refuses.  Shared: never written to."""
+    return tuple(torch.as_tensor(m, device=device)
+                 for m in pad_maps(frame_size, padded_size, type="centr"))
+
+
 def _take(table, idx):
     """table[idx] with the JAX package's gather semantics: a negative index
     counts from the end once, then every index is clamped into range (a
     crop larger than the padded frame draws such taps)."""
-    table = torch.as_tensor(table, device=idx.device)
     n = table.shape[0]
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     return table[idx.long()]
@@ -236,7 +246,8 @@ class CutoutSampler:
         yidx, yw = resize_axis_taps(m, boxes.csize, boxes.offy)
         xidx, xw = resize_axis_taps(m, boxes.csize, boxes.offx)
         if self.padded_size != tuple(self.frame_size):
-            y_map, x_map = self.index_maps
+            y_map, x_map = _index_maps(tuple(self.frame_size),
+                                       self.padded_size, yidx.device)
             yidx = _take(y_map, yidx)
             xidx = _take(x_map, xidx)
         return yidx, yw, xidx, xw

@@ -2,6 +2,8 @@
 (counterpart of aphantasia_tpu.params.color)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,6 +27,23 @@ def color_matrix(colors: float = 1.0) -> np.ndarray:
     return (m / max_norm).T.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _color_tensor(colors: float, device, dtype) -> torch.Tensor:
+    """color_matrix(colors) on a device, built once per device and dtype
+    (a per-call host table is a pageable copy that a CUDA graph refuses).
+    Shared: never written to."""
+    return torch.as_tensor(color_matrix(colors), device=device, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _clip_mean_std(device, dtype):
+    """CLIP_MEAN and CLIP_STD as [1,3,1,1] tensors, once per device and
+    dtype."""
+    return tuple(torch.as_tensor(v, device=device, dtype=dtype)[None, :, None,
+                                                               None]
+                 for v in (CLIP_MEAN, CLIP_STD))
+
+
 def decorrelate(image: torch.Tensor, colcorr_t: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nchw,cd->ndhw", image, colcorr_t)
 
@@ -33,19 +52,15 @@ def to_valid_rgb(image: torch.Tensor, colors: float = 1.0,
                  decorrelate_colors: bool = True) -> torch.Tensor:
     """Decoded parameterizer output -> valid RGB in [0,1]."""
     if decorrelate_colors:
-        cm = torch.as_tensor(color_matrix(colors), device=image.device,
-                             dtype=image.dtype)
-        image = decorrelate(image, cm)
+        image = decorrelate(image, _color_tensor(colors, image.device,
+                                                 image.dtype))
     return torch.sigmoid(image)
 
 
 def clip_normalize(image: torch.Tensor) -> torch.Tensor:
     """CLIP mean/std normalization over an NCHW batch, in the image's
     dtype (a bf16 pipeline stays bf16 into the tower)."""
-    mean = torch.as_tensor(CLIP_MEAN, device=image.device,
-                           dtype=image.dtype)[None, :, None, None]
-    std = torch.as_tensor(CLIP_STD, device=image.device,
-                          dtype=image.dtype)[None, :, None, None]
+    mean, std = _clip_mean_std(image.device, image.dtype)
     return (image - mean) / std
 
 

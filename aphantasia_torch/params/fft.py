@@ -34,12 +34,21 @@ def spectrum_to_image(params: torch.Tensor, size) -> torch.Tensor:
     h, w = size
     spec = torch.complex(params[..., 0], params[..., 1])
     z = torch.fft.ifft(spec, n=h, dim=-2, norm="ortho")
-    keep = torch.ones(z.shape[-1], device=z.device)
+    z = torch.complex(z.real, z.imag * _imag_keep(z.shape[-1], w, z.device))
+    return torch.fft.irfft(z, n=w, dim=-1, norm="ortho")
+
+
+@functools.lru_cache(maxsize=8)
+def _imag_keep(wf: int, w: int, device) -> torch.Tensor:
+    """The [wf] mask that zeroes the imaginary parts of the DC and (w even)
+    Nyquist columns, built once per device: writing its entries on the
+    card at each decode would copy host scalars.  Shared: never written
+    to."""
+    keep = torch.ones(wf)
     keep[0] = 0.0
     if w % 2 == 0:
         keep[w // 2] = 0.0
-    z = torch.complex(z.real, z.imag * keep)
-    return torch.fft.irfft(z, n=w, dim=-1, norm="ortho")
+    return keep.to(device)
 
 
 def image_to_spectrum(img: torch.Tensor, size) -> torch.Tensor:

@@ -11,17 +11,49 @@ their buffers.
 
 Loss terms (as in the JAX step): prompt groups sign * wt * sim_func(enc,
 out_enc), sharpness -sharp * derivat(img), enforce -enforce * sim(out_enc,
-second-pass enc), expand +expand * sim(out_enc, prev_enc) from step 1 on,
-and the spectrum-shift noise inside the decode.  The aesthetic and
-LPIPS-sync terms raise until their models are ported (ROADMAP.md).
+second-pass enc), expand +expand * sim(out_enc, prev_enc) gated by
+(step_i > 0) on the device, and the spectrum-shift noise inside the
+decode.  The aesthetic and LPIPS-sync terms raise until their models are
+ported (ROADMAP.md).
+
+The step loops (`build_train_loop`, `build_train_loop_frames`) run many
+steps a dispatch, as the JAX package's scanned loops do.  Their unit is a
+*group*: one step, or a frame group (one step, the uint8 render, then
+`opt_step - 1` steps).  The group works on buffers that live for the run:
+the params and the optimizer state (adopted from the first call and
+updated in place), `prev_enc`, the step index, the draws of each of its
+steps, its loss slot and its frame slot, and the CLIP weights and prompts
+of the first call.  On the card the run's first group runs eagerly on a
+side stream, which fills every cache (the host tables, cuFFT's plans,
+cuBLAS's workspaces, the kernels' attributes) and whose results stand;
+then the same group is captured into a CUDA graph (`kernels.CountedGraph`;
+a capture runs nothing) and every later group is a replay.  A capture
+that fails raises: there is no eager fallback on the card.  On the CPU
+every group runs eagerly, the same operations.
+
+The draws stay outside the graph: before each group the host makes them
+from the caller's `draws(i)` in step order and copies them into the
+group's draw buffers, so the random stream does not depend on how the
+steps are grouped or chunked, and a replay can be held to the eager step
+bit for bit.  The kernels' TMA maps are encoded at capture from the
+addresses of these buffers and of the graph's pool, which stay fixed, and
+the environment switches are read at capture: a loop lives for one run.
+
+`--dualmod` (every `dualmod_steps` step through a second tower) is not
+ported.  Its schedule is static, so it fits this design as two captured
+groups, one per tower, of which the host replays the one each step
+names; `dual=` raises until then, as `with_params=` does (cppn).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+import time
+import types
+from typing import Any, Callable, NamedTuple
 
 import torch
 
+from aphantasia_torch import kernels
 from aphantasia_torch.models.clip.model import encode_image
 from aphantasia_torch.ops.augs import get_transform
 from aphantasia_torch.ops.losses import derivat, sim_func
@@ -70,6 +102,13 @@ def to_device(obj, device):
     raise TypeError(f"cannot move {type(obj)} to a device")
 
 
+def _step_tensor(step_i, device) -> torch.Tensor:
+    """step_i as a 0-d int32 tensor on `device` (a tensor passes as is)."""
+    if isinstance(step_i, torch.Tensor):
+        return step_i
+    return torch.full((), step_i, dtype=torch.int32, device=device)
+
+
 def _check_ported(settings: StepSettings):
     if settings.aest != 0:
         raise NotImplementedError(
@@ -105,7 +144,8 @@ def build_draw_fn(sampler, settings: StepSettings, param_shape):
 def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
     """Returns loss_fn(gen_params, clip_params, prompts, prev_enc, draws,
     step_i) -> (loss, out_enc detached).  `prompts` is a sequence of
-    (embs [K,D], wts [K], coeff) groups."""
+    (embs [K,D], wts [K], coeff) groups; `step_i` an int or a 0-d int32
+    tensor on the params' device."""
     _check_ported(settings)
     transform = get_transform(settings.transform, settings.persp)
     dt = settings.clip_dtype
@@ -132,9 +172,10 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
             enc2 = encode_cuts(clip_params, draws.cuts2, img)
             loss = loss - settings.enforce * sim_func(out_enc, enc2,
                                                       settings.sim)
-        if settings.expand > 0 and step_i > 0:
-            loss = loss + settings.expand * sim_func(out_enc, prev_enc,
-                                                     settings.sim)
+        if settings.expand > 0:
+            gate = (_step_tensor(step_i, img.device) > 0).float()
+            loss = loss + gate * settings.expand * sim_func(out_enc, prev_enc,
+                                                            settings.sim)
         return loss, out_enc.detach()
 
     return loss_fn
@@ -169,3 +210,234 @@ def build_render(parameterizer):
         img = torch.clamp(img[0].permute(1, 2, 0), 0.0, 1.0)
         return (img * 255.0 + 0.5).to(torch.uint8)
     return render
+
+
+# ---------------------------------------------------------------- step loops
+
+def _tree_clone(tree):
+    """A copy of a draw structure (named tuples of tensors, None)."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree.clone()
+    vals = [_tree_clone(v) for v in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def _tree_copy(dst, src):
+    """Copy `src` into the like-shaped `dst` in place: tensors by `copy_`
+    (skipped where both are one tensor), anything else must be equal (a
+    captured group holds it as a constant)."""
+    if isinstance(dst, torch.Tensor):
+        if dst is not src:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError("a loop's structures cannot change between calls")
+        for k in dst:
+            _tree_copy(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, v in zip(dst, src, strict=True):
+            _tree_copy(d, v)
+    elif dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            _tree_copy(getattr(dst, f.name), getattr(src, f.name))
+    elif dst is not src and (dst is None or src is None or dst != src):
+        raise ValueError(f"a loop's constant changed: {dst!r} -> {src!r}")
+
+
+class StepGroup:
+    """`n` train steps on the run's buffers (module docstring), the frame
+    rendered after the first when `render` is given.  Step k of a group
+    sees step_i = index, or index + k when `stride`.  On the card the
+    first `run` is the eager group and the capture (`graph`;
+    `first_seconds` is its synchronised wall); later runs replay."""
+
+    def __init__(self, train_step, n: int, stride: bool, render=None,
+                 contrast: float = 1.0, frame_shape=None):
+        self.train_step, self.n, self.stride = train_step, n, stride
+        self.render, self.contrast, self.frame_shape = (render, contrast,
+                                                        frame_shape)
+        self.bufs = None
+        self.graph = None
+        self.first_seconds = None
+
+    def bind(self, gen_params, opt_state, prev_enc, clip_params, prompts,
+             draws):
+        """The run's buffers with this group's state and draws in them:
+        the first call adopts the state and clones the draws, later calls
+        copy what differs in."""
+        if self.bufs is None:
+            dev = gen_params.device
+            self.bufs = types.SimpleNamespace(
+                params=gen_params, opt=opt_state, prev=prev_enc,
+                clip=clip_params, prompts=prompts,
+                draws=[_tree_clone(d) for d in draws],
+                index=torch.zeros((), dtype=torch.int32, device=dev),
+                losses=torch.zeros((self.n,), device=dev),
+                frame=(None if self.render is None else torch.zeros(
+                    self.frame_shape, dtype=torch.uint8, device=dev)))
+        else:
+            b = self.bufs
+            _tree_copy((b.params, b.opt, b.prev, b.clip, b.prompts),
+                       (gen_params, opt_state, prev_enc, clip_params,
+                        prompts))
+            _tree_copy(b.draws, list(draws))
+        return self.bufs
+
+    def run(self, index: int) -> None:
+        """The group on the bound buffers, its first step at `index`."""
+        b = self.bufs
+        b.index.fill_(index)
+        t0 = time.perf_counter()
+        if not b.params.is_cuda:
+            self._steps()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+        if self.first_seconds is None:
+            if b.params.is_cuda:
+                torch.cuda.synchronize(b.params.device)
+            self.first_seconds = time.perf_counter() - t0
+
+    def _steps(self) -> None:
+        b = self.bufs
+        for k in range(self.n):
+            si = b.index + k if k and self.stride else b.index
+            _, _, out_enc, loss = self.train_step(
+                b.params, b.opt, b.prev, b.clip, b.prompts, b.draws[k], si)
+            b.prev.copy_(out_enc)
+            b.losses[k].copy_(loss)
+            if k == 0 and self.render is not None:
+                b.frame.copy_(self.render(b.params, contrast=self.contrast))
+
+    def _capture(self) -> None:
+        """The eager group on a side stream (PyTorch captures autograd
+        only after such a warm-up), then the same group captured."""
+        dev = self.bufs.params.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._steps()
+        main.wait_stream(side)
+        graph = kernels.CountedGraph()
+        # thread_local: the frame writer's threads may wait on a CUDA event
+        # meanwhile, which a global-mode capture would refuse
+        with graph.capture(capture_error_mode="thread_local"):
+            self._steps()
+        self.graph = graph
+
+
+class TrainLoop:
+    """`build_train_loop`'s loop: `n_inner` one-step groups a call."""
+
+    def __init__(self, train_step, n_inner: int):
+        self.n_inner = n_inner
+        self.group = StepGroup(train_step, 1, False)
+
+    def __call__(self, gen_params, opt_state, prev_enc, clip_params,
+                 prompts, draws: Callable[[int], StepDraws], step0: int):
+        losses = torch.empty((self.n_inner,), device=gen_params.device)
+        for i in range(self.n_inner):
+            b = self.group.bind(gen_params, opt_state, prev_enc, clip_params,
+                                prompts, [draws(i)])
+            self.group.run(int(step0) + i)
+            losses[i].copy_(b.losses[0])
+            gen_params, opt_state, prev_enc = b.params, b.opt, b.prev
+        return gen_params, opt_state, prev_enc, losses
+
+
+class FrameLoop:
+    """`build_train_loop_frames`'s loop: `n_frames` frame groups a call."""
+
+    def __init__(self, train_step, render, opt_step: int, n_frames: int,
+                 contrast: float, step_index: str, frame_shape):
+        self.opt_step, self.n_frames = opt_step, n_frames
+        self.frame_shape = tuple(frame_shape)
+        self.step_index = step_index
+        self.group = StepGroup(train_step, opt_step, step_index == "global",
+                               render, contrast, self.frame_shape)
+
+    def __call__(self, gen_params, opt_state, prev_enc, clip_params,
+                 prompts, draws: Callable[[int], StepDraws], frame0: int):
+        dev = gen_params.device
+        n, nf = self.opt_step, self.n_frames
+        frames = torch.empty((nf,) + self.frame_shape, dtype=torch.uint8,
+                             device=dev)
+        losses = torch.empty((nf * n,), device=dev)
+        for j in range(nf):
+            fstep = int(frame0) + j
+            base = fstep * n
+            b = self.group.bind(gen_params, opt_state, prev_enc, clip_params,
+                                prompts, [draws(base + k) for k in range(n)])
+            self.group.run(fstep if self.step_index == "frame" else base)
+            frames[j].copy_(b.frame)
+            losses[j * n:(j + 1) * n].copy_(b.losses)
+            gen_params, opt_state, prev_enc = b.params, b.opt, b.prev
+        return gen_params, opt_state, prev_enc, frames, losses
+
+
+def build_train_loop(parameterizer, sampler, clip_cfg, settings: StepSettings,
+                     optimizer, n_inner: int) -> TrainLoop:
+    """`n_inner` training steps per call (the JAX package's scanned loop).
+
+    Returns loop(gen_params, opt_state, prev_enc, clip_params, prompts,
+    draws, step0) -> (gen_params, opt_state, prev_enc, losses [n_inner]).
+    `draws(i)` gives the StepDraws of the call's i-th step (the JAX loop
+    folds its key with i); the loss sees step_i = step0 + i.  The returned
+    state is the loop's own buffers, updated in place by the next call
+    (the JAX loop donates them)."""
+    return TrainLoop(build_train_step(parameterizer, sampler, clip_cfg,
+                                      settings, optimizer), n_inner)
+
+
+def build_train_loop_frames(parameterizer, sampler, clip_cfg,
+                            settings: StepSettings, optimizer, opt_step: int,
+                            n_frames: int, contrast: float = 1.0,
+                            step_index: str = "frame",
+                            with_params: bool = False, dual=None) -> FrameLoop:
+    """`n_frames` frame groups per call for the image CLIs.
+
+    Each group reproduces the reference cadence: one train step, a uint8
+    render of the frame, then the remaining `opt_step - 1` steps.
+
+    Returns loop(gen_params, opt_state, prev_enc, clip_params, prompts,
+    draws, frame0) -> (gen_params, opt_state, prev_enc, frames
+    [n_frames,H,W,3] uint8, losses [n_frames*opt_step]).  `frame0` is the
+    global frame index of the call's first group (frame k covers steps
+    k*opt_step .. (k+1)*opt_step-1), and `draws(gstep)` gives global step
+    gstep's StepDraws, called in step order.  `step_index` picks what the
+    loss sees as step_i: the frame index (clip_fft's `i // opt_step`) or
+    the global step (illustra and cppn pass `i`).  The returned state is
+    the loop's own buffers, as in `build_train_loop`.  `with_params` (the
+    frame-boundary params, for cppn) and `dual` (`--dualmod`, module
+    docstring) are not ported."""
+    if with_params:
+        raise NotImplementedError(
+            "with_params (cppn's per-frame snapshots) is not ported to "
+            "aphantasia_torch yet; see ROADMAP.md")
+    if dual is not None:
+        raise NotImplementedError(
+            "dual (--dualmod) is not ported to aphantasia_torch yet; see "
+            "ROADMAP.md")
+    if step_index not in ("frame", "global"):
+        raise ValueError(f"step_index must be 'frame' or 'global', not "
+                         f"{step_index!r}")
+    step = build_train_step(parameterizer, sampler, clip_cfg, settings,
+                            optimizer)
+    return FrameLoop(step, build_render(parameterizer), opt_step, n_frames,
+                     contrast, step_index, tuple(parameterizer.size) + (3,))
+
+
+def frames_per_dispatch(size, n_frames_total: int,
+                        cap_bytes: int = 75_000_000) -> int:
+    """Largest divisor of `n_frames_total` whose stacked uint8 frames stay
+    under `cap_bytes` (and <= 16): frame chunks trade dispatch overhead
+    against render-buffer memory and transfer."""
+    per = size[0] * size[1] * 3
+    cap = max(1, min(16, cap_bytes // max(per, 1)))
+    best = 1
+    for f in range(1, cap + 1):
+        if n_frames_total % f == 0:
+            best = f
+    return best

@@ -28,14 +28,26 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            other two switches; last, the ViT-L/14@336px image tower (577
            tokens) at full width, one bf16 forward and backward.  The
            launch counts are set to 0 just before each run and read just
-           after, and must equal the counts the path implies.  Steps/s is
-           the median of the steps after the first.
+           after, and must equal the counts the path implies.  The 8-step
+           runs take the CLI's chunked path (one eager frame group and its
+           capture, then replays), whose launches are counted per replay.
+           Steps/s is the median of the steps after the first.
+  loop     the step loop (`build_train_loop_frames`) on the default,
+           `--pallas` (with opt_step 2), `--pallas --persp exact`,
+           `--pallas -tf elastic` with the shift kernel, (a), (b) and (d)
+           paths at full width: the eager steps twice, then the same steps
+           from the same draws replayed from a CUDA graph, held to the
+           eager run bit for bit (or within the eager runs' own spread),
+           replays under sync debug mode "error"; steps/s eager and
+           replayed, the group's device ms by graph replay, busy share,
+           peak memory (`phase_loop`).
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
            (kernel shift) transforms, and for `none` under the cutout and
            LayerNorm switches and under the block switch.
-  profile  (only when asked for) torch.profiler over steady steps of both
+  profile  (only when asked for) torch.profiler over steady replayed steps
+           (one step a dispatch, the loss read after each) of both
            cutout paths, the four augmentation paths of `main`, the
            switches' paths on ViT-B/32 and ViT-L/14, ViT-L/14 without them,
            and the fused-block paths (d) and (e) on ViT-B/32: device time
@@ -1311,9 +1323,9 @@ def phase_kernels(report):
 
 # ---------------------------------------------------------------- main path
 
-def _run_cli(argv, on_step=None):
+def _run_cli(argv):
     from aphantasia_torch.cli import clip_fft
-    return clip_fft.run(clip_fft.get_args(argv), on_step)
+    return clip_fft.run(clip_fft.get_args(argv))
 
 
 def phase_main(report, steps: int):
@@ -1541,6 +1553,186 @@ def phase_main_switches(report, steps: int):
               f"losses {[round(x, 5) for x in res.losses]}")
 
 
+# ---------------------------------------------------------------- loop
+
+# (label, CLI flags, environment, opt_step, kernel launches a step): the
+# paths the `loop` phase replays, each against its eager steps
+_B32 = {"attn_fwd": 12, "attn_bwd": 12}
+_PALLAS = dict(_B32, cutout_fwd=1, cutout_bwd=1)
+LOOP_PATHS = (
+    ("default", [], None, 1, _B32),
+    ("--pallas, opt_step 2", ["--pallas"], None, 2, _PALLAS),
+    ("--pallas --persp exact", ["--pallas", "--persp", "exact"], None, 1,
+     dict(_PALLAS, persp_fwd=2, persp_bwd=2)),
+    ("--pallas -tf elastic, shift kernel", ["--pallas", "-tf", "elastic"],
+     {"APHANTASIA_PALLAS_SHIFT": "1"}, 1, dict(_PALLAS, frac_shift=4)),
+    ("(a) ViT-B/32, cutout + LN switches", [], SWITCHES, 1,
+     dict(_B32, win_cut_fwd=1, ln_fwd=24, ln_bwd=24)),
+    ("(b) ViT-L/14, cutout + LN switches", ["-m", "ViT-L/14"], SWITCHES, 1,
+     {"attn_fwd": 24, "attn_bwd": 24, "win_cut_fwd": 1, "ln_fwd": 48,
+      "ln_bwd": 48}),
+    ("(d) ViT-B/32, fused block", [], FUSED, 1,
+     {k: 12 for k in BLOCK_KERNELS}),
+)
+
+
+def _fresh(su):
+    """The run's start: params, optimizer state, prev_enc."""
+    import torch
+    p = su.gen_params.clone()
+    prev = torch.zeros((su.sampler.count, su.clip_cfg.embed_dim),
+                       device=p.device)
+    return p, su.optimizer.init(p), prev
+
+
+def _leaves(p, st, prev):
+    return {"params": p, "count": st.count, "mu": st.mu, "nu": st.nu,
+            "prev_enc": prev}
+
+
+def _loop_eager(su, a, start):
+    """The steps one by one (`build_train_step`, the render after each
+    group's first step), as the CLI's per-step loop runs them: the loss
+    read after each step, the frame after each render."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.step import build_render, build_train_step
+    su.gen.set_state(start)
+    step = build_train_step(su.par, su.sampler, su.clip_cfg, su.settings,
+                            su.optimizer)
+    render = build_render(su.par)
+    p, st, prev = _fresh(su)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, frames, secs = [], [], []
+    for i in range(a.steps):
+        t0 = time.perf_counter()
+        p, st, prev, loss = step(p, st, prev, su.clip_vis, su.prompts,
+                                 su.draw(su.gen), i // a.opt_step)
+        losses.append(loss.item())
+        if i % a.opt_step == 0:
+            frames.append(render(p, contrast=a.contrast).cpu())
+        secs.append(time.perf_counter() - t0)
+    out = _leaves(p, st, prev)
+    out.update(losses=torch.tensor(losses), frames=torch.stack(frames))
+    return out, {"secs": secs, "peak": torch.cuda.max_memory_allocated(),
+                 "launches": dict(kernels.LAUNCHES)}
+
+
+def _loop_replayed(su, a, start, nf):
+    """The same steps through `build_train_loop_frames`, `nf` frame groups
+    a dispatch: the first dispatch runs the eager group and the capture,
+    every later one only replays, under sync debug mode "error" (a host
+    sync raises) up to the dispatch's one wait, the read of its losses."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.step import build_train_loop_frames
+    su.gen.set_state(start)
+    loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
+                                   su.settings, su.optimizer, a.opt_step, nf,
+                                   contrast=a.contrast)
+    p, st, prev = _fresh(su)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, frames, walls = [], [], []
+    for c in range(a.steps // a.opt_step // nf):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if c else 0)
+        try:
+            p, st, prev, f, dl = loop(p, st, prev, su.clip_vis, su.prompts,
+                                      lambda g: su.draw(su.gen), c * nf)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses += dl.tolist()
+        walls.append(time.perf_counter() - t0)
+        frames.append(f.cpu())
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # the loop's own buffers, which the timing replays below move on
+    out = {k: v.clone() for k, v in _leaves(p, st, prev).items()}
+    out.update(losses=torch.tensor(losses), frames=torch.cat(frames))
+    graph = loop.group.graph
+    graph_ms = cuda_ms(graph.graph.replay, iters=10, warmup=2)
+    return out, {"walls": walls, "peak": peak, "launches": launches,
+                 "first": loop.group.first_seconds, "group_ms": graph_ms}
+
+
+def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
+    """The step loop on every path of LOOP_PATHS at full width (1280x720,
+    200 samples before the budget, random weights from a seed): twice the
+    eager steps (`build_train_step`), then the same steps from the same
+    draws replayed from a CUDA graph (`build_train_loop_frames`, `nf`
+    frame groups a dispatch).  Params, optimizer state, prev_enc, losses
+    and frames must equal the eager run's bit for bit where the two eager
+    runs agree bit for bit; where they do not, within twice the largest
+    difference between the two eager runs.  Launch counts (per replay)
+    must be the path's launches a step times the steps, in both runs.
+    Reports steps/s eager (median step after the first) and replayed (the
+    dispatches after the first), the replayed group's device ms by CUDA
+    events around back-to-back graph replays, the busy share (device ms
+    a step times replayed steps/s over 1000) and the peak device memory of
+    each run."""
+    import torch
+    from aphantasia_torch.cli import clip_fft
+    name = torch.cuda.get_device_name(0)
+    for label, extra, env, n, per_step in paths:
+        argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+                "--samples", "200", "--steps", str(steps * n), "--opt_step",
+                str(n), "-nv", "--seed", "1",
+                "--out_dir", os.path.join(OUT_DIR, "loop")] + extra
+        with env_set(env):
+            a = clip_fft.get_args(argv)
+            su = clip_fft.setup(a)
+            start = su.gen.get_state()
+            runs = [_loop_eager(su, a, start) for _ in range(2)]
+            got, rep = _loop_replayed(su, a, start, nf)
+        (want, eager), (again, _) = runs
+        want_launches = {k: v * a.steps for k, v in per_step.items()}
+        check(eager["launches"] == want_launches
+              and rep["launches"] == want_launches,
+              f"loop {label}: launches eager {eager['launches']}, replayed "
+              f"{rep['launches']}, expected {want_launches}")
+        worst = {}
+        for k, ref in want.items():
+            check(got[k].shape == ref.shape, f"loop {label}: {k} shape "
+                  f"{tuple(got[k].shape)} != {tuple(ref.shape)}")
+            spread = (again[k].double() - ref.double()).abs().max().item()
+            err = (got[k].double() - ref.double()).abs().max().item()
+            worst[k] = (err, spread)
+        off = (got["losses"] != want["losses"]).nonzero().flatten().tolist()
+        check(all(e == 0 if sp == 0 else e <= 2 * sp
+                  for e, sp in worst.values()),
+              f"loop {label}: the replay differs from the eager run, max "
+              f"|replayed - eager| (two eager runs): " + ", ".join(
+                  f"{k} {e:.3g} ({sp:.3g})" for k, (e, sp) in worst.items())
+              + f"; losses differ from step {off[:1]} on")
+        check(all(math.isfinite(x) for x in got["losses"].tolist()),
+              f"loop {label}: losses not finite")
+        steady = sorted(eager["secs"][1:])
+        eager_sps = 1.0 / steady[len(steady) // 2]
+        rest = a.steps - nf * a.opt_step
+        replay_sps = rest / sum(rep["walls"][1:])
+        dev_ms = rep["group_ms"] / a.opt_step
+        exact = all(e == 0 for e, _ in worst.values())
+        print(f"[loop] {label}: {a.steps} steps, {su.sampler.count} cutouts, "
+              f"opt_step {a.opt_step}, {nf} groups a dispatch on {name}: "
+              f"eager {eager_sps:.3f} steps/s, replayed {replay_sps:.3f} "
+              f"steps/s; first dispatch {rep['walls'][0]:.3f} s (eager group "
+              f"and capture {rep['first']:.3f} s); replayed group "
+              f"{rep['group_ms']:.3f} device ms ({dev_ms:.3f} a step), busy "
+              f"share {dev_ms * replay_sps / 1000:.3f}; peak memory eager "
+              f"{eager['peak'] / 2**20:.0f} MiB, replayed "
+              f"{rep['peak'] / 2**20:.0f} MiB; launches a step {per_step}; "
+              + ("bit for bit" if exact else
+                 "max |replayed - eager| (eager spread): "
+                 + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
+                             for k, (e, sp) in worst.items())))
+        del su, runs, got
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- profile
 
 def _device_us(evt) -> float:
@@ -1572,14 +1764,18 @@ PROFILE_PATHS = (
 def phase_profile(only=(), steps: int = 6, active: int = 3):
     """Where a steady step's device time goes, for both cutout paths, the
     augmentation kernels' paths and the switches' paths with and without
-    the fused LayerNorm: torch.profiler over `active` steps after
-    `steps - active` warm ones; the kernels by self device time per step,
-    kernel launches per step, and the device busy share (kernel time over
-    the host wall time of those steps).  `only`: the label prefixes of the
-    paths to profile (all when empty)."""
+    the fused LayerNorm, on the replayed loop: `build_train_loop_frames`
+    one step a dispatch (the first the eager step and the capture, then
+    replays), its loss read after each, torch.profiler over `active`
+    steps after `steps - active` warm ones; the kernels by self device
+    time per step, kernel launches per step, and the device busy share
+    (kernel time over the host wall time of those steps).  `only`: the
+    label prefixes of the paths to profile (all when empty)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+    from aphantasia_torch.cli import clip_fft
+    from aphantasia_torch.step import build_train_loop_frames
     name = torch.cuda.get_device_name(0)
     for label, extra, env in PROFILE_PATHS:
         if only and not label.startswith(tuple(only)):
@@ -1589,15 +1785,22 @@ def phase_profile(only=(), steps: int = 6, active: int = 3):
                 "1", "--out_dir", os.path.join(OUT_DIR, "profile")] + extra
         marks = []
         with env_set(env):
+            a = clip_fft.get_args(argv)
+            su = clip_fft.setup(a)
+            loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
+                                           su.settings, su.optimizer, 1, 1,
+                                           contrast=a.contrast)
+            state = _fresh(su)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=steps - active,
                                            active=active, repeat=1)) as prof:
-                def on_step(i):
-                    torch.cuda.synchronize()
+                for i in range(steps):
+                    *state, _, dl = loop(*state, su.clip_vis, su.prompts,
+                                         lambda g: su.draw(su.gen), i)
+                    dl.tolist()
                     marks.append(time.perf_counter())
                     prof.step()
-                _run_cli(argv, on_step)
         wall = marks[-1] - marks[-1 - active]
         evts = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
@@ -1780,7 +1983,7 @@ def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,main,parity")
+    ap.add_argument("--phases", default="kernels,main,loop,parity")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--profile-paths", default="",
                     help="comma-separated label prefixes of the paths the "
@@ -1814,6 +2017,7 @@ def main(argv=None) -> int:
             t = time.time()
             {"kernels": lambda: phase_kernels(report),
              "main": lambda: phase_main(report, args.steps),
+             "loop": phase_loop,
              "parity": phase_parity,
              "profile": lambda: phase_profile(
                  [p for p in args.profile_paths.split(",") if p])}[ph]()

@@ -68,7 +68,7 @@ def test_clip_fft_resume_from_pt(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--dwt"], ["--sync", "0.5"], ["--aest", "1"], ["--dualmod", "2"],
     ["--spatial", "2"], ["--mesh", "2"], ["--fleet", "0/2"],
-    ["--profile", "p"], ["-m", "RN50"]])
+    ["--clip_weights", "w.pt"], ["-m", "RN50"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)

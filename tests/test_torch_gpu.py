@@ -39,6 +39,7 @@ two bf16 steps), on y, inv and dx.
 """
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -774,3 +775,65 @@ def test_block_halves_capture_into_a_graph(cuda):
         return y.detach(), gx
     (y0, g0), (y1, g1) = _captured(step)
     assert torch.equal(y0, y1) and torch.equal(g0, g1)
+
+
+# ------------------------------------------------------------ the step loop
+
+def _chip_smoke():
+    """The repository's chip_smoke.py, whose `loop` phase this file's loop
+    tests share."""
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("path", range(7))
+def test_replayed_loop_equals_the_eager_steps(cuda, path):
+    """chip_smoke.py's `loop` phase on one of its seven paths at full width
+    (1280x720, 200 samples before the budget), 4 frame groups (opt_step 2
+    on `--pallas`), 2 a dispatch: the replayed loop against two eager runs
+    from the same draws, params, optimizer state, prev_enc, losses and
+    frames bit for bit (or within twice the eager runs' own spread), the
+    launches counted per replay, the replays under sync debug mode
+    "error"."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cs.phase_loop(steps=4, nf=2, paths=[cs.LOOP_PATHS[path]])
+    except cs.SmokeFailure as e:
+        pytest.fail(str(e))
+
+
+def test_frame_writer_pulls_a_chunk_from_the_card(cuda, tmp_path):
+    """save_batch of a uint8 chunk on the card: one non-blocking copy into
+    pinned memory, waited on by the encoders; the PNGs hold its bytes."""
+    from PIL import Image
+    from aphantasia_torch.io.media import AsyncFrameWriter
+    frames = torch.randint(0, 256, (3, 16, 24, 3), generator=cuda,
+                           device="cuda").to(torch.uint8)
+    paths = [str(tmp_path / f"{i}.png") for i in range(3)]
+    with AsyncFrameWriter(encoders=2) as w:
+        w.save_batch(paths, frames)
+    for i, path in enumerate(paths):
+        with Image.open(path) as im:
+            assert (np.asarray(im) == frames[i].cpu().numpy()).all()
+
+
+def test_loop_capture_failure_raises(cuda):
+    """A step the graph cannot capture (here a host sync) raises from the
+    first group's capture after its eager run: no eager fallback."""
+    from aphantasia_torch.step import StepGroup
+
+    def syncing_step(p, st, prev, clip, prompts, draws, si):
+        p.add_(float(p.sum()))
+        return p, st, prev, p.sum()
+    p = torch.ones(8, device="cuda")
+    group = StepGroup(syncing_step, 1, False)
+    group.bind(p, None, torch.zeros(8, device="cuda"), {}, (), [None])
+    with pytest.raises(RuntimeError):
+        group.run(0)
+    assert group.graph is None
