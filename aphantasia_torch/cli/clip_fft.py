@@ -1,26 +1,34 @@
-"""clip_fft: single-image CLIP-guided generation with the FFT
+"""clip_fft: single-image CLIP-guided generation with the FFT or the DWT
 parameterizer (counterpart of aphantasia_tpu.cli.clip_fft).
 
 Same flags, defaults and post-parse rules as the JAX CLI, and the same
 outputs: JPEG frames and config.txt in a run directory, an mp4 beside it,
-and a `.pt` snapshot with --save_pt.  Runs on the CUDA device unless
-`--device cpu` is given; without a GPU it raises.
+and a `.pt` snapshot (the params list) with --save_pt.  Runs on the CUDA
+device unless `--device cpu` is given; without a GPU it raises.
 
 The training loop takes the JAX CLI's chunked path when `opt_step`
 divides `steps`: `frames_per_dispatch` frame groups (one step, the frame's
 render, `opt_step - 1` steps) a dispatch through
-`step.build_train_loop_frames`, which on the card captures the first
-group into a CUDA graph after running it eagerly and replays it for the
-rest, with the losses read and the frames pulled once a dispatch.
-Otherwise it runs the per-step loop.  `--profile DIR` writes a
-torch.profiler trace of the loop into DIR.
+`step.build_train_loop_frames`, which on the card captures a group into a
+CUDA graph after running it eagerly and replays it for the rest (one
+graph per tower pattern under --dualmod), with the losses read and the
+frames pulled once a dispatch.  Otherwise it runs the per-step loop.
+`--profile DIR` writes a torch.profiler trace of the loop into DIR.
 
-Flags whose features are not ported yet raise: --dwt, --sync, --aest,
---dualmod, --spatial, --mesh, --fleet and models other than ViT-B/32,
-ViT-B/16 and ViT-L/14 (ROADMAP.md lists them).
+--dwt (the wavelet pyramid), --sync with an --in_img file (the LPIPS
+term and its tone map), --aest (the LAION head), --dualmod N (ViT-B/16
+every N-th step) and --clip_weights (an OpenAI, open_clip or HuggingFace
+checkpoint) run as in the JAX CLI; every weight without a checkpoint is
+random-init, loudly.  Still raising: --spatial, --mesh, --fleet and
+models other than ViT-B/32, ViT-B/16 and ViT-L/14 (ROADMAP.md lists
+them).
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m ViT-L/14
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dwt
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dualmod 4
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" \
+        -i photo.jpg --sync 0.4
     APHANTASIA_WIN_CUTOUT=1 APHANTASIA_PALLAS_LN=1 \
         python -m aphantasia_torch.cli.clip_fft -t "a lighthouse"
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --persp exact
@@ -39,15 +47,19 @@ import numpy as np
 import torch
 
 from aphantasia_torch.cli.common import (
-    ClipWrapper, add_parallel_flags, apply_sample_budget, maybe_translate,
-    parse_size, resolve_dtype, resolve_persp)
+    ClipWrapper, add_parallel_flags, apply_sample_budget, dualmod_steps,
+    maybe_translate, parse_size, resolve_dtype, resolve_persp)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import (AsyncFrameWriter, frames_to_video,
                                        img_list, img_read)
 from aphantasia_torch.models.clip.model import PORTED_MODELS
+from aphantasia_torch.models.lpips import lpips_get
+from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
 from aphantasia_torch.ops.optim import build_optimizer
+from aphantasia_torch.ops.resize import resize_bicubic
 from aphantasia_torch.ops.sampler import CutoutSampler
+from aphantasia_torch.params.dwt import DWTParameterizer, resume_dwt
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
 from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
@@ -104,9 +116,9 @@ def get_args(argv=None):
     parser.add_argument('-c',  '--sync',    default=0, type=float, help='Sync output to input image')
     parser.add_argument('--invert',  action='store_true', help='Invert criteria')
     parser.add_argument('--sim',     default='mix', help='Similarity function (dot/angular/spherical/mixed; None = cossim)')
-    parser.add_argument('--clip_weights', default=None, help='Path to CLIP checkpoint (not ported yet); random init if absent')
-    parser.add_argument('--aest_weights', default=None, help='Path to LAION aesthetic head checkpoint (not ported yet)')
-    parser.add_argument('--lpips_weights', default=None, help='Path to LPIPS checkpoint (not ported yet)')
+    parser.add_argument('--clip_weights', default=None, help='Path to CLIP checkpoint (OpenAI .pt or HF); random init if absent')
+    parser.add_argument('--aest_weights', default=None, help='Path to LAION aesthetic head checkpoint')
+    parser.add_argument('--lpips_weights', default=None, help='Path to VGG16+lin LPIPS checkpoint (--sync)')
     parser.add_argument('--precision', default='auto', choices=['auto', 'bf16', 'fp32'])
     parser.add_argument('--seed', default=0, type=int)
     parser.add_argument('--spatial', default=0, type=int,
@@ -129,8 +141,7 @@ def get_args(argv=None):
 def check_ported(a) -> None:
     """Raise for every flag whose feature the port does not have yet."""
     unported = [name for name, on in (
-        ('--dwt', a.dwt), ('--sync', a.sync != 0), ('--aest', a.aest != 0),
-        ('--dualmod', a.dualmod is not None), ('--spatial', a.spatial > 1),
+        ('--spatial', a.spatial > 1),
         ('--mesh', a.mesh not in (None, '0', '1')), ('--fleet', a.fleet),
         ('--model ' + a.model, a.model not in PORTED_MODELS)) if on]
     if unported:
@@ -141,11 +152,11 @@ def check_ported(a) -> None:
 
 @dataclasses.dataclass
 class RunResult:
-    params: torch.Tensor          # final spectrum params
+    params: object                # final params: spectrum, or DWT list
     losses: list                  # one float per step
     # host wall time per step, synchronized: on the chunked path each step
-    # of a dispatch gets its wall over its steps, and the first frame
-    # group (the eager group and the graph's capture) its own
+    # of a dispatch gets its wall over its steps, and each tower pattern's
+    # first frame group (its eager group and its graph's capture) its own
     step_seconds: list
     samples: int                  # cutouts per step after the budget
     out_name: str                 # run directory / file stem under out_dir
@@ -153,20 +164,52 @@ class RunResult:
 
 
 @dataclasses.dataclass
+class Tower:
+    """One CLIP tower's constants of the train step."""
+    cfg: object                   # the tower's CLIPConfig
+    vis: dict                     # its vision weights in the compute dtype
+    aest: dict | None             # its aesthetic head (--aest)
+    prompts: list                 # (embs [K,D], wts [K], coeff) groups
+
+
+@dataclasses.dataclass
 class RunSetup:
     """What a run builds before its training loop."""
-    par: FFTParameterizer
+    par: object                   # FFTParameterizer or DWTParameterizer
     sampler: CutoutSampler
-    clip_cfg: object              # the tower's CLIPConfig
-    clip_vis: dict                # its vision weights in the compute dtype
-    prompts: list                 # (embs [K,D], wts [K], coeff) groups
+    towers: list                  # [Tower]; the second under --dualmod
+    lpips_bundle: tuple | None    # (LPIPS params, half-size target), --sync
+    dm_every: int | None          # --dualmod
     settings: StepSettings
     optimizer: object
     draw: object                  # draw(generator) -> StepDraws
     gen: torch.Generator          # the run's generator, after the init
-    gen_params: torch.Tensor      # the start spectrum
+    gen_params: object            # the start params (a tensor or a list)
     out_name: str
     tempdir: str                  # the run directory (frames, config.txt)
+
+    @property
+    def clip_cfg(self):
+        return self.towers[0].cfg
+
+    @property
+    def dual(self):
+        """`build_train_loop_frames`'s `dual`, or None."""
+        if self.dm_every is None:
+            return None
+        return self.towers[1].cfg, self.dm_every
+
+    def consts(self, tower: int = 0) -> tuple:
+        """(clip_params, aest_params, lpips_bundle, prompts) of a tower:
+        the train step's arguments after prev_enc."""
+        t = self.towers[tower]
+        return t.vis, t.aest, self.lpips_bundle, t.prompts
+
+    def loop_args(self) -> tuple:
+        """A frame loop's arguments after prev_enc and before the draws."""
+        extra = () if self.dm_every is None else (
+            self.towers[1].vis, self.towers[1].aest, self.towers[1].prompts)
+        return self.consts(0) + extra
 
 
 def main(argv=None):
@@ -174,56 +217,101 @@ def main(argv=None):
 
 
 def setup(a) -> RunSetup:
-    """The run's parameterizer, tower, prompts and step pieces, and its
+    """The run's parameterizer, towers, prompts and step pieces, and its
     output directory with config.txt (`a` is updated as the JAX CLI
     updates it: size, modsize, samples)."""
     check_ported(a)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
     if device.type == "cuda":
-        # float32 products stay float32 (TF32 would keep ~3 digits)
+        # float32 products stay float32 (TF32 would keep ~3 digits), and
+        # cuDNN (the LPIPS and DWT convolutions) picks deterministic
+        # algorithms, the same ones eager and captured
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     gen = torch.Generator(device=device).manual_seed(a.seed)
-    cpu_gen = torch.Generator().manual_seed(a.seed)
+
+    def seeded(seed, dev=device):
+        return torch.Generator(device=dev).manual_seed(seed)
 
     # ---- parameterizer ----------------------------------------------------
-    gen_params, sz = resume_fft(a.resume, [1, 3, *a.size], a.decay, sd=0.07,
-                                generator=gen)
-    if sz is not None:
-        a.size = list(sz)
-    par = FFTParameterizer(tuple(a.size), a.decay, a.colors)
-    gen_params = gen_params.to(device=device, dtype=torch.float32).contiguous()
+    if a.dwt:
+        gen_params, sz = resume_dwt(a.resume, a.size, a.wave, a.colors,
+                                    generator=gen)
+        if sz is not None:
+            a.size = list(sz)
+        par = DWTParameterizer(tuple(a.size), a.wave, 0.3, a.colors)
+        gen_params = [p.to(device=device, dtype=torch.float32).contiguous()
+                      for p in gen_params]
+    else:
+        gen_params, sz = resume_fft(a.resume, [1, 3, *a.size], a.decay,
+                                    sd=0.07, generator=gen)
+        if sz is not None:
+            a.size = list(sz)
+        par = FFTParameterizer(tuple(a.size), a.decay, a.colors)
+        gen_params = gen_params.to(device=device,
+                                   dtype=torch.float32).contiguous()
 
-    # ---- CLIP model -------------------------------------------------------
-    clip1 = ClipWrapper(a.model, device, a.clip_weights, generator=cpu_gen)
+    # ---- CLIP model(s) ----------------------------------------------------
+    clip1 = ClipWrapper(a.model, device, a.clip_weights,
+                        generator=seeded(a.seed, "cpu"))
     a.modsize = clip1.modsize
     if a.verbose:
         print(' using model', a.model)
+    clips = [clip1]
+    if a.dualmod is not None:
+        # the same weights path and seed as the first tower, as in JAX
+        clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
+                                 generator=seeded(a.seed, "cpu")))
+        print(' dual model every %d step' % a.dualmod)
     extra = (a.in_txt2 is not None) + (a.in_txt0 is not None)
     a.samples = apply_sample_budget(
         a.samples, a.model, a.dualmod, a.enforce, a.sync, a.transform, extra)
 
+    # ---- aesthetic heads --------------------------------------------------
+    aests = [None] * len(clips)
+    if a.aest != 0 and aesthetic_dims(a.model):
+        aests = [aesthetic_get(seeded(7 + i), c.name, a.aest_weights)
+                 for i, c in enumerate(clips)]
+
     # ---- prompts ----------------------------------------------------------
     sign = 1.0 if a.invert else -1.0
-    prompts, out_name = [], []
+    groups, out_name = [[] for _ in clips], []
     for txt, coeff, prefix in ((a.in_txt, sign, ''), (a.in_txt2, sign, ''),
                                (a.in_txt0, -sign, 'off-')):
         if txt is None:
             continue
-        embs, wts = clip1.enc_text(maybe_translate(txt, a.translate, a.verbose))
-        prompts.append((embs, wts, coeff))
+        txt_en = maybe_translate(txt, a.translate, a.verbose)
+        for clip, g in zip(clips, groups):
+            embs, wts = clip.enc_text(txt_en)
+            g.append((embs, wts, coeff))
         out_name.append(prefix + txt_clean(txt).lower()[:40])
     if a.in_txt is not None and a.verbose:
         print(' topic text:', a.in_txt)
+
+    # ---- reference image / LPIPS sync -------------------------------------
+    lpips_bundle = None
     if a.in_img is not None and os.path.isfile(a.in_img):
-        emb, _ = clip1.enc_image_sliced(img_read(a.in_img), a.samples,
-                                        a.align, gen)
-        prompts.append((emb, torch.full((emb.shape[0],), 1.0 / emb.shape[0],
-                                        device=device), sign * a.weight_img))
+        img_np = img_read(a.in_img)
+        # every tower encodes the same cutouts of the image
+        start = gen.get_state()
+        for i, (clip, g) in enumerate(zip(clips, groups)):
+            img_gen = gen
+            if i:
+                img_gen = torch.Generator(device=device)
+                img_gen.set_state(start)
+            emb, img_t = clip.enc_image_sliced(img_np, a.samples, a.align,
+                                               img_gen)
+            g.append((emb, torch.full((emb.shape[0],), 1.0 / emb.shape[0],
+                                      device=device), sign * a.weight_img))
+        if a.sync > 0:
+            img_in = resize_bicubic(img_t, [s // 2 for s in a.size])
+            lpips_bundle = (lpips_get(seeded(9), a.lpips_weights), img_in)
         out_name.append(os.path.splitext(os.path.basename(a.in_img))[0]
                         .replace(' ', '_'))
-    if not prompts:
+    if not groups[0]:
         raise ValueError(' Loss not defined, check the inputs')
     if a.verbose:
         print(' samples:', a.samples)
@@ -233,19 +321,23 @@ def setup(a) -> RunSetup:
                             a.macro, use_pallas=a.pallas)
     optimizer = build_optimizer(a.optimizer, a.lrate, a.steps, a.prog)
     settings = StepSettings(
-        sim=a.sim or 'cossim', sharp=a.sharp, aest=a.aest, enforce=a.enforce,
-        expand=a.expand, noise=a.noise, sync=a.sync, transform=a.transform,
-        persp=resolve_persp(a.persp), clip_dtype=dtype)
-    draw = build_draw_fn(sampler, settings, tuple(gen_params.shape))
-    clip_vis = clip1.vision(dtype)
+        sim=a.sim or 'cossim', sharp=a.sharp if not a.dwt else 0.0,
+        aest=a.aest, enforce=a.enforce, expand=a.expand, noise=a.noise,
+        sync=a.sync, total_steps=max(a.steps // a.opt_step, 1),
+        transform=a.transform, persp=resolve_persp(a.persp), clip_dtype=dtype)
+    draw = build_draw_fn(sampler, settings,
+                         None if a.dwt else tuple(gen_params.shape))
+    towers = [Tower(c.cfg, c.vision(dtype), ae, g)
+              for c, ae, g in zip(clips, aests, groups)]
 
     # ---- output dirs ------------------------------------------------------
     out_name = '-'.join(out_name) or 'out'
-    out_name += '-%s' % a.model.replace('/', '').replace('-', '')
+    out_name += ('-%s' % a.model.replace('/', '').replace('-', '')
+                 if a.dualmod is None else '-dm%d' % a.dualmod)
     tempdir = os.path.join(a.out_dir, out_name)
     os.makedirs(tempdir, exist_ok=True)
     save_cfg(a, tempdir, 'config.txt')
-    return RunSetup(par, sampler, clip1.cfg, clip_vis, prompts, settings,
+    return RunSetup(par, sampler, towers, lpips_bundle, a.dualmod, settings,
                     optimizer, draw, gen, gen_params, out_name, tempdir)
 
 
@@ -260,9 +352,12 @@ def run(a, on_step=None) -> RunResult:
     # ---- training loop ----------------------------------------------------
     opt_state = su.optimizer.init(gen_params)
     prev_enc = torch.zeros((a.samples, su.clip_cfg.embed_dim),
-                           device=gen_params.device)
+                           device=su.gen.device)
+    # empirical tone mapping, applied in the writer
     tone = None
-    if a.sharp != 0:
+    if a.sync > 0 and a.in_img is not None:
+        tone = lambda im: ((im / 255.0) ** 1.3 * 255).astype(np.uint8)  # noqa: E731
+    elif a.sharp != 0:
         tone = (lambda im: ((im / 255.0) ** (1 + a.sharp / 2.0) * 255)
                 .astype(np.uint8))
     pbar = ProgressBar(a.steps // a.opt_step) if a.verbose else None
@@ -276,35 +371,39 @@ def run(a, on_step=None) -> RunResult:
             n_frames = a.steps // a.opt_step
             nf = frames_per_dispatch(tuple(a.size), n_frames)
             loop = build_train_loop_frames(*step_args, a.opt_step, nf,
-                                           contrast=a.contrast)
+                                           contrast=a.contrast, dual=su.dual)
             for c in range(n_frames // nf):
                 t0 = time.perf_counter()
                 gen_params, opt_state, prev_enc, frames, dl = loop(
-                    gen_params, opt_state, prev_enc, su.clip_vis, su.prompts,
+                    gen_params, opt_state, prev_enc, *su.loop_args(),
                     lambda gstep: su.draw(su.gen), c * nf)
                 writer.save_batch([os.path.join(tempdir, '%04d.jpg' % f)
                                    for f in range(c * nf, (c + 1) * nf)],
                                   frames, tone)
                 losses += dl.tolist()     # the dispatch's one wait
                 wall = time.perf_counter() - t0
-                n = nf * a.opt_step
-                if c == 0:
-                    first = loop.group.first_seconds
-                    seconds += [first / a.opt_step] * a.opt_step
-                    wall, n = wall - first, n - a.opt_step
-                seconds += [wall / n] * n
+                # each first run of a pattern its own, the rest shared
+                firsts = loop.first_runs
+                rest = (wall - sum(firsts.values())) / max(nf - len(firsts), 1)
+                for j in range(nf):
+                    seconds += [firsts.get(j, rest) / a.opt_step] * a.opt_step
                 for i in range(c * nf * a.opt_step, len(losses)):
                     if pbar is not None and i % a.opt_step == 0:
                         pbar.upd()
                     if on_step is not None:
                         on_step(i)
         else:
-            step = build_train_step(*step_args)
+            cfgs = [t.cfg for t in su.towers]
+            steps = [build_train_step(su.par, su.sampler, cfg, su.settings,
+                                      su.optimizer) for cfg in cfgs]
+            dm_nums = (dualmod_steps(a.steps, a.dualmod) if a.dualmod
+                       else set())
             render = build_render(su.par)
             for i in range(a.steps):
                 t0 = time.perf_counter()
-                gen_params, opt_state, prev_enc, loss = step(
-                    gen_params, opt_state, prev_enc, su.clip_vis, su.prompts,
+                tower = int(i in dm_nums)
+                gen_params, opt_state, prev_enc, loss = steps[tower](
+                    gen_params, opt_state, prev_enc, *su.consts(tower),
                     su.draw(su.gen), i // a.opt_step)
                 losses.append(loss.item())        # waits for the step's work
                 seconds.append(time.perf_counter() - t0)
@@ -325,7 +424,8 @@ def run(a, on_step=None) -> RunResult:
                     os.path.join(a.out_dir, '%s-%d.jpg' % (out_name, a.steps)))
     if a.save_pt:
         # params LIST, as the reference saves it
-        save_pt('%s.pt' % os.path.join(a.out_dir, out_name), [gen_params])
+        save_pt('%s.pt' % os.path.join(a.out_dir, out_name),
+                list(gen_params) if a.dwt else [gen_params])
     return RunResult(gen_params, losses, seconds, a.samples, out_name, video)
 
 

@@ -108,6 +108,12 @@ def apply_sample_budget(samples: int, model: str, dualmod=None,
     return max(samples, 1)
 
 
+def dualmod_steps(steps: int, dualmod: int) -> set:
+    """The step indices handled by the second tower: every `dualmod`-th
+    step from `dualmod` on."""
+    return set(list(range(steps))[dualmod::dualmod])
+
+
 def add_parallel_flags(parser):
     """The JAX CLIs' shared flags.  --pallas (the CUDA cutout kernel),
     --persp and --profile are ported; the others are accepted so that

@@ -292,8 +292,10 @@ def clip_init(generator: torch.Generator, cfg: CLIPConfig):
 
 def load_clip(name: str, weights_path: str | None = None,
               generator: torch.Generator | None = None):
-    """(params, cfg).  Without a checkpoint the weights are random (shapes
-    and FLOPs identical); reading an OpenAI checkpoint is not ported yet."""
+    """(params, cfg) on the CPU.  `weights_path` (or APHANTASIA_CLIP_PT)
+    names an OpenAI, open_clip or HuggingFace checkpoint, converted by
+    models/clip/convert.py and checked against the model's shapes; without
+    one the weights are random (shapes and FLOPs identical)."""
     from aphantasia_torch.weights import env_weights, warn_random
     if name not in PORTED_MODELS:
         raise NotImplementedError(
@@ -302,9 +304,8 @@ def load_clip(name: str, weights_path: str | None = None,
     cfg = CLIP_CONFIGS[name]
     weights_path = env_weights("clip", weights_path)
     if weights_path is not None:
-        raise NotImplementedError(
-            "loading a CLIP checkpoint is not ported to aphantasia_torch "
-            "yet (models/clip/convert.py of the JAX package); see ROADMAP.md")
+        from aphantasia_torch.models.clip.convert import convert_checkpoint
+        return convert_checkpoint(weights_path, expect_cfg=cfg), cfg
     warn_random(f"clip {name}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -1,5 +1,5 @@
-"""Similarity functions and sharpness losses (counterpart of
-aphantasia_tpu.ops.losses).  The LAION aesthetic head is not ported yet."""
+"""Similarity functions, sharpness losses and the LAION aesthetic head
+(counterpart of aphantasia_tpu.ops.losses)."""
 from __future__ import annotations
 
 import functools
@@ -83,3 +83,50 @@ def derivat(img, mode: str = "sobel"):
     dx = (img[:, :, :, 1:] - img[:, :, :, :-1]).abs().mean()
     dy = (img[:, :, 1:, :] - img[:, :, :-1, :]).abs().mean()
     return 0.5 * (dx + dy)
+
+
+# ------------------------------------------------------------------ aesthetic
+
+def aesthetic_dims(clip_model: str) -> int | None:
+    """Embedding width of the LAION aesthetic linear head (None: no head
+    for that model)."""
+    return (768 if clip_model == "ViT-L/14"
+            else 512 if clip_model in ("ViT-B/16", "ViT-B/32") else None)
+
+
+def aesthetic_init(generator: torch.Generator, clip_model: str = "ViT-B/32"):
+    """A random head on the generator's device: w = 0.01 * randn [nf, 1],
+    b = 0.  Real weights load through `aesthetic_load`."""
+    nf = aesthetic_dims(clip_model)
+    if nf is None:
+        return None
+    dev = generator.device
+    return {"w": 0.01 * torch.randn((nf, 1), generator=generator, device=dev),
+            "b": torch.zeros((1,), device=dev)}
+
+
+def aesthetic_get(generator: torch.Generator, clip_model: str = "ViT-B/32",
+                  path: str | None = None):
+    """The head, on the generator's device, from the explicit path, else
+    APHANTASIA_AEST_PT, else a random init with a loud warning."""
+    from aphantasia_torch.weights import env_weights, warn_random
+    if aesthetic_dims(clip_model) is None:
+        return None
+    path = env_weights("aesthetic", path)
+    if path:
+        return aesthetic_load(path, generator.device)
+    warn_random(f"aesthetic head ({clip_model})")
+    return aesthetic_init(generator, clip_model)
+
+
+def aesthetic_load(path: str, device="cpu"):
+    """A torch `Linear(nf, 1)` state dict checkpoint -> {"w" [nf,1], "b"
+    [1]}, float32."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {"w": sd["weight"].float().t().contiguous().to(device),
+            "b": sd["bias"].float().to(device)}
+
+
+def aesthetic_apply(params, embeddings):
+    """The head's score of each embedding: [S, D] -> [S, 1]."""
+    return embeddings @ params["w"] + params["b"]

@@ -20,6 +20,7 @@ update replays it with the count it reads at each replay.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -33,19 +34,29 @@ def lr_schedule(lrate: float, steps: int, prog: bool = False):
     return lambda i: lr0 + (i / steps) * (lr1 - lr0)
 
 
+def leaves(tree) -> list:
+    """The tensors of a params tree: a tensor, or a list of tensors (the
+    DWT pyramid)."""
+    return list(tree) if isinstance(tree, (list, tuple)) else [tree]
+
+
 @dataclasses.dataclass
 class OptState:
+    """`mu`, `nu` and `nu_max` mirror the params: a tensor each, or a list
+    of tensors for list params; `count` is shared."""
     count: torch.Tensor          # int32, 0-d, on the params' device
-    mu: torch.Tensor
-    nu: torch.Tensor
-    nu_max: torch.Tensor | None = None
+    mu: Any
+    nu: Any
+    nu_max: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
     """Adam / AdamW / AMSGrad with optax's update order and bias
     corrections.  `step` updates the params and the state IN PLACE (the
-    JAX step donates their buffers to the same effect)."""
+    JAX step donates their buffers to the same effect).  Params are a
+    tensor or a list of tensors; optax updates every leaf by the same rule
+    with one step count, and so does `step`."""
     lr: object                   # float or schedule(count) -> float
     b1: float = 0.9
     b2: float = 0.999
@@ -53,29 +64,39 @@ class Adam:
     weight_decay: float = 0.0
     amsgrad: bool = False
 
-    def init(self, params: torch.Tensor) -> OptState:
-        z = torch.zeros_like(params)
-        count = torch.zeros((), dtype=torch.int32, device=params.device)
-        return OptState(count, z.clone(), z.clone(),
-                        z.clone() if self.amsgrad else None)
+    def init(self, params) -> OptState:
+        ps = leaves(params)
+        count = torch.zeros((), dtype=torch.int32, device=ps[0].device)
 
-    def step(self, params: torch.Tensor, grads: torch.Tensor,
-             state: OptState) -> None:
+        def zeros():
+            z = [torch.zeros_like(p) for p in ps]
+            return z if isinstance(params, (list, tuple)) else z[0]
+        return OptState(count, zeros(), zeros(),
+                        zeros() if self.amsgrad else None)
+
+    def step(self, params, grads, state: OptState) -> None:
         lr = self.lr(state.count) if callable(self.lr) else self.lr
-        state.mu.mul_(self.b1).add_(grads, alpha=1.0 - self.b1)
-        state.nu.mul_(self.b2).addcmul_(grads, grads, value=1.0 - self.b2)
         state.count.add_(1)
         # optax's bias_correction: 1 - decay ** count in float32
         count = state.count.float()
-        mu_hat = state.mu / (1.0 - torch.pow(self.b1, count))
-        nu_hat = state.nu / (1.0 - torch.pow(self.b2, count))
-        if self.amsgrad:
-            torch.maximum(state.nu_max, nu_hat, out=state.nu_max)
-            nu_hat = state.nu_max
-        update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        if self.weight_decay:
-            update = update + self.weight_decay * params
-        params.sub_(lr * update)
+        c1 = 1.0 - torch.pow(self.b1, count)
+        c2 = 1.0 - torch.pow(self.b2, count)
+        nu_max = (leaves(state.nu_max) if self.amsgrad
+                  else [None] * len(leaves(params)))
+        for p, g, mu, nu, mx in zip(leaves(params), leaves(grads),
+                                    leaves(state.mu), leaves(state.nu),
+                                    nu_max, strict=True):
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            mu_hat = mu / c1
+            nu_hat = nu / c2
+            if self.amsgrad:
+                torch.maximum(mx, nu_hat, out=mx)
+                nu_hat = mx
+            update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+            if self.weight_decay:
+                update = update + self.weight_decay * p
+            p.sub_(lr * update)
 
 
 def build_optimizer(name: str, lrate, steps: int = 0, prog: bool = False):

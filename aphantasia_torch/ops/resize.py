@@ -3,8 +3,11 @@ cutouts' bicubic tap weights, matching torch `F.interpolate(mode='bicubic',
 align_corners=True)` (cubic convolution A=-0.75, taps clamped at the
 borders), and the upsampling of `jax.image.resize(..., "cubic")` that the
 `elastic` pipeline's displacement tracks use (Keys A=-0.5 on half-pixel
-centres, out-of-range taps dropped and the rest renormalised)."""
+centres, out-of-range taps dropped and the rest renormalised), and the
+full-frame bicubic resize of `--sync` (`resize_bicubic`)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -90,3 +93,28 @@ def resize_cubic_last(x: torch.Tensor, n_out: int) -> torch.Tensor:
     smooth tracks need: [S, 9] -> [S, n])."""
     m = cubic_resize_matrix(x.shape[-1], n_out, device=x.device)
     return torch.matmul(x.float(), m)
+
+
+@functools.lru_cache(maxsize=16)
+def _bicubic_matrix(out_size: int, in_size: int, device) -> torch.Tensor:
+    """The dense [out_size, in_size] float32 matrix of `resize_axis_taps`
+    (the taps' weights scattered into their columns, clamped duplicates
+    summed), built once per size and device: a host table built at every
+    call would be a pageable copy, which a CUDA graph's capture refuses.
+    Shared: never written to."""
+    idx, w = resize_axis_taps(out_size, in_size)
+    rows = torch.arange(out_size)[:, None].expand_as(idx)
+    mat = torch.zeros((out_size, in_size), dtype=w.dtype)
+    mat.index_put_((rows, idx.long()), w, accumulate=True)
+    return mat.to(device)
+
+
+def resize_bicubic(img: torch.Tensor, size) -> torch.Tensor:
+    """Full-frame bicubic resize of [..., H, W] to `size`, align_corners=True
+    (`F.interpolate(img, size, mode='bicubic', align_corners=True)`, taps
+    clamped at the borders), as two dense interpolation-matrix products."""
+    h, w = img.shape[-2:]
+    oh, ow = size
+    wy = _bicubic_matrix(int(oh), int(h), img.device)
+    wx = _bicubic_matrix(int(ow), int(w), img.device)
+    return torch.matmul(torch.matmul(wy, img), wx.t())

@@ -7,56 +7,67 @@ boxes and the augmentation parameters, from a torch.Generator) and an
 *apply* (`build_train_step`), so a test can feed the JAX step's own draws
 to this one.  PyTorch runs the step eagerly; the optimizer updates the
 params and its state in place (ops/optim.py), where the JAX step donates
-their buffers.
+their buffers.  The params are a tensor (the FFT spectrum) or a list of
+tensors (the DWT pyramid), updated leaf by leaf with one step count.
 
-Loss terms (as in the JAX step): prompt groups sign * wt * sim_func(enc,
-out_enc), sharpness -sharp * derivat(img), enforce -enforce * sim(out_enc,
-second-pass enc), expand +expand * sim(out_enc, prev_enc) gated by
-(step_i > 0) on the device, and the spectrum-shift noise inside the
-decode.  The aesthetic and LPIPS-sync terms raise until their models are
-ported (ROADMAP.md).
+Loss terms (as in the JAX step, in its order): the aesthetic head
+-0.001 * aest * mean(head(out_enc)); prompt groups sign * wt *
+sim_func(enc, out_enc); the LPIPS sync prog * sync * mean(lpips(half-size
+frame, target)) with prog = (total_steps - step_i) / total_steps read
+from the device's step index; sharpness -sharp * derivat(img); enforce
+-enforce * sim(out_enc, second-pass enc); expand +expand * sim(out_enc,
+prev_enc) gated by (step_i > 0) on the device; and the spectrum-shift
+noise inside the decode.  The aesthetic and sync terms are absent when
+their weights (`aest_params`, `lpips_bundle`) are None, as in JAX.
 
 The step loops (`build_train_loop`, `build_train_loop_frames`) run many
 steps a dispatch, as the JAX package's scanned loops do.  Their unit is a
 *group*: one step, or a frame group (one step, the uint8 render, then
-`opt_step - 1` steps).  The group works on buffers that live for the run:
-the params and the optimizer state (adopted from the first call and
-updated in place), `prev_enc`, the step index, the draws of each of its
-steps, its loss slot and its frame slot, and the CLIP weights and prompts
-of the first call.  On the card the run's first group runs eagerly on a
-side stream, which fills every cache (the host tables, cuFFT's plans,
-cuBLAS's workspaces, the kernels' attributes) and whose results stand;
-then the same group is captured into a CUDA graph (`kernels.CountedGraph`;
-a capture runs nothing) and every later group is a replay.  A capture
-that fails raises: there is no eager fallback on the card.  On the CPU
-every group runs eagerly, the same operations.
+`opt_step - 1` steps).  Groups work on buffers that live for the run
+(`LoopBuffers`): the params and the optimizer state (adopted from the
+first call and updated in place), `prev_enc`, the step index, the draws
+of each of a group's steps, its loss slots and its frame slot, and the
+constants of each tower (CLIP weights, aesthetic head, LPIPS bundle and
+prompts) of the first call.  On the card a group's first run is eager, on
+a side stream, which fills every cache (the host tables, cuFFT's plans,
+cuBLAS's and cuDNN's workspaces, the kernels' attributes) and whose
+results stand; then the same group is captured into a CUDA graph
+(`kernels.CountedGraph`; a capture runs nothing) and its later runs are
+replays.  A capture that fails raises: there is no eager fallback on the
+card.  On the CPU every group runs eagerly, the same operations.
 
 The draws stay outside the graph: before each group the host makes them
 from the caller's `draws(i)` in step order and copies them into the
-group's draw buffers, so the random stream does not depend on how the
-steps are grouped or chunked, and a replay can be held to the eager step
-bit for bit.  The kernels' TMA maps are encoded at capture from the
-addresses of these buffers and of the graph's pool, which stay fixed, and
-the environment switches are read at capture: a loop lives for one run.
+buffers, so the random stream does not depend on how the steps are
+grouped or chunked, nor on the tower, and a replay can be held to the
+eager step bit for bit.  The kernels' TMA maps are encoded at capture from
+the addresses of these buffers and of the graph's pool, which stay fixed,
+and the environment switches are read at capture: a loop lives for one
+run.
 
-`--dualmod` (every `dualmod_steps` step through a second tower) is not
-ported.  Its schedule is static, so it fits this design as two captured
-groups, one per tower, of which the host replays the one each step
-names; `dual=` raises until then, as `with_params=` does (cppn).
+`dual=(cfg2, dm_every)` (`--dualmod`) runs global step g through the
+second tower when g % dm_every == 0 and g > 0.  The schedule is static,
+so where the JAX loop picks the tower with a `lax.cond` in its scan body,
+the host picks the graph: a frame group's *pattern* (the tower of each of
+its `opt_step` steps) depends on its first global step, each pattern that
+occurs is captured once after its own eager first run, and every group
+replays the graph of its pattern.  All patterns share the run's buffers.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-import types
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from aphantasia_torch import kernels
 from aphantasia_torch.models.clip.model import encode_image
+from aphantasia_torch.models.lpips import lpips_apply
 from aphantasia_torch.ops.augs import get_transform
-from aphantasia_torch.ops.losses import derivat, sim_func
+from aphantasia_torch.ops.losses import aesthetic_apply, derivat, sim_func
+from aphantasia_torch.ops.optim import leaves
+from aphantasia_torch.ops.resize import resize_bicubic
 from aphantasia_torch.ops.sampler import Boxes
 
 
@@ -70,6 +81,7 @@ class StepSettings:
     expand: float = 0.0
     noise: float = 0.0
     sync: float = 0.0
+    total_steps: int = 200         # the sync term's progress denominator
     transform: str = "fast"
     persp: str = "affine"          # the `fast` perspective: affine|mixed|exact
     clip_dtype: Any = torch.float32
@@ -109,19 +121,10 @@ def _step_tensor(step_i, device) -> torch.Tensor:
     return torch.full((), step_i, dtype=torch.int32, device=device)
 
 
-def _check_ported(settings: StepSettings):
-    if settings.aest != 0:
-        raise NotImplementedError(
-            "the aesthetic loss (--aest) is not ported to aphantasia_torch "
-            "yet; see ROADMAP.md")
-    if settings.sync > 0:
-        raise NotImplementedError(
-            "the LPIPS sync loss (--sync) is not ported to aphantasia_torch "
-            "yet; see ROADMAP.md")
-
-
 def build_draw_fn(sampler, settings: StepSettings, param_shape):
-    """Returns draw(generator) -> StepDraws on the generator's device."""
+    """Returns draw(generator) -> StepDraws on the generator's device.
+    `param_shape` is the spectrum's shape, or None for params without one
+    (the DWT list), which draw no spectrum shift, as in JAX."""
     transform = get_transform(settings.transform, settings.persp)
     m = sampler.modsize
 
@@ -131,7 +134,7 @@ def build_draw_fn(sampler, settings: StepSettings, param_shape):
 
     def draw(gen: torch.Generator) -> StepDraws:
         shift = None
-        if settings.noise > 0:
+        if settings.noise > 0 and param_shape is not None:
             h, wf = param_shape[2], param_shape[3]
             shift = settings.noise * torch.rand(
                 (1, 1, h, wf, 1), generator=gen, device=gen.device)
@@ -142,11 +145,12 @@ def build_draw_fn(sampler, settings: StepSettings, param_shape):
 
 
 def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
-    """Returns loss_fn(gen_params, clip_params, prompts, prev_enc, draws,
-    step_i) -> (loss, out_enc detached).  `prompts` is a sequence of
-    (embs [K,D], wts [K], coeff) groups; `step_i` an int or a 0-d int32
-    tensor on the params' device."""
-    _check_ported(settings)
+    """Returns loss_fn(gen_params, clip_params, aest_params, lpips_bundle,
+    prompts, prev_enc, draws, step_i) -> (loss, out_enc detached), in the
+    JAX loss's argument order.  `aest_params` is the aesthetic head or
+    None; `lpips_bundle` is (lpips_params, half-size target image) or
+    None; `prompts` a sequence of (embs [K,D], wts [K], coeff) groups;
+    `step_i` an int or a 0-d int32 tensor on the params' device."""
     transform = get_transform(settings.transform, settings.persp)
     dt = settings.clip_dtype
 
@@ -155,17 +159,31 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
         cuts = transform.apply(cut_draws.aug, cuts.to(dt))
         return encode_image(clip_params, clip_cfg, cuts, dtype=dt).float()
 
-    def loss_fn(gen_params, clip_params, prompts, prev_enc,
-                draws: StepDraws, step_i: int):
+    def loss_fn(gen_params, clip_params, aest_params, lpips_bundle, prompts,
+                prev_enc, draws: StepDraws, step_i):
         img = parameterizer.image(gen_params, shift=draws.shift)
         out_enc = encode_cuts(clip_params, draws.cuts, img)
         loss = torch.zeros((), device=img.device)
+        if settings.aest != 0 and aest_params is not None:
+            loss = loss - 0.001 * settings.aest * torch.mean(
+                aesthetic_apply(aest_params, out_enc))
         for embs, wts, coeff in prompts:
             group = torch.zeros((), device=img.device)
             for j in range(embs.shape[0]):
                 group = group + wts[j] * sim_func(embs[j:j + 1], out_enc,
                                                   settings.sim)
             loss = loss + coeff * group
+        if settings.sync > 0 and lpips_bundle is not None:
+            lpips_params, img_in = lpips_bundle
+            # the step index is read on the device: a captured step reads
+            # it at each replay
+            si = _step_tensor(step_i, img.device)
+            total = torch.full((), settings.total_steps, dtype=torch.int32,
+                               device=img.device)
+            prog = (total - si).float() / total.float()
+            half = resize_bicubic(img, img_in.shape[-2:])
+            loss = loss + prog * settings.sync * torch.mean(
+                lpips_apply(lpips_params, half, img_in, normalize=True))
         if settings.sharp != 0:
             loss = loss - settings.sharp * derivat(img, mode="naiv")
         if settings.enforce != 0:
@@ -184,17 +202,22 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
 def build_train_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
                      optimizer):
     """Returns train_step(gen_params, opt_state, prev_enc, clip_params,
-    prompts, draws, step_i) -> (gen_params, opt_state, prev_enc, loss).
-    `gen_params` and `opt_state` are updated in place and returned."""
+    aest_params, lpips_bundle, prompts, draws, step_i) -> (gen_params,
+    opt_state, prev_enc, loss).  `gen_params` and `opt_state` are updated
+    in place and returned."""
     loss_fn = build_loss_fn(parameterizer, sampler, clip_cfg, settings)
 
-    def train_step(gen_params, opt_state, prev_enc, clip_params, prompts,
-                   draws: StepDraws, step_i: int):
-        gen_params.requires_grad_(True)
-        loss, out_enc = loss_fn(gen_params, clip_params, prompts, prev_enc,
-                                draws, step_i)
-        (grads,) = torch.autograd.grad(loss, gen_params)
-        gen_params.requires_grad_(False)
+    def train_step(gen_params, opt_state, prev_enc, clip_params, aest_params,
+                   lpips_bundle, prompts, draws: StepDraws, step_i):
+        ps = leaves(gen_params)
+        for p in ps:
+            p.requires_grad_(True)
+        loss, out_enc = loss_fn(gen_params, clip_params, aest_params,
+                                lpips_bundle, prompts, prev_enc, draws,
+                                step_i)
+        grads = torch.autograd.grad(loss, ps)
+        for p in ps:
+            p.requires_grad_(False)
         with torch.no_grad():
             optimizer.step(gen_params, grads, opt_state)
         return gen_params, opt_state, out_enc, loss.detach()
@@ -244,67 +267,75 @@ def _tree_copy(dst, src):
         raise ValueError(f"a loop's constant changed: {dst!r} -> {src!r}")
 
 
-class StepGroup:
-    """`n` train steps on the run's buffers (module docstring), the frame
-    rendered after the first when `render` is given.  Step k of a group
-    sees step_i = index, or index + k when `stride`.  On the card the
-    first `run` is the eager group and the capture (`graph`;
-    `first_seconds` is its synchronised wall); later runs replay."""
+class LoopBuffers:
+    """The run's buffers (module docstring), shared by every group of a
+    loop: the first `bind` adopts the state and the constants and clones
+    the draws; later binds copy in what differs."""
 
-    def __init__(self, train_step, n: int, stride: bool, render=None,
-                 contrast: float = 1.0, frame_shape=None):
-        self.train_step, self.n, self.stride = train_step, n, stride
-        self.render, self.contrast, self.frame_shape = (render, contrast,
-                                                        frame_shape)
-        self.bufs = None
+    def __init__(self, n: int, frame_shape=None):
+        self.n, self.frame_shape = n, frame_shape
+        self.params = None
+
+    def bind(self, gen_params, opt_state, prev_enc, consts, draws):
+        """`consts`: one (clip_params, aest_params, lpips_bundle, prompts)
+        tuple per tower; `draws`: the group's n StepDraws."""
+        if self.params is None:
+            self.device = dev = leaves(gen_params)[0].device
+            self.params, self.opt, self.prev = gen_params, opt_state, prev_enc
+            self.consts = consts
+            self.draws = [_tree_clone(d) for d in draws]
+            self.index = torch.zeros((), dtype=torch.int32, device=dev)
+            self.losses = torch.zeros((self.n,), device=dev)
+            self.frame = (None if self.frame_shape is None else torch.zeros(
+                self.frame_shape, dtype=torch.uint8, device=dev))
+        else:
+            _tree_copy((self.params, self.opt, self.prev, self.consts),
+                       (gen_params, opt_state, prev_enc, consts))
+            _tree_copy(self.draws, list(draws))
+
+
+class StepGroup:
+    """`len(towers)` train steps on the loop's buffers, step k through
+    `train_steps[towers[k]]`, the frame rendered after the first when
+    `render` is given.  Step k of a group sees step_i = index, or
+    index + k when `stride`.  On the card the first `run` is the eager
+    group and the capture (`graph`; `first_seconds` is its wall,
+    synchronised before and after); later runs replay."""
+
+    def __init__(self, train_steps, towers, stride: bool, bufs: LoopBuffers,
+                 render=None, contrast: float = 1.0):
+        self.train_steps, self.towers = tuple(train_steps), tuple(towers)
+        self.stride, self.bufs = stride, bufs
+        self.render, self.contrast = render, contrast
         self.graph = None
         self.first_seconds = None
-
-    def bind(self, gen_params, opt_state, prev_enc, clip_params, prompts,
-             draws):
-        """The run's buffers with this group's state and draws in them:
-        the first call adopts the state and clones the draws, later calls
-        copy what differs in."""
-        if self.bufs is None:
-            dev = gen_params.device
-            self.bufs = types.SimpleNamespace(
-                params=gen_params, opt=opt_state, prev=prev_enc,
-                clip=clip_params, prompts=prompts,
-                draws=[_tree_clone(d) for d in draws],
-                index=torch.zeros((), dtype=torch.int32, device=dev),
-                losses=torch.zeros((self.n,), device=dev),
-                frame=(None if self.render is None else torch.zeros(
-                    self.frame_shape, dtype=torch.uint8, device=dev)))
-        else:
-            b = self.bufs
-            _tree_copy((b.params, b.opt, b.prev, b.clip, b.prompts),
-                       (gen_params, opt_state, prev_enc, clip_params,
-                        prompts))
-            _tree_copy(b.draws, list(draws))
-        return self.bufs
 
     def run(self, index: int) -> None:
         """The group on the bound buffers, its first step at `index`."""
         b = self.bufs
+        cuda = b.device.type == "cuda"
+        if cuda and self.first_seconds is None:
+            # the work queued before it is not this run's
+            torch.cuda.synchronize(b.device)
         b.index.fill_(index)
         t0 = time.perf_counter()
-        if not b.params.is_cuda:
+        if not cuda:
             self._steps()
         elif self.graph is None:
             self._capture()
         else:
             self.graph.replay()
         if self.first_seconds is None:
-            if b.params.is_cuda:
-                torch.cuda.synchronize(b.params.device)
+            if cuda:
+                torch.cuda.synchronize(b.device)
             self.first_seconds = time.perf_counter() - t0
 
     def _steps(self) -> None:
         b = self.bufs
-        for k in range(self.n):
+        for k, tower in enumerate(self.towers):
             si = b.index + k if k and self.stride else b.index
-            _, _, out_enc, loss = self.train_step(
-                b.params, b.opt, b.prev, b.clip, b.prompts, b.draws[k], si)
+            _, _, out_enc, loss = self.train_steps[tower](
+                b.params, b.opt, b.prev, *b.consts[tower], b.draws[k], si)
             b.prev.copy_(out_enc)
             b.losses[k].copy_(loss)
             if k == 0 and self.render is not None:
@@ -313,7 +344,7 @@ class StepGroup:
     def _capture(self) -> None:
         """The eager group on a side stream (PyTorch captures autograd
         only after such a warm-up), then the same group captured."""
-        dev = self.bufs.params.device
+        dev = self.bufs.device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
@@ -333,14 +364,17 @@ class TrainLoop:
 
     def __init__(self, train_step, n_inner: int):
         self.n_inner = n_inner
-        self.group = StepGroup(train_step, 1, False)
+        self.group = StepGroup((train_step,), (0,), False, LoopBuffers(1))
 
     def __call__(self, gen_params, opt_state, prev_enc, clip_params,
-                 prompts, draws: Callable[[int], StepDraws], step0: int):
-        losses = torch.empty((self.n_inner,), device=gen_params.device)
+                 aest_params, lpips_bundle, prompts,
+                 draws: Callable[[int], StepDraws], step0: int):
+        b = self.group.bufs
+        consts = ((clip_params, aest_params, lpips_bundle, prompts),)
+        losses = torch.empty((self.n_inner,),
+                             device=leaves(gen_params)[0].device)
         for i in range(self.n_inner):
-            b = self.group.bind(gen_params, opt_state, prev_enc, clip_params,
-                                prompts, [draws(i)])
+            b.bind(gen_params, opt_state, prev_enc, consts, [draws(i)])
             self.group.run(int(step0) + i)
             losses[i].copy_(b.losses[0])
             gen_params, opt_state, prev_enc = b.params, b.opt, b.prev
@@ -348,29 +382,62 @@ class TrainLoop:
 
 
 class FrameLoop:
-    """`build_train_loop_frames`'s loop: `n_frames` frame groups a call."""
+    """`build_train_loop_frames`'s loop: `n_frames` frame groups a call,
+    each through the StepGroup of its tower pattern (one pattern without
+    `dm_every`).  `first_runs` maps the index in the last call of each
+    group that ran its pattern's eager group and capture to that run's
+    seconds."""
 
-    def __init__(self, train_step, render, opt_step: int, n_frames: int,
-                 contrast: float, step_index: str, frame_shape):
+    def __init__(self, train_steps, render, opt_step: int, n_frames: int,
+                 contrast: float, step_index: str, frame_shape,
+                 dm_every: int | None = None):
+        self.train_steps, self.render = tuple(train_steps), render
         self.opt_step, self.n_frames = opt_step, n_frames
-        self.frame_shape = tuple(frame_shape)
-        self.step_index = step_index
-        self.group = StepGroup(train_step, opt_step, step_index == "global",
-                               render, contrast, self.frame_shape)
+        self.contrast, self.step_index = contrast, step_index
+        self.dm_every = dm_every
+        self.bufs = LoopBuffers(opt_step, tuple(frame_shape))
+        self.groups: dict = {}
+        self.first_runs: dict = {}
+
+    def pattern(self, base: int) -> tuple:
+        """The tower of each step of the group whose first global step is
+        `base`: 1 where g % dm_every == 0 and g > 0."""
+        dm = self.dm_every
+        return tuple(int(dm is not None and g % dm == 0 and g > 0)
+                     for g in range(base, base + self.opt_step))
+
+    def _group(self, pattern) -> StepGroup:
+        if pattern not in self.groups:
+            self.groups[pattern] = StepGroup(
+                self.train_steps, pattern, self.step_index == "global",
+                self.bufs, self.render, self.contrast)
+        return self.groups[pattern]
 
     def __call__(self, gen_params, opt_state, prev_enc, clip_params,
-                 prompts, draws: Callable[[int], StepDraws], frame0: int):
-        dev = gen_params.device
-        n, nf = self.opt_step, self.n_frames
-        frames = torch.empty((nf,) + self.frame_shape, dtype=torch.uint8,
+                 aest_params, lpips_bundle, prompts, *rest):
+        consts = [(clip_params, aest_params, lpips_bundle, prompts)]
+        if self.dm_every is not None:
+            clip_params2, aest_params2, prompts2, draws, frame0 = rest
+            consts.append((clip_params2, aest_params2, lpips_bundle,
+                           prompts2))
+        else:
+            draws, frame0 = rest
+        n, nf, b = self.opt_step, self.n_frames, self.bufs
+        dev = leaves(gen_params)[0].device
+        frames = torch.empty((nf,) + b.frame_shape, dtype=torch.uint8,
                              device=dev)
         losses = torch.empty((nf * n,), device=dev)
+        self.first_runs = {}
         for j in range(nf):
             fstep = int(frame0) + j
             base = fstep * n
-            b = self.group.bind(gen_params, opt_state, prev_enc, clip_params,
-                                prompts, [draws(base + k) for k in range(n)])
-            self.group.run(fstep if self.step_index == "frame" else base)
+            b.bind(gen_params, opt_state, prev_enc, tuple(consts),
+                   [draws(base + k) for k in range(n)])
+            group = self._group(self.pattern(base))
+            first = group.first_seconds is None
+            group.run(fstep if self.step_index == "frame" else base)
+            if first:
+                self.first_runs[j] = group.first_seconds
             frames[j].copy_(b.frame)
             losses[j * n:(j + 1) * n].copy_(b.losses)
             gen_params, opt_state, prev_enc = b.params, b.opt, b.prev
@@ -381,12 +448,12 @@ def build_train_loop(parameterizer, sampler, clip_cfg, settings: StepSettings,
                      optimizer, n_inner: int) -> TrainLoop:
     """`n_inner` training steps per call (the JAX package's scanned loop).
 
-    Returns loop(gen_params, opt_state, prev_enc, clip_params, prompts,
-    draws, step0) -> (gen_params, opt_state, prev_enc, losses [n_inner]).
-    `draws(i)` gives the StepDraws of the call's i-th step (the JAX loop
-    folds its key with i); the loss sees step_i = step0 + i.  The returned
-    state is the loop's own buffers, updated in place by the next call
-    (the JAX loop donates them)."""
+    Returns loop(gen_params, opt_state, prev_enc, clip_params, aest_params,
+    lpips_bundle, prompts, draws, step0) -> (gen_params, opt_state,
+    prev_enc, losses [n_inner]).  `draws(i)` gives the StepDraws of the
+    call's i-th step (the JAX loop folds its key with i); the loss sees
+    step_i = step0 + i.  The returned state is the loop's own buffers,
+    updated in place by the next call (the JAX loop donates them)."""
     return TrainLoop(build_train_step(parameterizer, sampler, clip_cfg,
                                       settings, optimizer), n_inner)
 
@@ -401,32 +468,34 @@ def build_train_loop_frames(parameterizer, sampler, clip_cfg,
     Each group reproduces the reference cadence: one train step, a uint8
     render of the frame, then the remaining `opt_step - 1` steps.
 
-    Returns loop(gen_params, opt_state, prev_enc, clip_params, prompts,
-    draws, frame0) -> (gen_params, opt_state, prev_enc, frames
-    [n_frames,H,W,3] uint8, losses [n_frames*opt_step]).  `frame0` is the
-    global frame index of the call's first group (frame k covers steps
-    k*opt_step .. (k+1)*opt_step-1), and `draws(gstep)` gives global step
-    gstep's StepDraws, called in step order.  `step_index` picks what the
-    loss sees as step_i: the frame index (clip_fft's `i // opt_step`) or
-    the global step (illustra and cppn pass `i`).  The returned state is
-    the loop's own buffers, as in `build_train_loop`.  `with_params` (the
-    frame-boundary params, for cppn) and `dual` (`--dualmod`, module
-    docstring) are not ported."""
+    Returns loop(gen_params, opt_state, prev_enc, clip_params, aest_params,
+    lpips_bundle, prompts, draws, frame0) -> (gen_params, opt_state,
+    prev_enc, frames [n_frames,H,W,3] uint8, losses [n_frames*opt_step]).
+    `frame0` is the global frame index of the call's first group (frame k
+    covers steps k*opt_step .. (k+1)*opt_step-1), and `draws(gstep)` gives
+    global step gstep's StepDraws, called in step order.  `step_index`
+    picks what the loss sees as step_i: the frame index (clip_fft's
+    `i // opt_step`) or the global step (illustra and cppn pass `i`).  The
+    returned state is the loop's own buffers, as in `build_train_loop`.
+
+    `dual=(clip_cfg2, dm_every)` (`--dualmod`): global step g runs the
+    second tower when g % dm_every == 0 and g > 0 (module docstring), and
+    the loop takes (clip_params2, aest_params2, prompts2) after `prompts`,
+    as the JAX loop does.  `with_params` (the frame-boundary params, for
+    cppn) is not ported."""
     if with_params:
         raise NotImplementedError(
             "with_params (cppn's per-frame snapshots) is not ported to "
             "aphantasia_torch yet; see ROADMAP.md")
-    if dual is not None:
-        raise NotImplementedError(
-            "dual (--dualmod) is not ported to aphantasia_torch yet; see "
-            "ROADMAP.md")
     if step_index not in ("frame", "global"):
         raise ValueError(f"step_index must be 'frame' or 'global', not "
                          f"{step_index!r}")
-    step = build_train_step(parameterizer, sampler, clip_cfg, settings,
-                            optimizer)
-    return FrameLoop(step, build_render(parameterizer), opt_step, n_frames,
-                     contrast, step_index, tuple(parameterizer.size) + (3,))
+    cfgs = (clip_cfg,) if dual is None else (clip_cfg, dual[0])
+    steps = [build_train_step(parameterizer, sampler, cfg, settings,
+                              optimizer) for cfg in cfgs]
+    return FrameLoop(steps, build_render(parameterizer), opt_step, n_frames,
+                     contrast, step_index, tuple(parameterizer.size) + (3,),
+                     dm_every=None if dual is None else dual[1])
 
 
 def frames_per_dispatch(size, n_frames_total: int,

@@ -11,7 +11,8 @@ from __future__ import annotations
 import os
 import sys
 
-ENV_VARS = {"clip": "APHANTASIA_CLIP_PT"}
+ENV_VARS = {"clip": "APHANTASIA_CLIP_PT", "aesthetic": "APHANTASIA_AEST_PT",
+            "lpips": "APHANTASIA_LPIPS_PT"}
 
 _warned: set = set()
 
@@ -29,7 +30,10 @@ def warn_random(component: str) -> None:
     if component in _warned or os.environ.get("APHANTASIA_QUIET"):
         return
     _warned.add(component)
+    var = ENV_VARS.get(component.split()[0].lower(), "")
+    hint = f" (set {var} or the matching --*_weights flag)" if var else ""
     print(f"\n{'!' * 74}\n"
-          f"!! {component} is RANDOM-INITIALIZED: no checkpoint was found.\n"
+          f"!! {component} is RANDOM-INITIALIZED: no checkpoint was found"
+          f"{hint}.\n"
           f"!! Generated imagery is meaningless noise until real weights\n"
           f"!! are provided.\n{'!' * 74}", file=sys.stderr)

@@ -25,8 +25,12 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            APHANTASIA_WIN_CUTOUT=1 and APHANTASIA_PALLAS_LN=1, ViT-L/14 with
            both and ViT-L/14 without them; then the fused half blocks'
            path: ViT-B/32 with APHANTASIA_FUSED_BLOCK=1, alone and with the
-           other two switches; last, the ViT-L/14@336px image tower (577
-           tokens) at full width, one bf16 forward and backward.  The
+           other two switches; then `--pallas` with (f) `--dualmod 4`
+           (ViT-B/32 and ViT-B/16), (g) `--sync 0.4 -i` (a 1280x720 image
+           written here), (h) `--aest 1 --clip_weights` (a full-width
+           ViT-B/32 checkpoint in the OpenAI layout, written here and
+           deleted) and (i) `--dwt`; last, the ViT-L/14@336px image tower
+           (577 tokens) at full width, one bf16 forward and backward.  The
            launch counts are set to 0 just before each run and read just
            after, and must equal the counts the path implies.  The 8-step
            runs take the CLI's chunked path (one eager frame group and its
@@ -34,18 +38,21 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            Steps/s is the median of the steps after the first.
   loop     the step loop (`build_train_loop_frames`) on the default,
            `--pallas` (with opt_step 2), `--pallas --persp exact`,
-           `--pallas -tf elastic` with the shift kernel, (a), (b) and (d)
-           paths at full width: the eager steps twice, then the same steps
-           from the same draws replayed from a CUDA graph, held to the
-           eager run bit for bit (or within the eager runs' own spread),
-           replays under sync debug mode "error"; steps/s eager and
-           replayed, the group's device ms by graph replay, busy share,
-           peak memory (`phase_loop`).
+           `--pallas -tf elastic` with the shift kernel, (a), (b), (d),
+           (f) `--dualmod 3` with opt_step 2 (three tower patterns, a graph
+           each), (g) `--sync 0.4 -i` and (i) `--dwt` paths at full width:
+           the eager steps twice, then the same steps from the same draws
+           replayed from CUDA graphs, held to the eager run bit for bit (or
+           within the eager runs' own spread), replay-only dispatches under
+           sync debug mode "error"; steps/s eager and replayed, each
+           graph's device ms by replay, busy share, peak memory
+           (`phase_loop`).
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
-           (kernel shift) transforms, and for `none` under the cutout and
-           LayerNorm switches and under the block switch.
+           (kernel shift) transforms, for `none` under the cutout and
+           LayerNorm switches and under the block switch, with `--aest`
+           and `--sync`, on a DWT pyramid, and two `--dualmod` steps.
   profile  (only when asked for) torch.profiler over steady replayed steps
            (one step a dispatch, the loss read after each) of both
            cutout paths, the four augmentation paths of `main`, the
@@ -70,6 +77,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1438,7 +1446,129 @@ def phase_main(report, steps: int):
               f"{1.0 / steady3[len(steady3) // 2]:.3f} steps/s on {name}; "
               f"losses {[round(x, 5) for x in res3.losses]}")
     phase_main_switches(report, steps)
+    phase_main_flags(steps)
     phase_main_336()
+
+
+_TMP: list = []
+
+
+def tmp_dir() -> str:
+    """The run's temporary directory (the sync image, the checkpoint),
+    made at first use and removed when `main` ends."""
+    if not _TMP:
+        _TMP.append(tempfile.TemporaryDirectory(prefix="chip_smoke_"))
+    return _TMP[0].name
+
+
+def sync_image() -> str:
+    """A 1280x720 RGB image for `--sync -i`, written once with numpy and
+    PIL: smooth colour ramps under seeded noise, so that every VGG16 tap
+    sees structure."""
+    path = os.path.join(tmp_dir(), "sync.png")
+    if not os.path.isfile(path):
+        import numpy as np
+        from PIL import Image
+        yy, xx = np.mgrid[0:720, 0:1280].astype(np.float32)
+        ramps = np.stack([xx / 1280.0, yy / 720.0,
+                          0.5 + 0.5 * np.sin(xx / 40.0 + yy / 70.0)], -1)
+        noise = np.random.RandomState(5).rand(720, 1280, 3)
+        img = np.clip(0.8 * ramps + 0.2 * noise, 0.0, 1.0)
+        Image.fromarray((img * 255).astype(np.uint8)).save(path)
+    return path
+
+
+def write_checkpoint(seed: int = 11):
+    """A full-width ViT-B/32 checkpoint in the OpenAI key layout (random
+    weights from a seed, fp16 as OpenAI's releases store them) in the
+    run's temporary directory: (path, the tree it holds, read back as
+    float32)."""
+    import torch
+    from aphantasia_torch.models.clip.convert import openai_state_dict
+    from aphantasia_torch.models.clip.model import CLIP_CONFIGS, clip_init
+    params = clip_init(torch.Generator().manual_seed(seed),
+                       CLIP_CONFIGS["ViT-B/32"])
+    sd = {k: v.half() for k, v in openai_state_dict(params).items()}
+    path = os.path.join(tmp_dir(), "vit_b32_openai.pt")
+    torch.save(sd, path)
+    return path, params
+
+
+def phase_main_flags(steps: int):
+    """The `clip_fft` flags of the loss terms, towers and generators, each
+    an 8-step `--pallas` run at full width (1280x720, 200 samples before
+    the budget) with its exact launch counts:
+      (f) --dualmod 4: ViT-B/32 and ViT-B/16 (step 4 on ViT-B/16), 43
+          cutouts; both text towers encode the prompt;
+      (g) --sync 0.4 -i (a 1280x720 image written here): LPIPS against
+          its half-size copy, 95 cutouts; the image prompt is encoded once
+          through the float32 tower;
+      (h) --aest 1 --clip_weights (a full-width ViT-B/32 checkpoint in
+          the OpenAI layout, written here and deleted at the end): the
+          loaded tower equals the tree written, rounded to fp16;
+      (i) --dwt: the coif2 pyramid of 9 levels, saved as a list.
+    Every step launches one attention forward and backward a layer (12
+    layers in both towers) and one cutout each way."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.models.clip.model import load_clip
+    from aphantasia_torch.params.dwt import DWTParameterizer
+    name = torch.cuda.get_device_name(0)
+    ckpt, written = write_checkpoint()
+    loaded, _ = load_clip("ViT-B/32", ckpt)
+    for path in (("visual", "conv"), ("text", "text_projection"),
+                 ("visual", "blocks", 11, "attn", "in_w")):
+        a, b = loaded, written
+        for k in path:
+            a, b = a[k], b[k]
+        check(torch.equal(a, b.half().float()),
+              f"(h) the checkpoint's {path} did not load as written")
+    base = {"attn_fwd": 12 * steps + 12, "attn_bwd": 12 * steps,
+            "cutout_fwd": steps, "cutout_bwd": steps}
+    more = dict(base, attn_fwd=12 * steps + 24)
+    out = os.path.join(OUT_DIR, "flags")
+    for label, extra, samples, want, suffix in (
+            ("(f) --dualmod 4", ["--dualmod", "4"], 43, more, "-dm4"),
+            ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", sync_image()], 95,
+             more, "-sync-ViTB32"),
+            ("(h) --aest 1 --clip_weights", ["--aest", "1", "--clip_weights",
+                                             ckpt], 190, base, "-ViTB32"),
+            ("(i) --dwt", ["--dwt", "--save_pt"], 190, base, "-ViTB32")):
+        argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+                "--samples", "200", "--steps", str(steps), "--pallas",
+                "--out_dir", out, "-nv", "--seed", "1"] + extra
+        kernels.reset_launches()
+        res = _run_cli(argv)
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        print(f"[main] {label} run: launches {got}")
+        check(res.samples == samples, f"{label}: {res.samples} cutouts")
+        check(res.out_name.endswith(suffix), f"{label}: {res.out_name}")
+        check(len(res.losses) == steps
+              and all(math.isfinite(x) for x in res.losses),
+              f"{label} losses not finite: {res.losses}")
+        params = res.params if isinstance(res.params, list) else [res.params]
+        shapes = ([(1, 3, 720, 641, 2)] if "--dwt" not in extra else
+                  DWTParameterizer((720, 1280), "coif2").shapes)
+        check([tuple(p.shape) for p in params] == shapes
+              and all(bool(torch.isfinite(p).all()) for p in params),
+              f"{label}: bad final params")
+        run_dir = os.path.join(out, res.out_name)
+        frames = [f for f in os.listdir(run_dir) if f.endswith(".jpg")]
+        check(len(frames) == steps, f"{label}: {len(frames)} frames")
+        check(os.path.isfile(os.path.join(run_dir, "config.txt")),
+              f"{label}: config.txt missing")
+        check(got == want, f"{label}: launches {got} != expected {want}")
+        if "--dwt" in extra:
+            saved = torch.load(os.path.join(out, res.out_name + ".pt"))
+            check([tuple(x.shape) for x in saved] == shapes,
+                  "(i) the saved pyramid")
+        steady = sorted(res.step_seconds[1:] or res.step_seconds)
+        print(f"[main] {label}: {steps} steps, {res.samples} cutouts, first "
+              f"step {res.step_seconds[0]:.3f} s, steady "
+              f"{1.0 / steady[len(steady) // 2]:.3f} steps/s on {name}; "
+              f"losses {[round(x, 5) for x in res.losses]}")
+    os.remove(ckpt)
 
 
 def phase_main_336(images: int = 4):
@@ -1573,33 +1703,44 @@ LOOP_PATHS = (
       "ln_bwd": 48}),
     ("(d) ViT-B/32, fused block", [], FUSED, 1,
      {k: 12 for k in BLOCK_KERNELS}),
+    ("(f) --dualmod 3, opt_step 2", ["--dualmod", "3"], None, 2, _B32),
+    ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", "{img}"], None, 1, _B32),
+    ("(i) --dwt", ["--dwt"], None, 1, _B32),
 )
 
 
 def _fresh(su):
     """The run's start: params, optimizer state, prev_enc."""
     import torch
-    p = su.gen_params.clone()
+    p = su.gen_params
+    p = [x.clone() for x in p] if isinstance(p, list) else p.clone()
     prev = torch.zeros((su.sampler.count, su.clip_cfg.embed_dim),
-                       device=p.device)
+                       device=su.gen.device)
     return p, su.optimizer.init(p), prev
 
 
 def _leaves(p, st, prev):
-    return {"params": p, "count": st.count, "mu": st.mu, "nu": st.nu,
-            "prev_enc": prev}
+    """The state's tensors by name (a DWT pyramid's leaf by leaf)."""
+    out = {"count": st.count, "prev_enc": prev}
+    for name, v in (("params", p), ("mu", st.mu), ("nu", st.nu)):
+        if isinstance(v, list):
+            out.update({f"{name}{i}": x for i, x in enumerate(v)})
+        else:
+            out[name] = v
+    return out
 
 
 def _loop_eager(su, a, start):
     """The steps one by one (`build_train_step`, the render after each
-    group's first step), as the CLI's per-step loop runs them: the loss
-    read after each step, the frame after each render."""
+    group's first step; under --dualmod the second tower where
+    i % dualmod == 0 and i > 0), as the CLI's per-step loop runs them: the
+    loss read after each step, the frame after each render."""
     import torch
     from aphantasia_torch import kernels
     from aphantasia_torch.step import build_render, build_train_step
     su.gen.set_state(start)
-    step = build_train_step(su.par, su.sampler, su.clip_cfg, su.settings,
-                            su.optimizer)
+    steps = [build_train_step(su.par, su.sampler, t.cfg, su.settings,
+                              su.optimizer) for t in su.towers]
     render = build_render(su.par)
     p, st, prev = _fresh(su)
     torch.cuda.synchronize()
@@ -1608,8 +1749,10 @@ def _loop_eager(su, a, start):
     losses, frames, secs = [], [], []
     for i in range(a.steps):
         t0 = time.perf_counter()
-        p, st, prev, loss = step(p, st, prev, su.clip_vis, su.prompts,
-                                 su.draw(su.gen), i // a.opt_step)
+        tower = int(su.dm_every is not None and i % su.dm_every == 0
+                    and i > 0)
+        p, st, prev, loss = steps[tower](p, st, prev, *su.consts(tower),
+                                         su.draw(su.gen), i // a.opt_step)
         losses.append(loss.item())
         if i % a.opt_step == 0:
             frames.append(render(p, contrast=a.contrast).cpu())
@@ -1622,41 +1765,60 @@ def _loop_eager(su, a, start):
 
 def _loop_replayed(su, a, start, nf):
     """The same steps through `build_train_loop_frames`, `nf` frame groups
-    a dispatch: the first dispatch runs the eager group and the capture,
-    every later one only replays, under sync debug mode "error" (a host
-    sync raises) up to the dispatch's one wait, the read of its losses."""
+    a dispatch: each tower pattern's first group runs eagerly and is
+    captured, every later group only replays, under sync debug mode
+    "error" (a host sync raises) in every dispatch that only replays, up
+    to the dispatch's one wait, the read of its losses.  The device ms of
+    each pattern's graph, and of a step: each pattern's ms times the
+    groups of that pattern, over the steps."""
     import torch
     from aphantasia_torch import kernels
     from aphantasia_torch.step import build_train_loop_frames
     su.gen.set_state(start)
     loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
                                    su.settings, su.optimizer, a.opt_step, nf,
-                                   contrast=a.contrast)
+                                   contrast=a.contrast, dual=su.dual)
     p, st, prev = _fresh(su)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    losses, frames, walls = [], [], []
+    losses, frames, walls, late, replayed = [], [], [], 0.0, []
     for c in range(a.steps // a.opt_step // nf):
         t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error" if c else 0)
+        replays = c and all(loop.pattern((c * nf + j) * a.opt_step)
+                            in loop.groups for j in range(nf))
+        torch.cuda.set_sync_debug_mode("error" if replays else 0)
         try:
-            p, st, prev, f, dl = loop(p, st, prev, su.clip_vis, su.prompts,
+            p, st, prev, f, dl = loop(p, st, prev, *su.loop_args(),
                                       lambda g: su.draw(su.gen), c * nf)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         losses += dl.tolist()
         walls.append(time.perf_counter() - t0)
+        if c:   # a tower pattern's eager group and capture, met late
+            late += sum(loop.first_runs.values())
+            replayed += [loop.pattern((c * nf + j) * a.opt_step)
+                         for j in range(nf) if j not in loop.first_runs]
         frames.append(f.cpu())
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     # the loop's own buffers, which the timing replays below move on
     out = {k: v.clone() for k, v in _leaves(p, st, prev).items()}
     out.update(losses=torch.tensor(losses), frames=torch.cat(frames))
-    graph = loop.group.graph
-    graph_ms = cuda_ms(graph.graph.replay, iters=10, warmup=2)
+    group_ms = {pat: cuda_ms(g.graph.graph.replay, iters=10, warmup=2)
+                for pat, g in loop.groups.items()}
+    uses = [loop.pattern(f * a.opt_step)
+            for f in range(a.steps // a.opt_step)]
+    step_ms = sum(group_ms[pat] for pat in uses) / a.steps
+    first_group = loop.groups[loop.pattern(0)]
+    # the replays after the first dispatch: their steps, their device ms
+    # and their wall (those dispatches' walls less the late first runs)
+    replay = (len(replayed) * a.opt_step,
+              sum(group_ms[pat] for pat in replayed),
+              sum(walls[1:]) - late)
     return out, {"walls": walls, "peak": peak, "launches": launches,
-                 "first": loop.group.first_seconds, "group_ms": graph_ms}
+                 "first": first_group.first_seconds, "replay": replay,
+                 "group_ms": group_ms, "step_ms": step_ms}
 
 
 def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
@@ -1670,14 +1832,16 @@ def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
     difference between the two eager runs.  Launch counts (per replay)
     must be the path's launches a step times the steps, in both runs.
     Reports steps/s eager (median step after the first) and replayed (the
-    dispatches after the first), the replayed group's device ms by CUDA
-    events around back-to-back graph replays, the busy share (device ms
-    a step times replayed steps/s over 1000) and the peak device memory of
-    each run."""
+    replays of the dispatches after the first; a tower pattern's eager
+    run and capture met there is left out), each graph's device ms by CUDA
+    events around back-to-back replays and a step's (the graphs' ms over
+    the run's groups), the busy share (the timed replays' device ms over
+    their wall) and the peak device memory of each run."""
     import torch
     from aphantasia_torch.cli import clip_fft
     name = torch.cuda.get_device_name(0)
     for label, extra, env, n, per_step in paths:
+        extra = [sync_image() if x == "{img}" else x for x in extra]
         argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
                 "--samples", "200", "--steps", str(steps * n), "--opt_step",
                 str(n), "-nv", "--seed", "1",
@@ -1712,25 +1876,92 @@ def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
               f"loop {label}: losses not finite")
         steady = sorted(eager["secs"][1:])
         eager_sps = 1.0 / steady[len(steady) // 2]
-        rest = a.steps - nf * a.opt_step
-        replay_sps = rest / sum(rep["walls"][1:])
-        dev_ms = rep["group_ms"] / a.opt_step
+        # the replays of the dispatches after the first (a tower pattern's
+        # eager run and capture met there left out, with its steps)
+        n_rep, rep_ms, rep_wall = rep["replay"]
+        replay_sps = n_rep / rep_wall
+        busy = rep_ms / 1000 / rep_wall
+        dev_ms = rep["step_ms"]
         exact = all(e == 0 for e, _ in worst.values())
+        graphs = ", ".join(f"{''.join(str(t + 1) for t in pat)} "
+                           f"{ms:.3f}" for pat, ms in rep["group_ms"].items())
         print(f"[loop] {label}: {a.steps} steps, {su.sampler.count} cutouts, "
               f"opt_step {a.opt_step}, {nf} groups a dispatch on {name}: "
               f"eager {eager_sps:.3f} steps/s, replayed {replay_sps:.3f} "
               f"steps/s; first dispatch {rep['walls'][0]:.3f} s (eager group "
-              f"and capture {rep['first']:.3f} s); replayed group "
-              f"{rep['group_ms']:.3f} device ms ({dev_ms:.3f} a step), busy "
-              f"share {dev_ms * replay_sps / 1000:.3f}; peak memory eager "
+              f"and capture {rep['first']:.3f} s); replayed group device "
+              f"ms by tower pattern {graphs} ({dev_ms:.3f} a step), busy "
+              f"share {busy:.3f}; peak memory eager "
               f"{eager['peak'] / 2**20:.0f} MiB, replayed "
               f"{rep['peak'] / 2**20:.0f} MiB; launches a step {per_step}; "
               + ("bit for bit" if exact else
                  "max |replayed - eager| (eager spread): "
                  + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
                              for k, (e, sp) in worst.items())))
+        if su.lpips_bundle is not None:
+            sync_term_ms(su)
+        if su.par.__class__.__name__ == "DWTParameterizer":
+            decode_ms(su)
         del su, runs, got
         torch.cuda.empty_cache()
+
+
+def sync_term_ms(su):
+    """The `--sync` term alone at the run's shapes, by graph replay
+    (`graph_ms`, 5 calls a graph): the resize of the 720x1280 frame, both
+    VGG16 passes (frame and target, as the JAX step recomputes the
+    constant target's features) and the frame's backward; the target's
+    VGG16 features alone; and the float32 bound of the term's
+    convolutions (their multiply-adds over the card's float32 rate)."""
+    import torch
+    from aphantasia_torch.models.lpips import _vgg_features, lpips_apply
+    from aphantasia_torch.ops.resize import resize_bicubic
+    params, target = su.lpips_bundle
+    frame = torch.rand((1, 3) + tuple(su.par.size), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(0))
+
+    def term():
+        x = frame.detach().requires_grad_(True)
+        d = lpips_apply(params, resize_bicubic(x, target.shape[-2:]), target)
+        return torch.autograd.grad(d.mean(), x)[0]
+
+    def features():
+        return _vgg_features(params, target)
+    h, w = target.shape[-2:]
+    macs, cin, scale = 0, 3, 1
+    for v in (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+              512, 512, 512, "M", 512, 512, 512):
+        if v == "M":
+            scale *= 4
+            continue
+        macs += 9 * cin * v * (h * w // scale)
+        cin = v
+    # two forwards and the frame's input gradient (as many multiply-adds)
+    bound = 3 * 2 * macs / PEAK_OPS["f32"] * 1e3
+    print(f"[loop] the --sync term alone at {h}x{w} on "
+          f"{torch.cuda.get_device_name(0)}: {graph_ms(term, 5):.3f} device "
+          f"ms (forward both images, backward the frame), target features "
+          f"alone {graph_ms(features, 5):.3f}; its convolutions' float32 "
+          f"bound {bound:.3f} ms ({3 * 2 * macs / 1e9:.1f} GFLOP)")
+
+
+def decode_ms(su):
+    """The `--dwt` decode alone at the run's size, forward and the
+    gradient of every subband, by graph replay, beside the FFT decode's
+    at the same size."""
+    import torch
+    from aphantasia_torch.params.fft import FFTParameterizer
+    gen = torch.Generator("cuda").manual_seed(0)
+    co = torch.rand((1, 3) + tuple(su.par.size), device="cuda", generator=gen)
+    fft = FFTParameterizer(tuple(su.par.size), 1.5, 1.8)
+    for label, par, p0 in (("DWT", su.par, su.gen_params),
+                           ("FFT", fft, [fft.init(gen, sd=0.07)])):
+        def decode():
+            xs = [x.detach().requires_grad_(True) for x in p0]
+            img = par.image(xs if label == "DWT" else xs[0])
+            return torch.autograd.grad(img, xs, co)
+        print(f"[loop] the {label} decode alone at {su.par.size}: "
+              f"{graph_ms(decode, 5):.3f} device ms forward and backward")
 
 
 # ---------------------------------------------------------------- profile
@@ -1796,7 +2027,7 @@ def phase_profile(only=(), steps: int = 6, active: int = 3):
                          schedule=schedule(wait=0, warmup=steps - active,
                                            active=active, repeat=1)) as prof:
                 for i in range(steps):
-                    *state, _, dl = loop(*state, su.clip_vis, su.prompts,
+                    *state, _, dl = loop(*state, *su.loop_args(),
                                          lambda g: su.draw(su.gen), i)
                     dl.tolist()
                     marks.append(time.perf_counter())
@@ -1825,16 +2056,22 @@ PARITY_LR = 0.05
 
 
 def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
-                  host_decode=False):
+                  host_decode=False, kind="fft"):
     """A small float32 step (tiny ViT of width 128 and 17 tokens, 96x64
     frame, `count` cutouts at 64) with the same weights, start and prompts
     on either device.  With `host_decode` the frame is decoded on the CPU
     and moved to `device`, the gradient back the same way, so both
-    devices' cuts see the same frame bits."""
+    devices' cuts see the same frame bits.  `kind`: "fft" (the spectrum),
+    "terms" (the spectrum with --aest 2 and --sync 0.5: a random head and
+    random VGG16 weights, a 48x32 target, total_steps 4) or "dwt" (a coif2
+    pyramid of 6 levels).  `consts` are the step's (clip, aest,
+    lpips_bundle, prompts)."""
     import torch
     from aphantasia_torch.models.clip.model import CLIPConfig, clip_init
+    from aphantasia_torch.models.lpips import lpips_init
     from aphantasia_torch.ops.optim import build_optimizer
     from aphantasia_torch.ops.sampler import CutoutSampler
+    from aphantasia_torch.params.dwt import DWTParameterizer
     from aphantasia_torch.params.fft import FFTParameterizer
     from aphantasia_torch.step import (StepSettings, build_draw_fn,
                                        build_loss_fn, build_train_step)
@@ -1851,17 +2088,32 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
                     params.cpu(), None if shift is None else shift.cpu(),
                     contrast).to(params.device)
         par = HostDecode((64, 96), 1.5, 1.8)
-    p0 = par.init(g, sd=0.07).to(device)
+    if kind == "dwt":
+        par = DWTParameterizer((64, 96), "coif2", 0.3, 1.8)
+        p0 = [x.to(device) for x in par.init(g)]
+    else:
+        p0 = par.init(g, sd=0.07).to(device)
     prompts = ((torch.randn((2, 64), generator=g).to(device),
                 torch.tensor([1.0, 0.5], device=device), -1.0),)
+    aest = bundle = None
+    extra = {}
+    if kind == "terms":
+        aest = {"w": (0.1 * torch.randn((64, 1), generator=g)).to(device),
+                "b": torch.full((1,), 0.2, device=device)}
+        bundle = (_tree_to(lpips_init(g), device),
+                  torch.rand((1, 3, 32, 48), generator=g).to(device))
+        extra = dict(aest=2.0, sync=0.5, total_steps=4)
     sampler = CutoutSampler((64, 96), count, 64, "uniform", 0.4,
                             use_pallas=use_pallas)
     settings = StepSettings(sim="mix", transform=transform, persp=persp,
                             noise=0.1, sharp=0.2, expand=0.5,
-                            clip_dtype=torch.float32)
+                            clip_dtype=torch.float32, **extra)
     opt = build_optimizer("adam_custom", PARITY_LR, 2)
-    return dict(clip=clip, p0=p0, prompts=prompts, opt=opt,
-                draw=build_draw_fn(sampler, settings, tuple(p0.shape)),
+    shape = None if kind == "dwt" else tuple(p0.shape)
+    return dict(clip=clip, p0=p0, prompts=prompts, opt=opt, cfg=cfg, g=g,
+                par=par, sampler=sampler, settings=settings,
+                consts=(clip, aest, bundle, prompts),
+                draw=build_draw_fn(sampler, settings, shape),
                 loss=build_loss_fn(par, sampler, cfg, settings),
                 step=build_train_step(par, sampler, cfg, settings, opt))
 
@@ -1903,8 +2155,7 @@ def phase_parity():
             prev = torch.zeros((6, 64), device=dev)
             losses = []
             for i in range(2):
-                p, st, prev, loss = c["step"](p, st, prev, c["clip"],
-                                              c["prompts"],
+                p, st, prev, loss = c["step"](p, st, prev, *c["consts"],
                                               to_device(c["draw"](g), dev), i)
                 losses.append(loss.item())
             runs[dev] = (losses, p.cpu())
@@ -1949,36 +2200,90 @@ def phase_parity():
     check(got == want and kernels.LAUNCHES["attn_bwd"] == 0,
           f"parity under the block switch: launches "
           f"{dict(kernels.LAUNCHES)}, expected {want} and no attn_bwd")
+    # the paths of --aest with --sync (LPIPS on cuDNN, the bicubic resize)
+    # and of --dwt, float32, one step each; then two --dualmod steps
+    _parity_one_step(False, "none", "affine", tol=(1e-4, 1e-3), kind="terms")
+    _parity_one_step(False, "none", "affine", tol=(1e-4, 1e-3), kind="dwt")
+    _parity_dual()
 
 
 def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
-                     cpu_env=None, count=6, tol=(2e-3, 2e-2)):
+                     cpu_env=None, count=6, tol=(2e-3, 2e-2), kind="fft"):
     """One step's loss and gradient on the CPU and on the card from the
-    same draws, with `cpu_env` / `cuda_env` set for each device's run.  The
-    `fast` and `elastic` pipelines warp in bf16 on both devices, so the
-    default `tol`: loss within 2e-3 relative, gradient within 2e-2 relative
-    L2 error; a float32 `none` step is held tighter by its caller."""
+    same draws, with `cpu_env` / `cuda_env` set for each device's run
+    (`kind` as `_parity_setup`'s; a pyramid's gradient is held leaf by
+    leaf as one vector).  The `fast` and `elastic` pipelines warp in bf16
+    on both devices, so the default `tol`: loss within 2e-3 relative,
+    gradient within 2e-2 relative L2 error; a float32 `none` step is held
+    tighter by its caller."""
     import torch
     from aphantasia_torch.step import to_device
     grads = {}
     for dev, env in (("cpu", cpu_env), ("cuda", cuda_env)):
         with env_set(env):
-            c = _parity_setup(dev, use_pallas, transform, persp, count)
-            x = c["p0"].clone().requires_grad_(True)
+            c = _parity_setup(dev, use_pallas, transform, persp, count,
+                              kind=kind)
+            p0 = c["p0"] if kind == "dwt" else [c["p0"]]
+            xs = [x.clone().requires_grad_(True) for x in p0]
             d = to_device(c["draw"](torch.Generator().manual_seed(2)), dev)
-            loss, _ = c["loss"](x, c["clip"], c["prompts"],
+            loss, _ = c["loss"](xs if kind == "dwt" else xs[0],
+                                *c["consts"][:3], c["prompts"],
                                 torch.zeros((count, 64), device=dev), d, 0)
-            (gr,) = torch.autograd.grad(loss, x)
-        grads[dev] = (loss.item(), gr.cpu())
+            gr = torch.autograd.grad(loss, xs)
+        grads[dev] = (loss.item(), torch.cat([x.cpu().flatten()
+                                              for x in gr]))
     lr_ = abs(grads["cpu"][0] - grads["cuda"][0]) / abs(grads["cpu"][0])
     ge = ((grads["cpu"][1] - grads["cuda"][1]).norm()
           / grads["cpu"][1].norm()).item()
-    print(f"[parity] {transform}/{persp}, pallas={use_pallas}, {count} "
-          f"cutouts, env {sorted(cuda_env or {})}: loss cpu "
+    print(f"[parity] {kind} {transform}/{persp}, pallas={use_pallas}, "
+          f"{count} cutouts, env {sorted(cuda_env or {})}: loss cpu "
           f"{grads['cpu'][0]:.6f} cuda {grads['cuda'][0]:.6f}, grad "
           f"relative L2 error {ge:.3g}")
     check(lr_ <= tol[0] and ge <= tol[1],
-          f"card vs CPU {transform}/{persp} step differs")
+          f"card vs CPU {kind} {transform}/{persp} step differs")
+
+
+def _parity_dual():
+    """Two steps of the dual frame loop (`dual=(cfg2, 1)`, one step a
+    group: step 0 through the tiny tower, step 1 through a second one of
+    patch 32 and 5 tokens) on the CPU and on the card, where each tower's
+    group runs eagerly, is captured and is the graph of its pattern:
+    losses within 1e-4, params within 2e-3 / 5e-2 of the learning rate
+    (mean / worst), the second tower's graph built."""
+    import torch
+    from aphantasia_torch.models.clip.model import CLIPConfig, clip_init
+    from aphantasia_torch.step import build_train_loop_frames, to_device
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        c = _parity_setup(dev, False, "none")
+        cfg2 = CLIPConfig("tiny2", 64, 64, 2, 128, 32, transformer_width=64,
+                          transformer_heads=2, transformer_layers=1)
+        clip2 = {"visual": _tree_to(clip_init(c["g"], cfg2)["visual"], dev)}
+        prompts2 = ((torch.randn((3, 64), generator=c["g"]).to(dev),
+                     torch.tensor([1.0, 0.5, 0.25], device=dev), -1.0),)
+        loop = build_train_loop_frames(c["par"], c["sampler"], c["cfg"],
+                                       c["settings"], c["opt"], 1, 2,
+                                       dual=(cfg2, 1))
+        g = torch.Generator().manual_seed(3)
+        p = c["p0"].clone()
+        st, prev = c["opt"].init(p), torch.zeros((6, 64), device=dev)
+        p, st, prev, _, losses = loop(
+            p, st, prev, *c["consts"], clip2, None, prompts2,
+            lambda gstep: to_device(c["draw"](g), dev), 0)
+        check(sorted(loop.groups) == [(0,), (1,)]
+              and (dev == "cpu" or all(gr.graph is not None
+                                       for gr in loop.groups.values())),
+              f"parity dual on {dev}: groups {sorted(loop.groups)}")
+        runs[dev] = (losses.tolist(), p.cpu())
+    le = max(abs(a - b) for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
+    err = (runs["cpu"][1] - runs["cuda"][1]).abs()
+    print(f"[parity] dual (two towers, two steps): losses cpu "
+          f"{runs['cpu'][0]} cuda {runs['cuda'][0]}; params |err| mean "
+          f"{err.mean().item():.3g} max {err.max().item():.3g}")
+    check(le <= 1e-4, f"dual: card vs CPU loss differs by {le}")
+    check(err.mean().item() <= 2e-3 * PARITY_LR
+          and err.max().item() <= 5e-2 * PARITY_LR,
+          "dual: card vs CPU params differ")
 
 
 def main(argv=None) -> int:
@@ -2025,6 +2330,9 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for tmp in _TMP:
+            tmp.cleanup()
     print(f"[total] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [report[k] for k in KERNELS if k in report]}))
     print(card)

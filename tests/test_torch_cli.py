@@ -1,6 +1,7 @@
 """The port's clip_fft CLI on the CPU (`--device cpu`) at a tiny size, its
-outputs, every augmentation option, the flags it does not port yet, and
-the package's isolation from JAX and from aphantasia_tpu."""
+outputs, every augmentation option, --dwt, --sync, --aest, --dualmod and
+--clip_weights, the flags it does not port yet, and the package's
+isolation from JAX and from aphantasia_tpu."""
 import os
 import re
 import subprocess
@@ -66,12 +67,81 @@ def test_clip_fft_resume_from_pt(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dwt"], ["--sync", "0.5"], ["--aest", "1"], ["--dualmod", "2"],
     ["--spatial", "2"], ["--mesh", "2"], ["--fleet", "0/2"],
-    ["--clip_weights", "w.pt"], ["-m", "RN50"]])
+    ["-m", "RN50"]])
 def test_unported_flags_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
+
+
+# ViT-B/32's geometry (224 px, 32 px patches) cut to one block of width
+# 64 in each tower: the converter reads the widths from the tensors
+TINY_B32 = dict(name="ViT-B/32", embed_dim=32, image_resolution=224,
+                vision_layers=1, vision_width=64, vision_patch_size=32,
+                transformer_width=64, transformer_heads=1,
+                transformer_layers=1)
+
+
+def _tiny_checkpoint(path):
+    """A TINY_B32 checkpoint in the OpenAI key layout: random weights
+    from a seed, fp16 as OpenAI's releases store them."""
+    from aphantasia_torch.models.clip import model as tm
+    from aphantasia_torch.models.clip.convert import openai_state_dict
+    params = tm.clip_init(torch.Generator().manual_seed(3),
+                          tm.CLIPConfig(**TINY_B32))
+    torch.save({k: v.half() for k, v in openai_state_dict(params).items()},
+               path)
+    return params
+
+
+@pytest.mark.parametrize("flags,out_name", [
+    (["--dwt", "--save_pt"], "x-ViTB32"),
+    (["--sync", "0.5", "-i", "IMG"], "x-src-ViTB32"),
+    (["--aest", "1"], "x-ViTB32"),
+    (["--dualmod", "2"], "x-dm2"),
+    (["--clip_weights", "CKPT"], "x-ViTB32")])
+def test_ported_flags_run(tmp_path, monkeypatch, flags, out_name):
+    """Each flag that raised until it was ported runs end to end: two
+    frames, config.txt with the flag, finite losses and the JAX CLI's
+    out-name.  --dwt saves the pyramid list; --sync with an --in_img file
+    the test writes samples by overscan and tone-maps the frames;
+    --clip_weights loads a checkpoint the test writes (TINY_B32: the
+    tower the CLI runs is the checkpoint's)."""
+    from aphantasia_torch.io.media import img_save
+    from aphantasia_torch.models.clip import model as tm
+    src, ckpt = str(tmp_path / "src.png"), str(tmp_path / "w.pt")
+    img_save(src, np.random.RandomState(0).rand(64, 96, 3))
+    flags = [{"IMG": src, "CKPT": ckpt}.get(f, f) for f in flags]
+    if ckpt in flags:
+        want = _tiny_checkpoint(ckpt)
+        monkeypatch.setitem(tm.CLIP_CONFIGS, "ViT-B/32",
+                            tm.CLIPConfig(**TINY_B32))
+    out = str(tmp_path / "out")
+    a = clip_fft.get_args(["-t", "x", "--out_dir", out] + TINY + flags)
+    res = clip_fft.run(a)
+    assert res.out_name == out_name
+    run_dir = os.path.join(out, out_name)
+    frames = sorted(f for f in os.listdir(run_dir) if f.endswith(".jpg"))
+    assert frames == ["0000.jpg", "0001.jpg"]
+    cfg = open(os.path.join(run_dir, "config.txt")).read()
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    if "--dwt" in flags:
+        assert "dwt: True" in cfg and isinstance(res.params, list)
+        from aphantasia_tpu.io.checkpoint import load_pt
+        obj = load_pt(os.path.join(out, out_name + ".pt"))
+        assert [o.shape for o in obj] == [tuple(p.shape) for p in res.params]
+    if "--sync" in flags:
+        assert "sync: 0.5" in cfg and a.align == "overscan"
+    if "--aest" in flags:
+        assert "aest: 1.0" in cfg
+    if "--dualmod" in flags:
+        assert "dualmod: 2" in cfg and "sim: cossim" in cfg
+    if ckpt in flags:
+        assert "clip_weights: " + ckpt in cfg
+        loaded, _ = tm.load_clip("ViT-B/32", ckpt)
+        np.testing.assert_array_equal(
+            loaded["visual"]["conv"].numpy(),
+            want["visual"]["conv"].half().float().numpy())
 
 
 @pytest.mark.parametrize("flags", [

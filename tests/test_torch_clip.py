@@ -192,6 +192,20 @@ def test_unported_models_raise():
         tm.load_clip("RN50")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.load_clip("RN50x64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.load_clip("ViT-B/32", weights_path="/nonexistent.pt")
     assert tm.input_resolution("RN50x4") == 288
+
+
+def test_unported_models_raise_from_a_checkpoint(tmp_path):
+    """A ModifiedResNet checkpoint in the OpenAI layout (no class
+    embedding, `visual.layer*` blocks), which a ViT load reads until its
+    tower is ported (ROADMAP A.5), raises by name."""
+    from aphantasia_torch.models.clip.convert import openai_state_dict
+    cfg = tm.CLIPConfig(**dict(CFG_KW, vision_layers=1))
+    sd = openai_state_dict(tm.clip_init(torch.Generator().manual_seed(0),
+                                        cfg))
+    sd.pop("visual.class_embedding")
+    sd["visual.layer1.0.conv1.weight"] = torch.zeros((4, 4, 1, 1))
+    path = str(tmp_path / "rn.pt")
+    torch.save(sd, path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+        tm.load_clip("ViT-B/32", weights_path=path)

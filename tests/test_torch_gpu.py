@@ -791,15 +791,16 @@ def _chip_smoke():
     return importlib.import_module("chip_smoke")
 
 
-@pytest.mark.parametrize("path", range(7))
+@pytest.mark.parametrize("path", range(10))
 def test_replayed_loop_equals_the_eager_steps(cuda, path):
-    """chip_smoke.py's `loop` phase on one of its seven paths at full width
+    """chip_smoke.py's `loop` phase on one of its ten paths at full width
     (1280x720, 200 samples before the budget), 4 frame groups (opt_step 2
-    on `--pallas`), 2 a dispatch: the replayed loop against two eager runs
+    on `--pallas` and on `--dualmod 3`, whose groups take three tower
+    patterns), 2 a dispatch: the replayed loop against two eager runs
     from the same draws, params, optimizer state, prev_enc, losses and
     frames bit for bit (or within twice the eager runs' own spread), the
-    launches counted per replay, the replays under sync debug mode
-    "error"."""
+    launches counted per replay, the dispatches that only replay under
+    sync debug mode "error"."""
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -826,14 +827,63 @@ def test_frame_writer_pulls_a_chunk_from_the_card(cuda, tmp_path):
 def test_loop_capture_failure_raises(cuda):
     """A step the graph cannot capture (here a host sync) raises from the
     first group's capture after its eager run: no eager fallback."""
-    from aphantasia_torch.step import StepGroup
+    from aphantasia_torch.step import LoopBuffers, StepGroup
 
-    def syncing_step(p, st, prev, clip, prompts, draws, si):
+    def syncing_step(p, st, prev, clip, aest, lpips, prompts, draws, si):
         p.add_(float(p.sum()))
         return p, st, prev, p.sum()
     p = torch.ones(8, device="cuda")
-    group = StepGroup(syncing_step, 1, False)
-    group.bind(p, None, torch.zeros(8, device="cuda"), {}, (), [None])
+    bufs = LoopBuffers(1)
+    group = StepGroup((syncing_step,), (0,), False, bufs)
+    bufs.bind(p, None, torch.zeros(8, device="cuda"), (({}, None, None, ()),),
+              [None])
     with pytest.raises(RuntimeError):
         group.run(0)
     assert group.graph is None
+
+
+def test_lpips_term_replays_equal_eager(cuda):
+    """The `--sync` term at its full-width shapes (the 720x1280 frame
+    resized to 360x640 against a 360x640 target, VGG16 on cuDNN with
+    deterministic algorithms, float32), forward and input gradient,
+    captured into a CUDA graph: the replay equals the eager call bit for
+    bit, and two eager calls agree."""
+    from aphantasia_torch.models.lpips import lpips_apply, lpips_init
+    from aphantasia_torch.ops.resize import resize_bicubic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = lpips_init(cuda)
+    img = torch.rand((1, 3, 720, 1280), generator=cuda, device="cuda")
+    target = torch.rand((1, 3, 360, 640), generator=cuda, device="cuda")
+
+    def term():
+        x = img.detach().requires_grad_(True)
+        d = lpips_apply(params, resize_bicubic(x, (360, 640)), target)
+        (g,) = torch.autograd.grad(d.mean(), x)
+        return d.detach(), g
+    (d0, g0), (d1, g1) = _captured(term)
+    d2, g2 = term()
+    assert torch.isfinite(d0).all() and torch.isfinite(g0).all()
+    assert torch.equal(d0, d1) and torch.equal(g0, g1)
+    assert torch.equal(d0, d2) and torch.equal(g0, g2)
+
+
+def test_dwt_decode_replays_equal_eager(cuda):
+    """The `--dwt` decode at full width (a coif2 pyramid of 9 levels for
+    720x1280) and its gradient, captured: the replay equals the eager call
+    bit for bit."""
+    from aphantasia_torch.params.dwt import DWTParameterizer
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    par = DWTParameterizer((720, 1280), "coif2", 0.3, 1.8)
+    pyr = par.init(cuda)
+    co = torch.rand((1, 3, 720, 1280), generator=cuda, device="cuda")
+
+    def decode():
+        xs = [x.detach().requires_grad_(True) for x in pyr]
+        img = par.image(xs, contrast=1.1)
+        return (img.detach(),) + torch.autograd.grad(img, xs, co)
+    eager, replayed = _captured(decode)
+    assert eager[0].shape == (1, 3, 720, 1280)
+    assert all(torch.equal(a, b) for a, b in zip(eager, replayed))

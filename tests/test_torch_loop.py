@@ -81,8 +81,8 @@ def test_frame_loop_matches_jax(step_index):
         *jstate, jframes, jl = jloop(*jstate, c["jclip"], None, None,
                                      c["jprompts"], key,
                                      jnp.int32(call * nf))
-        *tstate, tframes, tl = tloop(*tstate, c["tclip"], c["tprompts"],
-                                     draws, call * nf)
+        *tstate, tframes, tl = tloop(*tstate, c["tclip"], None, None,
+                                     c["tprompts"], draws, call * nf)
         assert tframes.shape == (nf, 48, 64, 3)
         assert tframes.dtype == torch.uint8
         assert tl.shape == (nf * opt_step,)
@@ -111,8 +111,8 @@ def test_train_loop_matches_jax():
                                   c["jset"], c["p0"].shape)
         *jstate, jl = jloop(*jstate, c["jclip"], None, None, c["jprompts"],
                             key, jnp.int32(call * n_inner))
-        *tstate, tl = tloop(*tstate, c["tclip"], c["tprompts"], draws,
-                            call * n_inner)
+        *tstate, tl = tloop(*tstate, c["tclip"], None, None, c["tprompts"],
+                            draws, call * n_inner)
         assert tl.shape == (n_inner,)
         _close(c, jstate, tstate, jl, tl)
 
@@ -155,8 +155,8 @@ def test_frame_loop_does_not_depend_on_chunking(opt_step):
     gen = torch.Generator().manual_seed(7)
     p, st, prev = _state(c, opt)
     for i in range(4 * opt_step):
-        p, st, prev, loss = step(p, st, prev, c["tclip"], c["tprompts"],
-                                 draw(gen), i // opt_step)
+        p, st, prev, loss = step(p, st, prev, c["tclip"], None, None,
+                                 c["tprompts"], draw(gen), i // opt_step)
         losses_eager.append(loss)
         if i % opt_step == 0:
             frames_eager.append(render(p, contrast=1.1))
@@ -170,8 +170,8 @@ def test_frame_loop_does_not_depend_on_chunking(opt_step):
         state = _state(c, opt)
         frames, losses = [], []
         for call in range(4 // nf):
-            *state, f, dl = loop(*state, c["tclip"], c["tprompts"],
-                                 lambda g: draw(gen), call * nf)
+            *state, f, dl = loop(*state, c["tclip"], None, None,
+                                 c["tprompts"], lambda g: draw(gen), call * nf)
             frames.append(f.clone())
             losses.append(dl.clone())
         got = _leaves(*state) + [torch.cat(losses), torch.cat(frames)]
@@ -185,8 +185,6 @@ def test_loop_refuses_what_is_not_ported():
     args = (c["tpar"], c["tsam"], c["tcfg"], c["tset"], opt, 2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstep.build_train_loop_frames(*args, with_params=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.build_train_loop_frames(*args, dual=(c["tcfg"], 2))
     with pytest.raises(ValueError, match="step_index"):
         tstep.build_train_loop_frames(*args, step_index="local")
 
@@ -199,23 +197,25 @@ def test_loop_copies_a_new_state_into_its_buffers():
     loop = tstep.build_train_loop_frames(c["tpar"], c["tsam"], c["tcfg"],
                                          c["tset"], opt, 1, 1)
     gen = torch.Generator().manual_seed(3)
-    state = loop(*_state(c, opt), c["tclip"], c["tprompts"],
+    state = loop(*_state(c, opt), c["tclip"], None, None, c["tprompts"],
                  lambda g: draw(gen), 0)[:3]
     p, st, prev = state
     copy = (p * 0.9, to.OptState(st.count + 1, st.mu * 0.5, st.nu * 2.0),
             prev * 0.7)
     g2 = torch.Generator().set_state(gen.get_state())
-    out1 = loop(*copy, c["tclip"], c["tprompts"], lambda g: draw(gen), 1)
+    out1 = loop(*copy, c["tclip"], None, None, c["tprompts"],
+                lambda g: draw(gen), 1)
     assert out1[0] is p and out1[1] is st
     loop2 = tstep.build_train_loop_frames(c["tpar"], c["tsam"], c["tcfg"],
                                           c["tset"], opt, 1, 1)
-    out2 = loop2(*copy, c["tclip"], c["tprompts"], lambda g: draw(g2), 1)
+    out2 = loop2(*copy, c["tclip"], None, None, c["tprompts"],
+                 lambda g: draw(g2), 1)
     for a, b in zip(_leaves(*out1[:3]) + list(out1[3:]),
                     _leaves(*out2[:3]) + list(out2[3:])):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="constant"):
-        loop(*out1[:3], c["tclip"], ((c["tprompts"][0][0],
-                                      c["tprompts"][0][1], 2.0),),
+        loop(*out1[:3], c["tclip"], None, None,
+             ((c["tprompts"][0][0], c["tprompts"][0][1], 2.0),),
              lambda g: draw(gen), 2)
 
 
@@ -342,8 +342,8 @@ def test_step_and_draws_make_no_host_tables_after_the_first(monkeypatch,
     for i in range(2):
         if i:
             _forbid_host_tables(monkeypatch)
-        p, st, prev, loss = step(p, st, prev, c["tclip"], c["tprompts"],
-                                 draw(gen), idx + i)
+        p, st, prev, loss = step(p, st, prev, c["tclip"], None, None,
+                                 c["tprompts"], draw(gen), idx + i)
     monkeypatch.undo()
     assert torch.isfinite(loss) and int(st.count) == 2
 

@@ -14,7 +14,6 @@ noise in its own update; the mean holds the whole update tight.  The
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from aphantasia_tpu.models.clip import model as jm
@@ -82,7 +81,7 @@ def test_fast_transform_loss_and_grad_match_jax():
             jp, c["jclip"], None, None, c["jprompts"], jprev, k, i)
         x = torch.tensor(np.array(jp), requires_grad=True)
         draws = jax_step_draws(k, c["jsam"], c["jset"], c["p0"].shape)
-        lt, _ = tloss(x, c["tclip"], c["tprompts"],
+        lt, _ = tloss(x, c["tclip"], None, None, c["tprompts"],
                       torch.tensor(np.array(jprev)), draws, i)
         (gt,) = torch.autograd.grad(lt, x)
         np.testing.assert_allclose(lt.item(), float(lj), rtol=2e-3)
@@ -117,8 +116,8 @@ def test_mixed_perspective_step_matches_jax(monkeypatch):
     assert int((draws.cuts.aug.endpoints.reshape(s, -1)
                 != draws.cuts.aug.endpoints[:1].reshape(1, -1)).any(1).sum())
     x = torch.tensor(c["p0"], requires_grad=True)
-    lt, _ = tloss(x, c["tclip"], c["tprompts"], torch.zeros((s, 32)), draws,
-                  0)
+    lt, _ = tloss(x, c["tclip"], None, None, c["tprompts"],
+                  torch.zeros((s, 32)), draws, 0)
     (gt,) = torch.autograd.grad(lt, x)
     np.testing.assert_allclose(lt.item(), float(lj), rtol=2e-3)
     gj = np.asarray(gj)
@@ -158,8 +157,8 @@ def test_step_under_the_window_and_ln_switches_matches_jax(monkeypatch):
                      c["jprompts"], jprev, key, 0)
     draws = jax_step_draws(key, c["jsam"], c["jset"], c["p0"].shape)
     x = torch.tensor(c["p0"], requires_grad=True)
-    lt, _ = tloss(x, c["tclip"], c["tprompts"], torch.zeros((s, 32)), draws,
-                  0)
+    lt, _ = tloss(x, c["tclip"], None, None, c["tprompts"],
+                  torch.zeros((s, 32)), draws, 0)
     (gt,) = torch.autograd.grad(lt, x)
     assert calls == [(61 * 17, 128)] * 4
     np.testing.assert_allclose(lt.item(), float(lj), rtol=1e-4)
@@ -192,7 +191,7 @@ def test_three_steps_match_jax():
         jp, js, jprev, jloss = jtrain(jp, js, jprev, c["jclip"], None, None,
                                       c["jprompts"], k, jnp.int32(i))
         draws = jax_step_draws(k, c["jsam"], c["jset"], c["p0"].shape)
-        tp, ts, tprev, tloss = ttrain(tp, ts, tprev, c["tclip"],
+        tp, ts, tprev, tloss = ttrain(tp, ts, tprev, c["tclip"], None, None,
                                       c["tprompts"], draws, i)
         np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-4,
                                    atol=1e-4)
@@ -216,12 +215,62 @@ def test_draw_fn_shapes():
 
 
 def test_unported_terms_raise():
-    sam = CutoutSampler((48, 64), 2, 32)
-    par = FFTParameterizer((48, 64))
-    for kw in (dict(aest=1.0), dict(sync=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tstep.build_loss_fn(par, sam, tm.CLIPConfig(**CFG_KW),
-                                tstep.StepSettings(**kw))
+    """The aesthetic and LPIPS-sync terms, which raised until they were
+    ported, against the JAX step: three free-running steps with --aest
+    (a head on the 32-wide embeddings) and --sync (random VGG16 weights
+    carried across, a 24x32 target for the 48x64 frame, total_steps 5 so
+    the progress weight falls from 1 to 0.6), the `none` transform and
+    the JAX step's draws; step_i a device tensor on the port's side.  The
+    first-test tolerances: losses 1e-4 relative, params 2e-3 / 5e-2 of
+    the learning rate.  Without the head and the bundle both terms are
+    absent, as in JAX: the loss equals the plain loss."""
+    from aphantasia_tpu.models.lpips import lpips_init
+    from aphantasia_torch.convert import (aesthetic_params_from_numpy,
+                                          lpips_params_from_numpy)
+    lr = 0.05
+    kw = dict(transform="none", aest=2.0, sync=0.5, total_steps=5)
+    c = _setup(kw)
+    s = c["jsam"].count
+    rs = np.random.RandomState(6)
+    head = {"w": (0.1 * rs.randn(32, 1)).astype(np.float32),
+            "b": np.asarray([0.2], np.float32)}
+    lp = tree_np(lpips_init(jax.random.PRNGKey(1)))
+    img_in = rs.rand(1, 3, 24, 32).astype(np.float32)
+    jbundle = (jax.tree.map(jnp.asarray, lp), jnp.asarray(img_in))
+    tbundle = (lpips_params_from_numpy(lp), torch.tensor(img_in))
+    jhead = jax.tree.map(jnp.asarray, head)
+    thead = aesthetic_params_from_numpy(head)
+    jopt = jo.build_optimizer("adam_custom", lr, 3)
+    topt = to.build_optimizer("adam_custom", lr, 3)
+    jtrain = jstep.build_train_step(c["jpar"], c["jsam"], c["jcfg"],
+                                    c["jset"], jopt)
+    ttrain = tstep.build_train_step(c["tpar"], c["tsam"], c["tcfg"],
+                                    c["tset"], topt)
+    jp = jnp.asarray(c["p0"])
+    js, jprev = jopt.init(jp), jnp.zeros((s, 32))
+    tp = fft_params_from_numpy(c["p0"])
+    ts, tprev = topt.init(tp), torch.zeros((s, 32))
+    key = jax.random.PRNGKey(12)
+    for i in range(3):
+        k = jax.random.fold_in(key, i)
+        jp, js, jprev, jl = jtrain(jp, js, jprev, c["jclip"], jhead, jbundle,
+                                   c["jprompts"], k, jnp.int32(i + 1))
+        draws = jax_step_draws(k, c["jsam"], c["jset"], c["p0"].shape)
+        tp, ts, tprev, tl = ttrain(
+            tp, ts, tprev, c["tclip"], thead, tbundle, c["tprompts"], draws,
+            torch.tensor(i + 1, dtype=torch.int32))
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4,
+                                   atol=1e-4)
+    err = np.abs(tp.numpy() - np.asarray(jp))
+    assert err.mean() <= 2e-3 * lr, err.mean()
+    assert err.max() <= 5e-2 * lr, err.max()
+    plain = tstep.build_loss_fn(c["tpar"], c["tsam"], c["tcfg"],
+                                tstep.StepSettings(transform="none"))
+    terms = tstep.build_loss_fn(c["tpar"], c["tsam"], c["tcfg"], c["tset"])
+    args = (c["tprompts"], tprev, draws, 0)
+    base = plain(tp, c["tclip"], None, None, *args)[0]
+    assert torch.equal(terms(tp, c["tclip"], None, None, *args)[0], base)
+    assert terms(tp, c["tclip"], thead, tbundle, *args)[0] != base
 
 
 def test_render_is_uint8_frame():
