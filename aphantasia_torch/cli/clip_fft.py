@@ -19,12 +19,13 @@ frames pulled once a dispatch.  Otherwise it runs the per-step loop.
 term and its tone map), --aest (the LAION head), --dualmod N (ViT-B/16
 every N-th step) and --clip_weights (an OpenAI, open_clip or HuggingFace
 checkpoint) run as in the JAX CLI; every weight without a checkpoint is
-random-init, loudly.  Still raising: --spatial, --mesh, --fleet and
-models other than ViT-B/32, ViT-B/16 and ViT-L/14 (ROADMAP.md lists
-them).
+random-init, loudly.  Every model of the list runs: the ViTs and the
+ModifiedResNets (RN50 to RN50x16; no aesthetic head, as in JAX).  Still
+raising: --spatial, --mesh and --fleet (ROADMAP.md A.10).
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m ViT-L/14
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m RN50x4
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dwt
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dualmod 4
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" \
@@ -47,13 +48,13 @@ import numpy as np
 import torch
 
 from aphantasia_torch.cli.common import (
-    ClipWrapper, add_parallel_flags, apply_sample_budget, dualmod_steps,
-    maybe_translate, parse_size, resolve_dtype, resolve_persp)
+    ClipWrapper, add_parallel_flags, apply_sample_budget, card_settings,
+    check_ported, dualmod_steps, maybe_translate, parse_size, resolve_dtype,
+    resolve_persp)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import (AsyncFrameWriter, frames_to_video,
                                        img_list, img_read)
-from aphantasia_torch.models.clip.model import PORTED_MODELS
 from aphantasia_torch.models.lpips import lpips_get
 from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
 from aphantasia_torch.ops.optim import build_optimizer
@@ -69,7 +70,7 @@ from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
 from aphantasia_torch.utils import save_cfg, txt_clean
 
 # the JAX CLI's list and ViT-L/14, which the JAX package's illustra and
-# cppn CLIs offer and this port's towers run
+# cppn CLIs offer
 CLIP_MODELS = ["ViT-B/16", "ViT-B/32", "ViT-L/14", "RN101", "RN50x16",
                "RN50x4", "RN50"]
 
@@ -138,18 +139,6 @@ def get_args(argv=None):
     return a
 
 
-def check_ported(a) -> None:
-    """Raise for every flag whose feature the port does not have yet."""
-    unported = [name for name, on in (
-        ('--spatial', a.spatial > 1),
-        ('--mesh', a.mesh not in (None, '0', '1')), ('--fleet', a.fleet),
-        ('--model ' + a.model, a.model not in PORTED_MODELS)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"not ported to aphantasia_torch yet: {', '.join(unported)}; "
-            "see ROADMAP.md")
-
-
 @dataclasses.dataclass
 class RunResult:
     params: object                # final params: spectrum, or DWT list
@@ -161,6 +150,7 @@ class RunResult:
     samples: int                  # cutouts per step after the budget
     out_name: str                 # run directory / file stem under out_dir
     video: str | None             # the video written, if any
+    loop: object = None           # the chunked path's FrameLoop, if taken
 
 
 @dataclasses.dataclass
@@ -223,14 +213,7 @@ def setup(a) -> RunSetup:
     check_ported(a)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
-    if device.type == "cuda":
-        # float32 products stay float32 (TF32 would keep ~3 digits), and
-        # cuDNN (the LPIPS and DWT convolutions) picks deterministic
-        # algorithms, the same ones eager and captured
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
+    card_settings(device)
     gen = torch.Generator(device=device).manual_seed(a.seed)
 
     def seeded(seed, dev=device):
@@ -366,6 +349,7 @@ def run(a, on_step=None) -> RunResult:
     # the per-step loop's (one draw a step, in step order) either way
     chunked = (a.opt_step > 0 and a.steps % a.opt_step == 0
                and a.steps >= a.opt_step)
+    loop = None
     with trace(a.profile), AsyncFrameWriter() as writer:
         if chunked:
             n_frames = a.steps // a.opt_step
@@ -426,7 +410,8 @@ def run(a, on_step=None) -> RunResult:
         # params LIST, as the reference saves it
         save_pt('%s.pt' % os.path.join(a.out_dir, out_name),
                 list(gen_params) if a.dwt else [gen_params])
-    return RunResult(gen_params, losses, seconds, a.samples, out_name, video)
+    return RunResult(gen_params, losses, seconds, a.samples, out_name, video,
+                     loop)
 
 
 if __name__ == '__main__':

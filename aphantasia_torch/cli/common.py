@@ -1,5 +1,6 @@
 """Shared CLI plumbing (counterpart of aphantasia_tpu.cli.common): prompt
-encoding, the sample-budget cascade, precision and device selection."""
+encoding, the sample-budget cascade, precision and device selection, and
+the spectrum crossfade of illustra and interpol."""
 from __future__ import annotations
 
 import os
@@ -7,12 +8,16 @@ import os
 import numpy as np
 import torch
 
+from aphantasia_torch.io.checkpoint import load_pt
+from aphantasia_torch.io.media import AsyncFrameWriter
 from aphantasia_torch.models.clip.model import (
     XMEM, cast_weights, encode_image, encode_text, input_resolution,
     load_clip)
 from aphantasia_torch.models.clip.tokenizer import tokenize
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.color import clip_normalize
+from aphantasia_torch.progress import ProgressBar
+from aphantasia_torch.step import build_shift_render_loop, frames_per_dispatch
 
 
 def parse_size(size_str):
@@ -30,6 +35,17 @@ def resolve_dtype(name: str, device: torch.device):
     return {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
             "fp32": torch.float32, "float32": torch.float32,
             "auto": auto}[name]
+
+
+def card_settings(device: torch.device) -> None:
+    """On the card: float32 products stay float32 (TF32 would keep ~3
+    digits), and cuDNN (the ResNet, LPIPS and DWT convolutions) picks
+    deterministic algorithms, the same ones eager and captured."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
 
 
 class ClipWrapper:
@@ -141,6 +157,19 @@ def add_parallel_flags(parser):
     return parser
 
 
+def check_ported(a) -> None:
+    """Raise for every flag given whose feature the port does not have
+    yet: --spatial, --mesh and --fleet (those a CLI has)."""
+    unported = [name for name, on in (
+        ('--spatial', getattr(a, 'spatial', 0) > 1),
+        ('--mesh', getattr(a, 'mesh', None) not in (None, '0', '1')),
+        ('--fleet', getattr(a, 'fleet', None))) if on]
+    if unported:
+        raise NotImplementedError(
+            f"not ported to aphantasia_torch yet: {', '.join(unported)}; "
+            "see ROADMAP.md A.10")
+
+
 def resolve_persp(flag) -> str:
     """The `fast` pipeline's perspective mode, with the JAX CLIs'
     precedence: the --persp flag wins; without it,
@@ -168,3 +197,36 @@ def maybe_translate(texts, enabled: bool, verbose=True):
     if verbose:
         print(" translated to:", out)
     return out
+
+
+def read_pt(path, device) -> torch.Tensor:
+    """A spectrum snapshot (a bare tensor, or the first of a list) as a
+    float32 tensor on `device`."""
+    obj = load_pt(path)
+    if isinstance(obj, list):
+        obj = obj[0]
+    return torch.as_tensor(np.asarray(obj, np.float32), device=device)
+
+
+def crossfade(par, contrast, ptfiles, vsteps: int, tempdir: str, device,
+              verbose: bool = True) -> int:
+    """`vsteps` frames from each snapshot towards the next (the last
+    towards the first), `%05d.jpg` in `tempdir`, `frames_per_dispatch`
+    frames a batched render; returns the frames written."""
+    rloop = build_shift_render_loop(par, contrast)
+    nf = frames_per_dispatch(tuple(par.size), vsteps)
+    pbar = ProgressBar(vsteps * len(ptfiles)) if verbose else None
+    written = 0
+    with AsyncFrameWriter() as fw:
+        for px in range(len(ptfiles)):
+            p1 = read_pt(ptfiles[px], device)
+            diff = read_pt(ptfiles[(px + 1) % len(ptfiles)], device) - p1
+            for c in range(0, vsteps, nf):
+                xs = torch.arange(c, c + nf, dtype=torch.float32) / vsteps
+                fw.save_batch([os.path.join(tempdir,
+                                            '%05d.jpg' % (px * vsteps + c + j))
+                               for j in range(nf)], rloop(p1, diff, xs))
+                written += nf
+                for _ in range(nf if pbar is not None else 0):
+                    pbar.upd()
+    return written

@@ -21,13 +21,22 @@ def _tensor(a, device):
     return torch.as_tensor(np.array(a, order="C"), device=device)
 
 
+def hwio_to_oihw(w):
+    """A JAX convolution weight [kh, kw, in, out] -> torch's [out, in, kh,
+    kw]."""
+    return np.asarray(w).transpose(3, 2, 0, 1)
+
+
 def clip_params_from_numpy(tree, device="cpu"):
     """The JAX `clip_init` tree (nested dicts/lists of arrays, e.g. after
-    `jax.tree.map(np.asarray, params)`) -> the same tree of tensors."""
+    `jax.tree.map(np.asarray, params)`) -> the same tree of tensors, the
+    ResNet convolutions (the 4-D leaves) from HWIO to OIHW."""
     if isinstance(tree, dict):
         return {k: clip_params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [clip_params_from_numpy(v, device) for v in tree]
+    if np.ndim(tree) == 4:
+        return _tensor(hwio_to_oihw(tree), device)
     return _tensor(tree, device)
 
 
@@ -48,7 +57,7 @@ def aesthetic_params_from_numpy(params, device="cpu"):
 
 def lpips_params_from_numpy(params, device="cpu"):
     """The JAX LPIPS tree (convolutions HWIO) -> the port's (OIHW)."""
-    return {"convs": [{"w": _tensor(np.asarray(c["w"]).transpose(3, 2, 0, 1),
+    return {"convs": [{"w": _tensor(hwio_to_oihw(c["w"]),
                                     device).float().contiguous(),
                        "b": _tensor(c["b"], device).float()}
                       for c in params["convs"]],

@@ -19,6 +19,26 @@ _PIL_FORMATS = {".jpg": "JPEG", ".jpeg": "JPEG", ".png": "PNG",
                 ".bmp": "BMP", ".tif": "TIFF", ".ppm": "PPM"}
 
 
+def basename(file):
+    return os.path.splitext(os.path.basename(file))[0]
+
+
+def file_list(path, ext=None, subdir=None):
+    """Sorted files of `path` (of its tree with `subdir=True`), those
+    ending in `ext` (a string), or of the extensions in `ext` (a list)."""
+    if subdir is True:
+        files = [os.path.join(dp, f) for dp, dn, fn in os.walk(path) for f in fn]
+    else:
+        files = [os.path.join(path, f) for f in os.listdir(path)]
+    if ext is not None:
+        if isinstance(ext, list):
+            files = [f for f in files
+                     if os.path.splitext(f.lower())[1][1:] in ext]
+        elif isinstance(ext, str):
+            files = [f for f in files if f.endswith(ext)]
+    return sorted(f for f in files if os.path.isfile(f))
+
+
 def img_list(path, subdir=None):
     if subdir is True:
         files = [os.path.join(dp, f) for dp, dn, fn in os.walk(path) for f in fn]
@@ -157,6 +177,10 @@ class AsyncFrameWriter:
         for i, path in enumerate(paths):
             self._pending.append(self._pool.submit(
                 _save_frame, path, stacked[i], tone, ready))
+
+    def flush(self):
+        """Wait for every frame enqueued so far; raise the first error."""
+        self._drain(0)
 
     def close(self):
         try:

@@ -5,14 +5,16 @@ Sources (no download is ever needed):
   * OpenAI `clip` release .pt files: TorchScript archives or plain state
     dicts (also open_clip's classic save format, and its CustomTextCLIP
     layout with a `text.`-prefixed text tower);
-  * HuggingFace `transformers.CLIPModel` state dicts (ViT);
+  * HuggingFace `transformers.CLIPModel` state dicts (ViT; HuggingFace
+    has no ModifiedResNet CLIP);
   * .npz files of either key layout.
 
 The key mapping runs in numpy, as in the JAX package, into the JAX
 package's tree layout (linear weights [in, out], merged qkv, the patchify
-as a [3*p*p, width] matrix), which `convert.clip_params_from_numpy` turns
-into tensors: both packages share one layout.  The ModifiedResNet towers
-are not ported (ROADMAP.md A.5): their checkpoints raise.
+as a [3*p*p, width] matrix, the ResNet convolutions HWIO), which
+`convert.clip_params_from_numpy` turns into tensors (the convolutions
+OIHW).  The ViT and the ModifiedResNet towers (RN50 to RN50x64, also in
+open_clip's layout, which keeps the `visual.*` keys) both convert.
 """
 from __future__ import annotations
 
@@ -64,10 +66,15 @@ def _block(sd, prefix):
     }
 
 
-def _resnet_unported():
-    return NotImplementedError(
-        "ModifiedResNet CLIP checkpoints are not ported to aphantasia_torch "
-        "yet (ROADMAP.md A.5)")
+def _bn(sd, prefix):
+    return {"g": _np(sd[prefix + ".weight"]), "b": _np(sd[prefix + ".bias"]),
+            "m": _np(sd[prefix + ".running_mean"]),
+            "v": _np(sd[prefix + ".running_var"])}
+
+
+def _conv_hwio(w):
+    """torch OIHW -> the JAX tree's HWIO."""
+    return _np(w).transpose(2, 3, 1, 0)
 
 
 def convert_checkpoint(path_or_sd, expect_cfg=None, device="cpu"):
@@ -124,7 +131,9 @@ def _verify_cfg(params, cfg):
         problems.append(
             f"embed dim {t['text_projection'].shape[1]} != {cfg.embed_dim}")
     v = params["visual"]
-    if cfg.is_vit:
+    if cfg.is_vit and "blocks" not in v:
+        problems.append("checkpoint is a ResNet, config expects a ViT")
+    elif cfg.is_vit:
         if len(v["blocks"]) != cfg.vision_layers:
             problems.append(
                 f"vision layers {len(v['blocks'])} != {cfg.vision_layers}")
@@ -132,19 +141,25 @@ def _verify_cfg(params, cfg):
         if v["conv"].shape[0] != pp:
             problems.append(f"patch size: conv rows {v['conv'].shape[0]} "
                             f"!= {pp}")
-    else:
+    elif "stem" not in v:
         problems.append("checkpoint is a ViT, config expects a ResNet")
+    else:
+        stages = tuple(len(s) for s in v["layers"])
+        if stages != tuple(cfg.vision_layers):
+            problems.append(f"ResNet stages {stages} != {cfg.vision_layers}")
+        width = v["stem"]["conv3_w"].shape[-1]
+        if width != cfg.vision_width:
+            problems.append(f"ResNet width {width} != {cfg.vision_width}")
     if problems:
         raise ValueError(f"checkpoint does not match CLIP model "
                          f"'{cfg.name}': " + "; ".join(problems))
 
 
 def convert_openai_checkpoint(path_or_sd) -> dict:
-    """OpenAI-naming state dict -> the ViT tree (numpy)."""
+    """OpenAI-naming state dict -> the tree (numpy, the JAX layout), ViT or
+    ModifiedResNet."""
     sd = (path_or_sd if isinstance(path_or_sd, dict)
           else _read_state_dict(path_or_sd))
-    if not ("visual.conv1.weight" in sd and "visual.class_embedding" in sd):
-        raise _resnet_unported()
     n_text = max(int(k.split(".")[2]) for k in sd
                  if k.startswith("transformer.resblocks.")) + 1
     text = {
@@ -155,10 +170,17 @@ def convert_openai_checkpoint(path_or_sd) -> dict:
         "ln_final": _ln(sd, "ln_final"),
         "text_projection": _np(sd["text_projection"]),
     }
+    visual = (_vit_visual(sd) if "visual.class_embedding" in sd
+              else _resnet_visual(sd))
+    return {"visual": visual, "text": text,
+            "logit_scale": _np(sd["logit_scale"])}
+
+
+def _vit_visual(sd) -> dict:
     n_vis = max(int(k.split(".")[3]) for k in sd
                 if k.startswith("visual.transformer.resblocks.")) + 1
     conv = _np(sd["visual.conv1.weight"])  # [width, 3, p, p]
-    visual = {
+    return {
         "conv": conv.reshape(conv.shape[0], -1).T,
         "class_emb": _np(sd["visual.class_embedding"]),
         "pos_emb": _np(sd["visual.positional_embedding"]),
@@ -168,17 +190,53 @@ def convert_openai_checkpoint(path_or_sd) -> dict:
         "ln_post": _ln(sd, "visual.ln_post"),
         "proj": _np(sd["visual.proj"]),
     }
-    return {"visual": visual, "text": text,
-            "logit_scale": _np(sd["logit_scale"])}
+
+
+def _resnet_visual(sd) -> dict:
+    """The ModifiedResNet keys: the three-conv stem, the bottlenecks of
+    `visual.layer{1..4}.{j}` (with `downsample.0/1`, the conv and its
+    BatchNorm), and the attention pool's q/k/v/c projections, transposed
+    to [in, out]."""
+    def convs(pre, names):
+        out = {}
+        for i in names:
+            out[f"conv{i}_w"] = _conv_hwio(sd[f"{pre}.conv{i}.weight"])
+            out[f"bn{i}"] = _bn(sd, f"{pre}.bn{i}")
+        return out
+    layers = []
+    for i in range(1, 5):
+        stage, j = [], 0
+        while f"visual.layer{i}.{j}.conv1.weight" in sd:
+            pre = f"visual.layer{i}.{j}"
+            blk = convs(pre, (1, 2, 3))
+            if pre + ".downsample.0.weight" in sd:
+                blk["down_conv_w"] = _conv_hwio(sd[pre + ".downsample.0.weight"])
+                blk["down_bn"] = _bn(sd, pre + ".downsample.1")
+            stage.append(blk)
+            j += 1
+        layers.append(stage)
+    ap = "visual.attnpool."
+    attnp = {"pos_emb": _np(sd[ap + "positional_embedding"])}
+    for n in "qkvc":
+        attnp[n + "_w"] = _np(sd[f"{ap}{n}_proj.weight"]).T
+        attnp[n + "_b"] = _np(sd[f"{ap}{n}_proj.bias"])
+    return {"stem": convs("visual", (1, 2, 3)), "layers": layers,
+            "attnpool": attnp}
 
 
 def convert_hf_clip(sd_or_model) -> dict:
     """HuggingFace `transformers.CLIPModel` (ViT) state dict -> the tree
     (numpy); HF's separate q/k/v projections are merged into the qkv
-    layout."""
+    layout.  HuggingFace has no ModifiedResNet CLIP: a state dict without
+    a ViT vision tower raises."""
     if hasattr(sd_or_model, "state_dict"):
         sd_or_model = sd_or_model.state_dict()
     sd = {k: _np(v) for k, v in sd_or_model.items()}
+    if "vision_model.embeddings.patch_embedding.weight" not in sd:
+        raise ValueError(
+            "HuggingFace CLIP checkpoints have a ViT vision tower only; "
+            "ModifiedResNet (RN50 to RN50x64) checkpoints come in the "
+            "OpenAI or open_clip layout")
 
     def hf_ln(prefix):
         return {"g": sd[prefix + ".weight"], "b": sd[prefix + ".bias"]}
@@ -233,9 +291,10 @@ def convert_hf_clip(sd_or_model) -> dict:
 
 
 def openai_state_dict(params) -> dict:
-    """The inverse of `convert_openai_checkpoint`: a ViT tree (tensors or
-    numpy) -> an OpenAI-naming state dict of CPU tensors, e.g. to write a
-    checkpoint of random weights from `clip_init`."""
+    """The inverse of `convert_openai_checkpoint`: the port's tree (ViT or
+    ModifiedResNet, its convolutions OIHW; tensors or numpy) -> an
+    OpenAI-naming state dict of CPU tensors, e.g. to write a checkpoint of
+    random weights from `clip_init`."""
     def t(x):
         if isinstance(x, torch.Tensor):
             return x.detach().cpu().contiguous()
@@ -255,18 +314,43 @@ def openai_state_dict(params) -> dict:
         sd[prefix + ".mlp.c_fc.bias"] = t(m["fc_b"])
         sd[prefix + ".mlp.c_proj.weight"] = t(m["proj_w"]).t()
         sd[prefix + ".mlp.c_proj.bias"] = t(m["proj_b"])
+    def convs(prefix, blk):
+        for k, x in blk.items():
+            if k.endswith("_w"):            # conv1_w -> conv1.weight
+                sd[f"{prefix}.{k[:-2]}.weight"] = t(x)
+            else:                           # bn1
+                for name, leaf in (("weight", "g"), ("bias", "b"),
+                                   ("running_mean", "m"),
+                                   ("running_var", "v")):
+                    sd[f"{prefix}.{k}.{name}"] = t(x[leaf])
     v, tx = params["visual"], params["text"]
-    conv = t(v["conv"])
-    width, p = conv.shape[1], int(round((conv.shape[0] // 3) ** 0.5))
-    sd["visual.conv1.weight"] = conv.t().reshape(width, 3, p, p)
-    sd["visual.class_embedding"] = t(v["class_emb"])
-    sd["visual.positional_embedding"] = t(v["pos_emb"])
-    for name in ("ln_pre", "ln_post"):
-        sd[f"visual.{name}.weight"] = t(v[name]["g"])
-        sd[f"visual.{name}.bias"] = t(v[name]["b"])
-    for i, b in enumerate(v["blocks"]):
-        block(f"visual.transformer.resblocks.{i}", b)
-    sd["visual.proj"] = t(v["proj"])
+    if "stem" in v:
+        convs("visual", v["stem"])
+        for i, stage in enumerate(v["layers"]):
+            for j, blk in enumerate(stage):
+                pre = f"visual.layer{i + 1}.{j}"
+                convs(pre, {k: x for k, x in blk.items()
+                            if not k.startswith("down_")})
+                if "down_conv_w" in blk:
+                    convs(pre + ".downsample", {"0_w": blk["down_conv_w"],
+                                                "1": blk["down_bn"]})
+        ap = v["attnpool"]
+        sd["visual.attnpool.positional_embedding"] = t(ap["pos_emb"])
+        for n in "qkvc":
+            sd[f"visual.attnpool.{n}_proj.weight"] = t(ap[n + "_w"]).t()
+            sd[f"visual.attnpool.{n}_proj.bias"] = t(ap[n + "_b"])
+    else:
+        conv = t(v["conv"])
+        width, p = conv.shape[1], int(round((conv.shape[0] // 3) ** 0.5))
+        sd["visual.conv1.weight"] = conv.t().reshape(width, 3, p, p)
+        sd["visual.class_embedding"] = t(v["class_emb"])
+        sd["visual.positional_embedding"] = t(v["pos_emb"])
+        for name in ("ln_pre", "ln_post"):
+            sd[f"visual.{name}.weight"] = t(v[name]["g"])
+            sd[f"visual.{name}.bias"] = t(v[name]["b"])
+        for i, b in enumerate(v["blocks"]):
+            block(f"visual.transformer.resblocks.{i}", b)
+        sd["visual.proj"] = t(v["proj"])
     sd["token_embedding.weight"] = t(tx["token_embedding"])
     sd["positional_embedding"] = t(tx["positional_embedding"])
     for i, b in enumerate(tx["blocks"]):

@@ -1,5 +1,5 @@
-"""OpenAI-CLIP ViT towers as plain functions on tensors (counterpart of
-aphantasia_tpu.models.clip.model).
+"""OpenAI-CLIP towers as plain functions on tensors (counterpart of
+aphantasia_tpu.models.clip.model): the ViTs and the ModifiedResNets.
 
 Params are nested dicts of tensors in the JAX package's layout: every
 linear weight is [in, out] and applied as `x @ W + b`, the merged qkv
@@ -16,7 +16,16 @@ Under APHANTASIA_FUSED_BLOCK=1 the vision blocks run as the fused
 half-block kernels of ops/block.py where that geometry gate opens
 (ViT-B/32), so the switch reaches the same models in both packages.
 
-The ModifiedResNet towers are not ported yet (ROADMAP.md).
+The ModifiedResNet towers (RN50 to RN50x64) run their convolutions as
+`F.conv2d` in the channels-last layout (NHWC, the JAX tower's layout; the
+JAX package computes them with `lax.conv_general_dilated`, outside any
+Pallas kernel).  Their convolution weights are OIHW in this tree, where
+the JAX tree holds HWIO: `convert.clip_params_from_numpy` turns the one
+into the other.  The frozen BatchNorms fold their running statistics in
+float32 at each call, as JAX's `_bn` does, so `cast_weights` leaves them
+float32.  The attention pool queries with one token (the mean), so it
+runs as a plain softmax over that token's score row: no atomics in its
+backward, and a CUDA-graph replay repeats the eager step bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from aphantasia_torch.ops.attention import attention_core, attention_core_flat
 from aphantasia_torch.ops import block, ln
@@ -76,11 +86,8 @@ CLIP_CONFIGS = {
 XMEM = {"ViT-B/16": 0.25, "ViT-L/14": 0.04, "RN50": 0.5, "RN50x4": 0.16,
         "RN50x16": 0.06, "RN50x64": 0.01, "RN101": 0.33}
 
-# the models the port runs; the others wait for later slices (ROADMAP.md).
-# ViT-L/14@336px runs at tower level (577 tokens, which the bf16 attention
-# tiles take at any count); its CLI, illustra, is a later slice, and
-# clip_fft does not offer it, as in the JAX package
-PORTED_MODELS = ("ViT-B/32", "ViT-B/16", "ViT-L/14", "ViT-L/14@336px")
+# the models the port runs: every published configuration
+PORTED_MODELS = tuple(CLIP_CONFIGS)
 
 
 # ------------------------------------------------------------------ layers
@@ -184,6 +191,79 @@ def vit_encode(params, cfg: CLIPConfig, x, dtype=torch.float32):
     return x @ params["proj"].to(dtype)
 
 
+# ------------------------------------------------------------------ ModifiedResNet
+
+def _bn(x, p):
+    """Frozen BatchNorm over NCHW: the running statistics folded in
+    float32 into a scale and a shift (as JAX's `_bn`, in its order), then
+    cast to the activations' dtype."""
+    inv = torch.rsqrt(p["v"].float() + 1e-5)
+    g = (p["g"] * inv).to(x.dtype)
+    b = (p["b"] - p["m"] * p["g"] * inv).to(x.dtype)
+    return x * g[:, None, None] + b[:, None, None]
+
+
+def _conv(x, w, stride=1):
+    """A convolution with the OIHW weight `w`: a 3x3 pads one pixel on
+    every side (JAX's SAME at stride 1, and the OpenAI stem's explicit
+    (1, 1) at stride 2, where SAME would pad (0, 1)); a 1x1 pads none."""
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=w.shape[-1] // 2)
+
+
+def _avgpool(x, k):
+    """A VALID k-by-k window at stride k, its sum over k^2."""
+    return F.avg_pool2d(x, k)
+
+
+def bottleneck(x, p, stride):
+    out = torch.relu(_bn(_conv(x, p["conv1_w"]), p["bn1"]))
+    out = torch.relu(_bn(_conv(out, p["conv2_w"]), p["bn2"]))
+    if stride > 1:
+        out = _avgpool(out, stride)          # before conv3, as in CLIP
+    out = _bn(_conv(out, p["conv3_w"]), p["bn3"])
+    if "down_conv_w" in p:
+        idn = _avgpool(x, stride) if stride > 1 else x
+        idn = _bn(_conv(idn, p["down_conv_w"]), p["down_bn"])
+    else:
+        idn = x
+    return torch.relu(out + idn)
+
+
+def attnpool(x, p, n_heads):
+    """AttentionPool2d over an NCHW map: the mean token prepended to the
+    h*w tokens (row-major (h, w), the order of JAX's NHWC reshape), the
+    positional embedding added, and that one token attending to all.
+    Scores and softmax in float32, the probabilities then in the
+    activations' dtype, as `jax.nn.dot_product_attention` computes."""
+    b, c = x.shape[:2]
+    x = x.flatten(2).transpose(1, 2)                          # [b, hw, c]
+    x = torch.cat([x.mean(1, keepdim=True), x], dim=1)
+    x = x + p["pos_emb"].to(x.dtype)
+    hd = c // n_heads
+    q = _linear(x[:, :1], p["q_w"], p["q_b"]).reshape(b, n_heads, 1, hd)
+    k = _linear(x, p["k_w"], p["k_b"]).reshape(b, -1, n_heads, hd)
+    v = _linear(x, p["v_w"], p["v_b"]).reshape(b, -1, n_heads, hd)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)               # [b, nh, t, hd]
+    s = (q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5
+    o = torch.softmax(s, dim=-1).to(x.dtype) @ v              # [b, nh, 1, hd]
+    return _linear(o.reshape(b, c), p["c_w"], p["c_b"])
+
+
+def resnet_encode(params, cfg: CLIPConfig, x, dtype=torch.float32):
+    """x: NCHW normalized images -> [N, embed_dim]; the activations in the
+    channels-last layout."""
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    st = params["stem"]
+    x = torch.relu(_bn(_conv(x, st["conv1_w"], stride=2), st["bn1"]))
+    x = torch.relu(_bn(_conv(x, st["conv2_w"]), st["bn2"]))
+    x = torch.relu(_bn(_conv(x, st["conv3_w"]), st["bn3"]))
+    x = _avgpool(x, 2)
+    for i, stage in enumerate(params["layers"]):
+        for j, blk in enumerate(stage):
+            x = bottleneck(x, blk, 2 if (i > 0 and j == 0) else 1)
+    return attnpool(x, params["attnpool"], cfg.vision_heads)
+
+
 # ------------------------------------------------------------------ text
 
 def text_encode_fn(params, cfg: CLIPConfig, tokens, dtype=torch.float32):
@@ -200,17 +280,11 @@ def text_encode_fn(params, cfg: CLIPConfig, tokens, dtype=torch.float32):
 
 # ------------------------------------------------------------------ public API
 
-def _need_vit(cfg: CLIPConfig):
-    if not cfg.is_vit:
-        raise NotImplementedError(
-            f"the ModifiedResNet tower ({cfg.name}) is not ported to "
-            "aphantasia_torch yet; see ROADMAP.md")
-
-
 def encode_image(params, cfg: CLIPConfig, images, dtype=torch.float32):
     """images: NCHW, already CLIP-normalized.  Returns [N, embed_dim]."""
-    _need_vit(cfg)
-    return vit_encode(params["visual"], cfg, images, dtype)
+    if cfg.is_vit:
+        return vit_encode(params["visual"], cfg, images, dtype)
+    return resnet_encode(params["visual"], cfg, images, dtype)
 
 
 def encode_text(params, cfg: CLIPConfig, tokens, dtype=torch.float32):
@@ -218,16 +292,27 @@ def encode_text(params, cfg: CLIPConfig, tokens, dtype=torch.float32):
     return text_encode_fn(params, cfg, tokens, dtype)
 
 
+def _float32_leaf(key: str) -> bool:
+    """LayerNorm gains/biases and the BatchNorms' statistics (`bn1`..`bn3`,
+    `down_bn`), which their layers use in float32."""
+    return key.startswith(("ln", "bn", "down_bn"))
+
+
 def cast_weights(tree, dtype):
-    """The param tree with every matmul weight in `dtype` (LayerNorm
-    gains/biases stay float32), so a bf16 tower casts its weights once
-    instead of at every call."""
+    """The param tree with every matmul and convolution weight in `dtype`
+    (the `_float32_leaf` dicts stay float32), so a bf16 tower casts its
+    weights once instead of at every call; the convolution weights in the
+    channels-last layout of the activations."""
     if isinstance(tree, dict):
-        return {k: (v if k.startswith("ln") else cast_weights(v, dtype))
+        return {k: (v if _float32_leaf(k) else cast_weights(v, dtype))
                 for k, v in tree.items()}
     if isinstance(tree, list):
         return [cast_weights(v, dtype) for v in tree]
-    return tree.to(dtype) if tree.is_floating_point() else tree
+    if not tree.is_floating_point():
+        return tree
+    if tree.dim() == 4:
+        return tree.to(dtype).contiguous(memory_format=torch.channels_last)
+    return tree.to(dtype)
 
 
 # ------------------------------------------------------------------ init
@@ -255,18 +340,13 @@ def _block_init(gen, d, dev, mlp_ratio=4):
     }
 
 
-def clip_init(generator: torch.Generator, cfg: CLIPConfig):
-    """Random-weight CLIP with the exact architecture shapes (there are no
-    checkpoints to download), on the generator's device, float32."""
-    _need_vit(cfg)
-    dev = generator.device
-
+def _vit_visual_init(generator, cfg: CLIPConfig, dev):
     def normal(*shape):
         return torch.randn(shape, generator=generator, device=dev)
     d, p = cfg.vision_width, cfg.vision_patch_size
     g = cfg.image_resolution // p
     scale = d ** -0.5
-    visual = {
+    return {
         "conv": scale * normal(3 * p * p, d),
         "class_emb": scale * normal(d),
         "pos_emb": scale * normal(g * g + 1, d),
@@ -276,6 +356,61 @@ def clip_init(generator: torch.Generator, cfg: CLIPConfig):
         "ln_post": _ln_init(d, dev),
         "proj": scale * normal(d, cfg.embed_dim),
     }
+
+
+def _bn_init(d, dev):
+    return {"g": torch.ones(d, device=dev), "b": torch.zeros(d, device=dev),
+            "m": torch.zeros(d, device=dev), "v": torch.ones(d, device=dev)}
+
+
+def _resnet_visual_init(generator, cfg: CLIPConfig, dev):
+    """The JAX `_resnet_visual_init` tree, its convolutions OIHW."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    def conv(cin, cout, k):
+        return normal(cout, cin, k, k) * np.sqrt(2.0 / (k * k * cin))
+    w = cfg.vision_width
+    stem = {"conv1_w": conv(3, w // 2, 3), "bn1": _bn_init(w // 2, dev),
+            "conv2_w": conv(w // 2, w // 2, 3), "bn2": _bn_init(w // 2, dev),
+            "conv3_w": conv(w // 2, w, 3), "bn3": _bn_init(w, dev)}
+    layers, inplanes = [], w
+    for i, nb in enumerate(cfg.vision_layers):
+        planes = w * 2 ** i
+        stage = []
+        for j in range(nb):
+            blk = {"conv1_w": conv(inplanes, planes, 1),
+                   "bn1": _bn_init(planes, dev),
+                   "conv2_w": conv(planes, planes, 3),
+                   "bn2": _bn_init(planes, dev),
+                   "conv3_w": conv(planes, planes * 4, 1),
+                   "bn3": _bn_init(planes * 4, dev)}
+            if j == 0 and (i > 0 or inplanes != planes * 4):
+                blk["down_conv_w"] = conv(inplanes, planes * 4, 1)
+                blk["down_bn"] = _bn_init(planes * 4, dev)
+            stage.append(blk)
+            inplanes = planes * 4
+        layers.append(stage)
+    embed, spacial = w * 32, cfg.image_resolution // 32
+    scale = embed ** -0.5
+    attnp = {"pos_emb": scale * normal(spacial * spacial + 1, embed)}
+    for n in "qkv":
+        attnp[n + "_w"] = scale * normal(embed, embed)
+        attnp[n + "_b"] = torch.zeros(embed, device=dev)
+    attnp["c_w"] = scale * normal(embed, cfg.embed_dim)
+    attnp["c_b"] = torch.zeros(cfg.embed_dim, device=dev)
+    return {"stem": stem, "layers": layers, "attnpool": attnp}
+
+
+def clip_init(generator: torch.Generator, cfg: CLIPConfig):
+    """Random-weight CLIP with the exact architecture shapes (there are no
+    checkpoints to download), on the generator's device, float32."""
+    dev = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+    visual = (_vit_visual_init if cfg.is_vit else _resnet_visual_init)(
+        generator, cfg, dev)
     tw = cfg.transformer_width
     text = {
         "token_embedding": 0.02 * normal(cfg.vocab_size, tw),

@@ -86,12 +86,14 @@ def fft_decode(params: torch.Tensor, scale: torch.Tensor, size,
                shift: torch.Tensor | None = None,
                contrast: float = 1.0) -> torch.Tensor:
     """scaled = scale * (params [+ shift]); image = irfft2(scaled, ortho);
-    image *= contrast / std(image) (Bessel-corrected std)."""
+    image *= contrast / std(image) (Bessel-corrected std).  A batch of
+    spectra ([N,3,H,Wf,2], e.g. one shift per frame) decodes to N images,
+    each divided by its own std."""
     scaled = scale * params
     if shift is not None:
         scaled = scaled + scale * shift
     image = spectrum_to_image(scaled, size)
-    return image * contrast / torch.std(image)
+    return image * contrast / torch.std(image, dim=(1, 2, 3), keepdim=True)
 
 
 def un_spectrum(spectrum: torch.Tensor, decay_power: float) -> torch.Tensor:

@@ -80,6 +80,7 @@ class StepSettings:
     enforce: float = 0.0
     expand: float = 0.0
     noise: float = 0.0
+    noise_centered: bool = False   # the shift noise u - 0.5 (illustra)
     sync: float = 0.0
     total_steps: int = 200         # the sync term's progress denominator
     transform: str = "fast"
@@ -124,7 +125,9 @@ def _step_tensor(step_i, device) -> torch.Tensor:
 def build_draw_fn(sampler, settings: StepSettings, param_shape):
     """Returns draw(generator) -> StepDraws on the generator's device.
     `param_shape` is the spectrum's shape, or None for params without one
-    (the DWT list), which draw no spectrum shift, as in JAX."""
+    (the DWT list), which draw no spectrum shift, as in JAX.  The shift is
+    noise * u for uniform u, or noise * (u - 0.5) with `noise_centered`
+    (JAX `_noise_shift`)."""
     transform = get_transform(settings.transform, settings.persp)
     m = sampler.modsize
 
@@ -136,8 +139,10 @@ def build_draw_fn(sampler, settings: StepSettings, param_shape):
         shift = None
         if settings.noise > 0 and param_shape is not None:
             h, wf = param_shape[2], param_shape[3]
-            shift = settings.noise * torch.rand(
-                (1, 1, h, wf, 1), generator=gen, device=gen.device)
+            u = torch.rand((1, 1, h, wf, 1), generator=gen, device=gen.device)
+            if settings.noise_centered:
+                u = u - 0.5
+            shift = settings.noise * u
         return StepDraws(shift, draw_cuts(gen),
                          draw_cuts(gen) if settings.enforce != 0 else None)
 
@@ -409,7 +414,7 @@ class FrameLoop:
     def _group(self, pattern) -> StepGroup:
         if pattern not in self.groups:
             self.groups[pattern] = StepGroup(
-                self.train_steps, pattern, self.step_index == "global",
+                self.train_steps, pattern, self.step_index != "frame",
                 self.bufs, self.render, self.contrast)
         return self.groups[pattern]
 
@@ -474,9 +479,10 @@ def build_train_loop_frames(parameterizer, sampler, clip_cfg,
     `frame0` is the global frame index of the call's first group (frame k
     covers steps k*opt_step .. (k+1)*opt_step-1), and `draws(gstep)` gives
     global step gstep's StepDraws, called in step order.  `step_index`
-    picks what the loss sees as step_i: the frame index (clip_fft's
-    `i // opt_step`) or the global step (illustra and cppn pass `i`).  The
-    returned state is the loop's own buffers, as in `build_train_loop`.
+    picks what the loss sees as step_i: "frame", the frame index
+    (clip_fft's `i // opt_step`), or "step" (the JAX name; "global" is
+    the same), the global step (illustra and cppn pass `i`).  The returned
+    state is the loop's own buffers, as in `build_train_loop`.
 
     `dual=(clip_cfg2, dm_every)` (`--dualmod`): global step g runs the
     second tower when g % dm_every == 0 and g > 0 (module docstring), and
@@ -487,15 +493,32 @@ def build_train_loop_frames(parameterizer, sampler, clip_cfg,
         raise NotImplementedError(
             "with_params (cppn's per-frame snapshots) is not ported to "
             "aphantasia_torch yet; see ROADMAP.md")
-    if step_index not in ("frame", "global"):
-        raise ValueError(f"step_index must be 'frame' or 'global', not "
-                         f"{step_index!r}")
+    if step_index not in ("frame", "step", "global"):
+        raise ValueError(f"step_index must be 'frame' or 'step' ('global'), "
+                         f"not {step_index!r}")
     cfgs = (clip_cfg,) if dual is None else (clip_cfg, dual[0])
     steps = [build_train_step(parameterizer, sampler, cfg, settings,
                               optimizer) for cfg in cfgs]
     return FrameLoop(steps, build_render(parameterizer), opt_step, n_frames,
                      contrast, step_index, tuple(parameterizer.size) + (3,),
                      dm_every=None if dual is None else dual[1])
+
+
+def build_shift_render_loop(parameterizer, contrast: float = 1.0):
+    """The spectrum crossfade of interpol and illustra's final assembly:
+    loop(params, diff, xs) -> the uint8 frames [N,H,W,3] of
+    decode(params + xs[i] * diff), i < N = len(xs), clamped and rounded as
+    `build_render` does.  The N frames decode as one batch (each frame
+    normalised by its own std, as the JAX loop's per-frame scan does), so
+    the card makes one pass and one pull for them."""
+    @torch.no_grad()
+    def loop(params, diff, xs):
+        xs = torch.as_tensor(xs, dtype=torch.float32, device=params.device)
+        shift = diff * xs.reshape(-1, 1, 1, 1, 1)          # [N,3,H,Wf,2]
+        img = parameterizer.image(params, shift=shift, contrast=contrast)
+        img = torch.clamp(img.permute(0, 2, 3, 1), 0.0, 1.0)
+        return (img * 255.0 + 0.5).to(torch.uint8)
+    return loop
 
 
 def frames_per_dispatch(size, n_frames_total: int,

@@ -36,3 +36,30 @@ def print_dict(d, file=None, path="", indent=""):
         else:
             line = f"{indent}{k}: {d[k]}"
             print(line) if file is None else file.write(line + " \n")
+
+
+def read_text(in_txt: str) -> list:
+    """Text input: a literal string, or a file of one scene a line, where
+    blank lines stay (as empty prompts) and '#' lines are comments."""
+    if os.path.isfile(in_txt):
+        with open(in_txt, "r", encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        texts = []
+        for tt in lines:
+            if len(tt.strip()) == 0:
+                texts.append("")
+            elif tt.strip()[0] != "#":
+                texts.append(tt.strip())
+    else:
+        texts = [in_txt]
+    return texts
+
+
+def pick_(list_, num_, loop: bool = False):
+    """list_[num_], clamped to the last item, or wrapped with `loop`; None
+    for an empty list."""
+    cnt = len(list_)
+    if cnt == 0:
+        return None
+    num = num_ % cnt if loop else min(num_, cnt - 1)
+    return list_[num]

@@ -29,8 +29,17 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            (ViT-B/32 and ViT-B/16), (g) `--sync 0.4 -i` (a 1280x720 image
            written here), (h) `--aest 1 --clip_weights` (a full-width
            ViT-B/32 checkpoint in the OpenAI layout, written here and
-           deleted) and (i) `--dwt`; last, the ViT-L/14@336px image tower
-           (577 tokens) at full width, one bf16 forward and backward.  The
+           deleted) and (i) `--dwt`; the ViT-L/14@336px image tower (577
+           tokens) at full width, one bf16 forward and backward; (j)-(m)
+           `--pallas -m RN50|RN101|RN50x4|RN50x16` (cutouts of 224, 224,
+           288, 384 px); (n) `illustra --pallas` over three scenes of a
+           text file written here, with the crossfade at --lsteps 25;
+           (o) `illustra -m RN50x64 --pallas` (one cutout of 448 px), two
+           scenes; (p) `interpol` on (n)'s snapshots; (q) `illustra -m
+           ViT-L/14@336px --samples 40`; (r) one eager step of that model
+           at illustra's default budget (its peak memory or its
+           out-of-memory error, reported).  Each prints its steps/s, peak
+           memory and wall.  The
            launch counts are set to 0 just before each run and read just
            after, and must equal the counts the path implies.  The 8-step
            runs take the CLI's chunked path (one eager frame group and its
@@ -40,19 +49,26 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            `--pallas` (with opt_step 2), `--pallas --persp exact`,
            `--pallas -tf elastic` with the shift kernel, (a), (b), (d),
            (f) `--dualmod 3` with opt_step 2 (three tower patterns, a graph
-           each), (g) `--sync 0.4 -i` and (i) `--dwt` paths at full width:
+           each), (g) `--sync 0.4 -i`, (i) `--dwt` and (j) `-m RN50
+           --pallas` paths at full width:
            the eager steps twice, then the same steps from the same draws
            replayed from CUDA graphs, held to the eager run bit for bit (or
            within the eager runs' own spread), replay-only dispatches under
            sync debug mode "error"; steps/s eager and replayed, each
            graph's device ms by replay, busy share, peak memory
-           (`phase_loop`).
+           (`phase_loop`); then two `illustra` scenes, the first scene's
+           graph replayed in the second after its copy-in, held to two
+           eager runs with no second capture (`phase_loop_illustra`).
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
            (kernel shift) transforms, for `none` under the cutout and
            LayerNorm switches and under the block switch, with `--aest`
-           and `--sync`, on a DWT pyramid, and two `--dualmod` steps.
+           and `--sync`, on a DWT pyramid, two `--dualmod` steps, a tiny
+           ModifiedResNet step, and two `illustra` scenes (the second
+           replayed on the card).
+  cudnn    (only when asked for) the (j) loop path with cuDNN's
+           nondeterministic algorithms allowed: device ms and bits.
   profile  (only when asked for) torch.profiler over steady replayed steps
            (one step a dispatch, the loss read after each) of both
            cutout paths, the four augmentation paths of `main`, the
@@ -370,14 +386,15 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
     return res
 
 
-def check_cutout(seed=0):
-    """Cutout kernels against `cutout_plain` at 1280x720, S=200, M=224;
-    each also against itself, two launches and a CUDA-graph replay, bit
-    for bit."""
+def check_cutout(seed=0, s=200, m=224):
+    """Cutout kernels against `cutout_plain` at 1280x720, S cutouts of M
+    (the main path's 200 of 224; RN50x4's 30 of 288 and RN50x64's one of
+    448 run the forward's column bands past 256); each also against
+    itself, two launches and a CUDA-graph replay, bit for bit."""
     import torch
     from aphantasia_torch.ops import cutout as C
     from aphantasia_torch.ops.sampler import CutoutSampler, _contract
-    h, w, s, m = 720, 1280, 200, 224
+    h, w = 720, 1280
     g = torch.Generator(device="cuda").manual_seed(seed)
     sampler = CutoutSampler((h, w), s, m, "uniform", 0.4)
     boxes = sampler.sample_boxes(g)
@@ -646,8 +663,8 @@ def win_case(kind, dtype, seed=0):
     from aphantasia_torch.ops.sampler import Boxes, CutoutSampler
     h, w, s = (200, 300, 40) if kind == "narrow" else (720, 1280, 190)
     m = 224
-    if kind == "m336":
-        s, m = 40, 336
+    if kind in ("m336", "m288"):
+        s, m = (40, 336) if kind == "m336" else (30, 288)
     g = torch.Generator(device="cuda").manual_seed(seed)
     sampler = CutoutSampler((h, w), s, m, "uniform", 0.4)
     boxes = sampler.sample_boxes(g)
@@ -691,7 +708,8 @@ def check_win_cutout(kind, dtype, timed=False, seed=0):
     # sum in float32 and round the intermediate to bf16, where a sum near a
     # rounding boundary may round the other way: one bf16 step
     tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    res = {"fwd_err": fe, "fwd_scale": fs, "tol_rel": tol, "tiers": tiers}
+    res = {"fwd_err": fe, "fwd_scale": fs, "tol_rel": tol, "tiers": tiers,
+           "s": len(tier), "m": m}
     check(math.isfinite(fe) and fe <= tol * max(fs, 1.0),
           f"win_cut_fwd {kind} {dtype}: max |err| {fe:.3g}")
     if not timed:
@@ -1136,12 +1154,22 @@ def phase_kernels(report):
           f"launches, a graph replay); crops a 32x32 tile meets: "
           f"min {cut['tile_crops'][0]:.0f}, median {cut['tile_crops'][1]:.0f}"
           f", max {cut['tile_crops'][2]:.0f}")
-    for k in ("fwd", "bwd"):
-        print(f"[kernels] cutout {k} S=200 M=224 720x1280: kernel "
-              f"{cut['ms_' + k]:.4f} ms (graph replay "
-              f"{cut['graph_' + k]:.4f}), plain {cut['plain_' + k]:.4f} ms, "
-              f"einsum {cut['lib_' + k]:.4f} ms, bound "
-              f"{cut['bound_' + k][0]:.4f} ms ({cut['bound_' + k][1]})")
+    cut_err = {"fwd": cut["fwd_err"], "bwd": cut["grad_err"]}
+    for ns, m in ((200, 224), (30, 288), (1, 448)):
+        r = cut if m == 224 else check_cutout(s=ns, m=m)
+        if m != 224:
+            print(f"[kernels] cutout S={ns} M={m}: fwd max|err| "
+                  f"{r['fwd_err']:.3g} (|ref| {r['fwd_scale']:.3g}), grad "
+                  f"max|err| {r['grad_err']:.3g} (|ref| "
+                  f"{r['grad_scale']:.3g}); both repeat bit for bit")
+            cut_err = {"fwd": max(cut_err["fwd"], r["fwd_err"]),
+                       "bwd": max(cut_err["bwd"], r["grad_err"])}
+        for k in ("fwd", "bwd"):
+            print(f"[kernels] cutout {k} S={ns} M={m} 720x1280: kernel "
+                  f"{r['ms_' + k]:.4f} ms (graph replay "
+                  f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} ms, "
+                  f"einsum {r['lib_' + k]:.4f} ms, bound "
+                  f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
     persp, persp_err = None, {"fwd": 0.0, "bwd": 0.0}
     for kind, h, w, dtype, timed in (
             ("persp-main", 224, 224, torch.bfloat16, True),
@@ -1202,15 +1230,16 @@ def phase_kernels(report):
                                ("narrow", torch.float32, False),
                                ("edge", torch.bfloat16, False),
                                ("edge", torch.float32, False),
-                               ("m336", torch.bfloat16, False)):
+                               ("m336", torch.bfloat16, False),
+                               ("m288", torch.bfloat16, True)):
         r = check_win_cutout(kind, dtype, timed=timed)
         print(f"[kernels] win_cut_fwd {kind} {str(dtype)[6:]} (tiers "
               f"{r['tiers']}): max|err| {r['fwd_err']:.3g} (|ref| "
               f"{r['fwd_scale']:.3g}), tol {r['tol_rel']:.3g} rel")
         win_err = max(win_err, r["fwd_err"])
         if timed:
-            wcut = r
-            print(f"[kernels] win_cut_fwd S=190 M=224 720x1280 bf16 "
+            wcut = wcut or r
+            print(f"[kernels] win_cut_fwd S={r['s']} M={r['m']} 720x1280 bf16 "
                   f"({r['gflop']:.1f} GFLOP): kernel {r['ms']:.4f} ms "
                   f"(graph replay {r['graph']:.4f}), plain {r['plain']:.4f} "
                   f"ms, dense einsum {r['lib']:.4f} ms (graph replay "
@@ -1302,8 +1331,8 @@ def phase_kernels(report):
                             ("ln_bwd", lnr, "bwd", ln_err["bwd"]),
                             ("attn_fwd", att, "fwd", att["fwd_err"]),
                             ("attn_bwd", att, "bwd", att["grad_err"]),
-                            ("cutout_fwd", cut, "fwd", cut["fwd_err"]),
-                            ("cutout_bwd", cut, "bwd", cut["grad_err"]),
+                            ("cutout_fwd", cut, "fwd", cut_err["fwd"]),
+                            ("cutout_bwd", cut, "bwd", cut_err["bwd"]),
                             ("persp_fwd", persp, "fwd", persp_err["fwd"]),
                             ("persp_bwd", persp, "bwd", persp_err["bwd"])):
         src, rep = KERNELS[name]
@@ -1445,9 +1474,14 @@ def phase_main(report, steps: int):
               f"step {res3.step_seconds[0]:.3f} s, steady "
               f"{1.0 / steady3[len(steady3) // 2]:.3f} steps/s on {name}; "
               f"losses {[round(x, 5) for x in res3.losses]}")
+    # a result holds its run's frame loop (graph pool, buffers, weights)
+    del res, res2, res3
+    torch.cuda.empty_cache()
     phase_main_switches(report, steps)
     phase_main_flags(steps)
     phase_main_336()
+    phase_main_resnet(steps)
+    phase_main_illustra(steps)
 
 
 _TMP: list = []
@@ -1568,6 +1602,7 @@ def phase_main_flags(steps: int):
               f"step {res.step_seconds[0]:.3f} s, steady "
               f"{1.0 / steady[len(steady) // 2]:.3f} steps/s on {name}; "
               f"losses {[round(x, 5) for x in res.losses]}")
+        del res
     os.remove(ckpt)
 
 
@@ -1609,6 +1644,229 @@ def phase_main_336(images: int = 4):
           f"{name} tower: embeddings or image gradient not finite")
     del vis, emb, gx
     torch.cuda.empty_cache()
+
+
+# (label, model, cutouts after the budget): clip_fft's ModifiedResNets
+RESNET_PATHS = (("(j)", "RN50", 95), ("(k)", "RN101", 62),
+                ("(l)", "RN50x4", 30), ("(m)", "RN50x16", 11))
+
+
+def _steady_sps(secs) -> float:
+    """Steps/s: the median of the step seconds after the first."""
+    steady = sorted(secs[1:] or secs)
+    return 1.0 / steady[len(steady) // 2]
+
+
+def _graph_step_ms(loop) -> float:
+    """Device ms a step of a one-pattern frame loop (one step a group):
+    CUDA events around 10 back-to-back replays of its graph."""
+    (group,) = loop.groups.values()
+    return cuda_ms(group.graph.graph.replay, iters=10, warmup=2)
+
+
+def phase_main_resnet(steps: int):
+    """(j)-(m): `clip_fft -m RN50|RN101|RN50x4|RN50x16 --pallas` at full
+    width, 8 steps each (random weights from a seed; 95, 62, 30 and 11
+    cutouts of 224, 224, 288 and 384 px).  Launches: the text tower's 12
+    attention forwards once (one prompt), one cutout each way a step; the
+    ResNet tower runs no kernel of the port (cuDNN convolutions, its pool a
+    plain softmax)."""
+    import torch
+    from aphantasia_torch import kernels
+    name = torch.cuda.get_device_name(0)
+    for label, model, samples in RESNET_PATHS:
+        argv = ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+                "--samples", "200", "--steps", str(steps), "--pallas",
+                "-m", model, "--out_dir", os.path.join(OUT_DIR, "resnet"),
+                "-nv", "--seed", "1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = _run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        want = {"attn_fwd": 12, "cutout_fwd": steps, "cutout_bwd": steps}
+        print(f"[main] {label} -m {model} --pallas run: launches {got}")
+        check(res.samples == samples, f"{label}: {res.samples} cutouts")
+        check(len(res.losses) == steps
+              and all(math.isfinite(x) for x in res.losses),
+              f"{label} losses not finite: {res.losses}")
+        check(tuple(res.params.shape) == (1, 3, 720, 641, 2)
+              and bool(torch.isfinite(res.params).all()),
+              f"{label}: bad final params")
+        run_dir = os.path.join(OUT_DIR, "resnet", res.out_name)
+        frames = [f for f in os.listdir(run_dir) if f.endswith(".jpg")]
+        check(len(frames) == steps, f"{label}: {len(frames)} frames")
+        check(got == want, f"{label}: launches {got} != expected {want}")
+        peak = torch.cuda.max_memory_allocated()
+        sps = _steady_sps(res.step_seconds)
+        ms = _graph_step_ms(res.loop)
+        print(f"[main] {label} -m {model} --pallas: {steps} steps, "
+              f"{res.samples} cutouts, first step {res.step_seconds[0]:.3f} s, "
+              f"steady {sps:.3f} steps/s, device ms a step by replay "
+              f"{ms:.3f}, busy share {ms * sps / 1000:.3f}, peak memory "
+              f"{peak / 2**20:.0f} MiB, wall {wall:.1f} s on {name}; losses "
+              f"{[round(x, 5) for x in res.losses]}")
+        del res
+        torch.cuda.empty_cache()
+
+
+SCENES = ("a lighthouse on a cliff at dawn\n"
+          "# the scenes' comment line\n"
+          "the same lighthouse in a storm\n"
+          "a calm sea at night\n")
+
+
+def scenes_file(n: int = 3) -> str:
+    """A text file of `n` scenes (of SCENES) and a comment line."""
+    path = os.path.join(tmp_dir(), f"scenes{n}.txt")
+    lines = SCENES.splitlines()
+    with open(path, "w") as f:
+        f.write("\n".join(lines[:n + 1]) + "\n")
+    return path
+
+
+def _run_illustra(label, argv, want, scenes: int, lsteps: int, samples: int):
+    """One `illustra` run with its checks: the launch counts, the cutouts,
+    each scene's frames, last frame, mp4 and `.pt`, the crossfade's
+    frames, one frame loop whose one graph every scene replayed; prints
+    steps/s, peak memory and wall.  Returns the run's out_dir."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import illustra
+    out = os.path.join(OUT_DIR, argv[argv.index("--out_dir") + 1])
+    argv = list(argv)
+    argv[argv.index("--out_dir") + 1] = out
+    a = illustra.get_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = illustra.run(a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    print(f"[main] {label} run: launches {got}")
+    check(res.samples == samples, f"{label}: {res.samples} cutouts")
+    check(len(res.out_names) == scenes, f"{label}: scenes {res.out_names}")
+    for n, losses in zip(res.out_names, res.losses):
+        frames = [f for f in os.listdir(os.path.join(out, n))
+                  if f.endswith(".jpg")]
+        check(len(frames) == a.steps and len(losses) == a.steps
+              and all(math.isfinite(x) for x in losses),
+              f"{label} {n}: {len(frames)} frames, losses {losses}")
+        for ext in (".mp4", ".pt", f"-{a.steps}.jpg"):
+            check(os.path.isfile(os.path.join(out, n + ext)),
+                  f"{label}: {n}{ext} missing")
+    pts = [f for f in os.listdir(out) if f.endswith(".pt")]
+    finals = [f for f in os.listdir(os.path.join(out, "_final"))
+              if f.endswith(".jpg")]
+    check(len(pts) == scenes and len(finals) == scenes * lsteps
+          and res.final_frames == scenes * lsteps and res.video is not None,
+          f"{label}: {len(pts)} snapshots, {len(finals)} crossfade frames, "
+          f"video {res.video}")
+    check(tuple(res.params.shape) == (1, 3, 720, 641, 2)
+          and bool(torch.isfinite(res.params).all()), f"{label}: bad params")
+    loops = res.scene_loop.loops
+    groups = [g for lp in loops.values() for g in lp.groups.values()]
+    check(len(loops) == 1 and len(groups) == 1
+          and groups[0].graph is not None,
+          f"{label}: {len(loops)} frame loops, {len(groups)} groups")
+    check(got == want, f"{label}: launches {got} != expected {want}")
+    secs = [x for sc in res.step_seconds for x in sc]
+    peak = torch.cuda.max_memory_allocated()
+    sps = _steady_sps(secs)
+    ms = _graph_step_ms(next(iter(loops.values())))
+    print(f"[main] {label}: {scenes} scenes of {a.steps} steps, {res.samples} "
+          f"cutouts, first step {secs[0]:.3f} s, steady {sps:.3f} steps/s "
+          f"(the later scenes replay the first scene's graph), device ms a "
+          f"step by replay {ms:.3f}, busy share {ms * sps / 1000:.3f}, "
+          f"{res.final_frames} crossfade frames, peak memory "
+          f"{peak / 2**20:.0f} MiB, wall {wall:.1f} s on "
+          f"{torch.cuda.get_device_name(0)}")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_main_illustra(steps: int):
+    """(n) `illustra --pallas` (ViT-B/32, 190 cutouts, the default --aest 1
+    head) over three scenes from a text file written here, `steps` steps
+    each, then the crossfade at the default --lsteps 25 (75 frames);
+    (o) `illustra -m RN50x64 --pallas`, two scenes of 4 steps: one cutout
+    of 448 px through the whole RN50x64 tower, its text tower 1024 wide;
+    (p) `interpol` on (n)'s snapshots (75 frames, no kernel);
+    (q) `illustra -m ViT-L/14@336px --pallas --samples 40` (38 cutouts of
+    577 tokens), one scene of 4 steps;
+    (r) one eager step of ViT-L/14@336px at illustra's default budget (190
+    cutouts, `--steps 1 --save_step 2`: the per-step loop): its peak
+    memory, or the out-of-memory error it meets (reported, not a
+    failure)."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import illustra, interpol
+    base = ["--size", "1280-720", "--samples", "200", "--pallas", "-nv",
+            "--seed", "1"]
+    n_out = _run_illustra(
+        "(n) illustra --pallas, 3 scenes",
+        ["-t", scenes_file(3), "--steps", str(steps), "--out_dir",
+         "illustra"] + base,
+        {"attn_fwd": 36 + 36 * steps, "attn_bwd": 36 * steps,
+         "cutout_fwd": 3 * steps, "cutout_bwd": 3 * steps}, 3, 25, 190)
+    _run_illustra(
+        "(o) illustra -m RN50x64 --pallas, 2 scenes",
+        ["-t", scenes_file(2), "-m", "RN50x64", "--steps", "4", "--out_dir",
+         "illustra64"] + base,
+        {"attn_fwd": 24, "cutout_fwd": 8, "cutout_bwd": 8}, 2, 25, 1)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    video = interpol.main(["-i", n_out, "-o", os.path.join(OUT_DIR, "pts"),
+                           "-s", "25", "-v", ""])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    frames = [f for f in os.listdir(os.path.join(OUT_DIR, "pts", "a"))
+              if f.endswith(".jpg")]
+    check(len(frames) == 75 and video is not None
+          and not any(kernels.LAUNCHES.values()),
+          f"(p) interpol: {len(frames)} frames, video {video}, launches "
+          f"{dict(kernels.LAUNCHES)}")
+    print(f"[main] (p) interpol on (n)'s 3 snapshots: {len(frames)} frames "
+          f"at 1280x720, no kernel launched, wall {wall:.1f} s")
+    _run_illustra(
+        "(q) illustra -m ViT-L/14@336px --pallas --samples 40",
+        ["-t", "a lighthouse on a cliff at dawn", "-m", "ViT-L/14@336px",
+         "--steps", "4", "--lsteps", "2", "--out_dir", "illustra336"]
+        + base[:3] + ["40"] + base[4:],
+        {"attn_fwd": 12 + 24 * 4, "attn_bwd": 24 * 4, "cutout_fwd": 4,
+         "cutout_bwd": 4}, 1, 2, 38)
+    a = illustra.get_args(["-t", "a lighthouse on a cliff at dawn", "-m",
+                           "ViT-L/14@336px", "--steps", "1", "--save_step",
+                           "2", "--lsteps", "1", "--out_dir",
+                           os.path.join(OUT_DIR, "illustra336d")] + base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = illustra.run(a)
+        check(not res.scene_loop.chunked and len(res.losses[0]) == 1
+              and math.isfinite(res.losses[0][0]), "(r): the eager step")
+        outcome = (f"one eager step, peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        del res
+    except torch.OutOfMemoryError as e:
+        outcome = (f"out of memory after a peak of "
+                   f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB "
+                   f"({str(e).splitlines()[0][:160]})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[main] (r) ViT-L/14@336px at illustra's default budget "
+          f"({a.samples} cutouts of 577 tokens): {outcome}; wall "
+          f"{time.perf_counter() - t0:.1f} s on "
+          f"{torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**20:.0f} "
+          f"MiB on the card")
 
 
 def phase_main_switches(report, steps: int):
@@ -1681,6 +1939,7 @@ def phase_main_switches(report, steps: int):
               f"step {res.step_seconds[0]:.3f} s, steady "
               f"{1.0 / steady[len(steady) // 2]:.3f} steps/s on {name}; "
               f"losses {[round(x, 5) for x in res.losses]}")
+        del res
 
 
 # ---------------------------------------------------------------- loop
@@ -1706,6 +1965,8 @@ LOOP_PATHS = (
     ("(f) --dualmod 3, opt_step 2", ["--dualmod", "3"], None, 2, _B32),
     ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", "{img}"], None, 1, _B32),
     ("(i) --dwt", ["--dwt"], None, 1, _B32),
+    ("(j) -m RN50 --pallas", ["-m", "RN50", "--pallas"], None, 1,
+     {"cutout_fwd": 1, "cutout_bwd": 1}),
 )
 
 
@@ -1906,6 +2167,130 @@ def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
         torch.cuda.empty_cache()
 
 
+def phase_cudnn():
+    """(only when asked for) the (j) `-m RN50 --pallas` loop path of
+    `phase_loop` once more with cuDNN free to pick nondeterministic
+    algorithms (`torch.backends.cudnn.deterministic = False` after the
+    CLI's own settings; `benchmark` stays off): its device ms a step and
+    whether the replay still equals the eager steps bit for bit, beside
+    the deterministic run of `loop`."""
+    import torch
+    from aphantasia_torch.cli import clip_fft
+    settings = clip_fft.card_settings
+
+    def free(device):
+        settings(device)
+        torch.backends.cudnn.deterministic = False
+    clip_fft.card_settings = free
+    try:
+        phase_loop(paths=[p for p in LOOP_PATHS if p[0].startswith("(j)")])
+    finally:
+        clip_fft.card_settings = settings
+        torch.backends.cudnn.deterministic = True
+    print("[cudnn] the line above: (j) with cudnn.deterministic = False")
+
+
+def _illustra_eager(su, scenes: int):
+    """`scenes` scenes of the illustra setup `su` step by step
+    (`build_train_step`, the render after each `save_step`-th step), the
+    keep rescale and the carried optimizer state between them, each scene
+    from its own generator: the state after the last, the losses, the
+    frames."""
+    import torch
+    from aphantasia_torch.cli.illustra import keep_chain, scene_generator
+    from aphantasia_torch.step import build_render, build_train_step
+    sc, a = su.scenes, su.a
+    step = build_train_step(sc.par, sc.sampler, sc.cfgs[0], sc.settings,
+                            sc.optimizer)
+    render = build_render(sc.par)
+    p = su.start(0)
+    st = sc.optimizer.init(p)
+    losses, frames = [], []
+    for num in range(scenes):
+        if num:
+            p = keep_chain(p, a.keep)
+        gen = scene_generator(a.seed, num, 0, su.device)
+        prev = torch.zeros((sc.sampler.count, sc.cfgs[0].embed_dim),
+                           device=su.device)
+        consts = su.consts(num)[0]
+        for i in range(a.steps):
+            p, st, prev, loss = step(p, st, prev, *consts, su.draw(gen), i)
+            losses.append(loss.item())
+            if i % a.save_step == 0:
+                frames.append(render(p, contrast=a.contrast).cpu())
+    out = _leaves(p, st, torch.zeros(()))
+    del out["prev_enc"]
+    out.update(losses=torch.tensor(losses), frames=torch.stack(frames))
+    return out
+
+
+def phase_loop_illustra(steps: int = 8):
+    """The illustra chain over a scene boundary at full width (ViT-B/32,
+    `--pallas`, 190 cutouts, the aesthetic head, two scenes of `steps`):
+    the scenes through `SceneLoop.scene`, whose first frame group is
+    captured into a CUDA graph in scene 1 and replayed for every later
+    group, scene 2 after the copy-in of its rescaled spectrum, carried
+    optimizer state, prompts and zeroed prev_enc; held to two eager runs
+    (bit for bit, or within their own spread), with no second capture.
+    Prints scene 2's replayed steps/s, its device ms a step by replay and
+    its busy share."""
+    import torch
+    from aphantasia_torch.cli import illustra
+    argv = ["-t", scenes_file(2), "--size", "1280-720", "--samples", "200",
+            "--steps", str(steps), "--pallas", "-nv", "--seed", "1",
+            "--out_dir", os.path.join(OUT_DIR, "loop_illustra")]
+    su = illustra.setup(illustra.get_args(argv))
+    runs = [_illustra_eager(su, 2) for _ in range(2)]
+    sc, a = su.scenes, su.a
+    p = su.start(0)
+    st = sc.optimizer.init(p)
+    losses, frames, secs, graphs = [], [], [], None
+    for num in range(2):
+        if num:
+            p = illustra.keep_chain(p, a.keep)
+        gen = illustra.scene_generator(a.seed, num, 0, su.device)
+        t0 = time.perf_counter()
+        p, st, ls, _ = sc.scene(p, st, su.consts(num),
+                                lambda g, gen=gen: su.draw(gen),
+                                lambda first, f: frames.append(f.cpu()))
+        secs.append(time.perf_counter() - t0)
+        losses += ls
+        found = [(id(lp), pat, id(g.graph)) for lp in sc.loops.values()
+                 for pat, g in lp.groups.items()]
+        graphs = graphs or found
+        check(found == graphs and len(found) == 1 and found[0][2] != id(None),
+              f"illustra loop: graphs after scene {num + 1}: {found}, "
+              f"after scene 1: {graphs}")
+    got = {k: v.clone() for k, v in _leaves(p, st, torch.zeros(())).items()}
+    del got["prev_enc"]
+    got.update(losses=torch.tensor(losses), frames=torch.cat(frames))
+    want, again = runs
+    worst = {}
+    for k, ref in want.items():
+        check(got[k].shape == ref.shape, f"illustra loop: {k} shape")
+        worst[k] = ((got[k].double() - ref.double()).abs().max().item(),
+                    (again[k].double() - ref.double()).abs().max().item())
+    check(all(e == 0 if sp == 0 else e <= 2 * sp for e, sp in worst.values()),
+          "illustra loop: the replay differs from the eager scenes: "
+          + ", ".join(f"{k} {e:.3g} ({sp:.3g})" for k, (e, sp) in
+                      worst.items()))
+    loop = next(iter(sc.loops.values()))
+    group = next(iter(loop.groups.values()))
+    ms = cuda_ms(group.graph.graph.replay, iters=10, warmup=2)
+    exact = all(e == 0 for e, _ in worst.values())
+    print(f"[loop] illustra, 2 scenes of {steps} steps, {sc.sampler.count} "
+          f"cutouts, one graph captured in scene 1 and replayed in scene 2 "
+          f"on {torch.cuda.get_device_name(0)}: scene walls "
+          f"{secs[0]:.3f} / {secs[1]:.3f} s, scene 2 {steps / secs[1]:.3f} "
+          f"steps/s replayed, group device ms {ms:.3f}, busy share "
+          f"{ms * steps / 1000 / secs[1]:.3f}; "
+          + ("bit for bit" if exact else "max |replayed - eager| (eager "
+             "spread): " + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
+                                     for k, (e, sp) in worst.items())))
+    del su, runs, got
+    torch.cuda.empty_cache()
+
+
 def sync_term_ms(su):
     """The `--sync` term alone at the run's shapes, by graph replay
     (`graph_ms`, 5 calls a graph): the resize of the 720x1280 frame, both
@@ -2056,7 +2441,7 @@ PARITY_LR = 0.05
 
 
 def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
-                  host_decode=False, kind="fft"):
+                  host_decode=False, kind="fft", resnet=False):
     """A small float32 step (tiny ViT of width 128 and 17 tokens, 96x64
     frame, `count` cutouts at 64) with the same weights, start and prompts
     on either device.  With `host_decode` the frame is decoded on the CPU
@@ -2064,8 +2449,10 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
     devices' cuts see the same frame bits.  `kind`: "fft" (the spectrum),
     "terms" (the spectrum with --aest 2 and --sync 0.5: a random head and
     random VGG16 weights, a 48x32 target, total_steps 4) or "dwt" (a coif2
-    pyramid of 6 levels).  `consts` are the step's (clip, aest,
-    lpips_bundle, prompts)."""
+    pyramid of 6 levels).  `resnet`: a tiny ModifiedResNet tower in place
+    of the ViT (width 8, stages (1, 2, 1, 1), its pool 256 wide in 4 heads
+    over a 2x2 map).  `consts` are the step's (clip, aest, lpips_bundle,
+    prompts)."""
     import torch
     from aphantasia_torch.models.clip.model import CLIPConfig, clip_init
     from aphantasia_torch.models.lpips import lpips_init
@@ -2075,8 +2462,11 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
     from aphantasia_torch.params.fft import FFTParameterizer
     from aphantasia_torch.step import (StepSettings, build_draw_fn,
                                        build_loss_fn, build_train_step)
-    cfg = CLIPConfig("tiny", 64, 64, 2, 128, 16, transformer_width=64,
-                     transformer_heads=2, transformer_layers=1)
+    cfg = (CLIPConfig("rn-tiny", 64, 64, (1, 2, 1, 1), 8, 0,
+                      transformer_width=64, transformer_heads=2,
+                      transformer_layers=1) if resnet else
+           CLIPConfig("tiny", 64, 64, 2, 128, 16, transformer_width=64,
+                      transformer_heads=2, transformer_layers=1))
     g = torch.Generator().manual_seed(0)
     clip = clip_init(g, cfg)
     clip = {"visual": _tree_to(clip["visual"], device)}
@@ -2205,10 +2595,19 @@ def phase_parity():
     _parity_one_step(False, "none", "affine", tol=(1e-4, 1e-3), kind="terms")
     _parity_one_step(False, "none", "affine", tol=(1e-4, 1e-3), kind="dwt")
     _parity_dual()
+    # the ModifiedResNet tower (cuDNN float32 convolutions on the card),
+    # and a two-scene illustra chain replayed on the card.  The ResNet's
+    # gradient is piecewise linear in the params (ReLU masks), and at
+    # this size one mask flipped by a float32 rounding moves it by ~1e-3
+    # relative L2 (in float64 on the CPU, a 1e-7 relative perturbation of
+    # the params moves it by 9.0e-4): the gradient is held at 5e-3
+    _parity_one_step(False, "none", "affine", tol=(1e-4, 5e-3), resnet=True)
+    _parity_illustra()
 
 
 def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
-                     cpu_env=None, count=6, tol=(2e-3, 2e-2), kind="fft"):
+                     cpu_env=None, count=6, tol=(2e-3, 2e-2), kind="fft",
+                     resnet=False):
     """One step's loss and gradient on the CPU and on the card from the
     same draws, with `cpu_env` / `cuda_env` set for each device's run
     (`kind` as `_parity_setup`'s; a pyramid's gradient is held leaf by
@@ -2222,7 +2621,7 @@ def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
     for dev, env in (("cpu", cpu_env), ("cuda", cuda_env)):
         with env_set(env):
             c = _parity_setup(dev, use_pallas, transform, persp, count,
-                              kind=kind)
+                              kind=kind, resnet=resnet)
             p0 = c["p0"] if kind == "dwt" else [c["p0"]]
             xs = [x.clone().requires_grad_(True) for x in p0]
             d = to_device(c["draw"](torch.Generator().manual_seed(2)), dev)
@@ -2235,7 +2634,8 @@ def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
     lr_ = abs(grads["cpu"][0] - grads["cuda"][0]) / abs(grads["cpu"][0])
     ge = ((grads["cpu"][1] - grads["cuda"][1]).norm()
           / grads["cpu"][1].norm()).item()
-    print(f"[parity] {kind} {transform}/{persp}, pallas={use_pallas}, "
+    print(f"[parity] {kind}{' ResNet' if resnet else ''} {transform}/{persp}, "
+          f"pallas={use_pallas}, "
           f"{count} cutouts, env {sorted(cuda_env or {})}: loss cpu "
           f"{grads['cpu'][0]:.6f} cuda {grads['cuda'][0]:.6f}, grad "
           f"relative L2 error {ge:.3g}")
@@ -2286,6 +2686,54 @@ def _parity_dual():
           "dual: card vs CPU params differ")
 
 
+def _parity_illustra(steps: int = 2):
+    """Two illustra scenes of `steps` steps (`SceneLoop.scene`: one step a
+    frame, the frames of a scene in one dispatch, the global step index,
+    centred noise, no expand) on the CPU and on the card, where scene 1's
+    first group is captured and everything after replays; between them
+    the keep rescale (1.5), the carried optimizer state and new prompts.
+    Losses within 1e-4, params within 2e-3 / 5e-2 of the learning rate
+    (mean / worst)."""
+    import dataclasses
+    import torch
+    from aphantasia_torch.cli.illustra import SceneLoop, keep_chain
+    from aphantasia_torch.step import build_draw_fn, to_device
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        c = _parity_setup(dev, False, "none")
+        settings = dataclasses.replace(c["settings"], expand=0.0,
+                                       noise_centered=True)
+        draw = build_draw_fn(c["sampler"], settings, tuple(c["p0"].shape))
+        scenes = SceneLoop(c["par"], c["sampler"], [c["cfg"]], settings,
+                           c["opt"], steps, 1, 1.1)
+        prompts2 = ((torch.randn((2, 64), generator=c["g"]).to(dev),
+                     torch.tensor([1.0, 0.25], device=dev), -1.0),)
+        p = c["p0"].clone()
+        st, losses = c["opt"].init(p), []
+        g = torch.Generator().manual_seed(4)
+        for num, prompts in enumerate((c["prompts"], prompts2)):
+            if num:
+                p = keep_chain(p, 1.5)
+            consts = [(c["clip"], None, None,
+                       [(e.clone(), w.clone(), k) for e, w, k in prompts])]
+            p, st, ls, _ = scenes.scene(
+                p, st, consts, lambda gs: to_device(draw(g), dev))
+            losses += ls
+        check(len(scenes.loops) == 1, f"parity illustra on {dev}: "
+              f"{len(scenes.loops)} frame loops")
+        runs[dev] = (losses, p.cpu())
+    le = max(abs(a - b) for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
+    err = (runs["cpu"][1] - runs["cuda"][1]).abs()
+    print(f"[parity] illustra, two scenes of {steps} steps (the second "
+          f"replayed): losses cpu {runs['cpu'][0]} cuda {runs['cuda'][0]}; "
+          f"params |err| mean {err.mean().item():.3g} max "
+          f"{err.max().item():.3g}")
+    check(le <= 1e-4, f"illustra: card vs CPU loss differs by {le}")
+    check(err.mean().item() <= 2e-3 * PARITY_LR
+          and err.max().item() <= 5e-2 * PARITY_LR,
+          "illustra: card vs CPU params differ")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,main,loop,parity")
@@ -2322,8 +2770,9 @@ def main(argv=None) -> int:
             t = time.time()
             {"kernels": lambda: phase_kernels(report),
              "main": lambda: phase_main(report, args.steps),
-             "loop": phase_loop,
+             "loop": lambda: (phase_loop(), phase_loop_illustra()),
              "parity": phase_parity,
+             "cudnn": phase_cudnn,
              "profile": lambda: phase_profile(
                  [p for p in args.profile_paths.split(",") if p])}[ph]()
             print(f"[{ph}] done in {time.time() - t:.1f} s")

@@ -146,7 +146,7 @@ def test_vit_l14_shapes_match_jax(monkeypatch):
 
 
 def test_vit_l14_336_shapes_match_jax(monkeypatch):
-    """ViT-L/14@336px is a ported tower (its CLI, illustra, is not): its
+    """ViT-L/14@336px is a ported tower, which illustra offers: its
     parameter tree has the JAX `clip_init` shapes (both trees shape-only,
     as for ViT-L/14) and its images make 577 tokens, which the bf16
     attention tiles take at any count."""
@@ -187,25 +187,46 @@ def test_vit_at_the_336_geometry_matches_jax():
     _close(g_t.numpy(), g_j)
 
 
-def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.load_clip("RN50")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.load_clip("RN50x64")
+def test_unported_models_raise(monkeypatch):
+    """Every model is ported since the ModifiedResNets were: the largest,
+    RN50x64, builds through `load_clip` (shape-only: its 623M parameters
+    on the meta device) with the JAX tree's stage depths and widths, and
+    takes 448 px images."""
+    monkeypatch.setattr(torch, "randn", lambda shape, generator=None,
+                        device=None: torch.empty(shape, device="meta"))
+    params, cfg = tm.load_clip("RN50x64")
+    assert cfg.name == "RN50x64" and not cfg.is_vit
+    v = params["visual"]
+    assert [len(s) for s in v["layers"]] == [3, 15, 36, 10]
+    assert tuple(v["stem"]["conv1_w"].shape) == (64, 3, 3, 3)
+    assert tuple(v["attnpool"]["pos_emb"].shape) == (14 * 14 + 1, 4096)
+    assert tuple(params["text"]["token_embedding"].shape) == (49408, 1024)
+    assert tm.input_resolution("RN50x64") == 448
     assert tm.input_resolution("RN50x4") == 288
 
 
-def test_unported_models_raise_from_a_checkpoint(tmp_path):
+def test_unported_models_raise_from_a_checkpoint(tmp_path, monkeypatch):
     """A ModifiedResNet checkpoint in the OpenAI layout (no class
-    embedding, `visual.layer*` blocks), which a ViT load reads until its
-    tower is ported (ROADMAP A.5), raises by name."""
+    embedding, `visual.layer*` blocks), written from a tiny ResNet tree,
+    loads through `load_clip` (RN50's name, the tiny configuration in its
+    place) into the tree it was written from, and its tower encodes; a
+    ViT model asked for names the mismatch."""
     from aphantasia_torch.models.clip.convert import openai_state_dict
-    cfg = tm.CLIPConfig(**dict(CFG_KW, vision_layers=1))
-    sd = openai_state_dict(tm.clip_init(torch.Generator().manual_seed(0),
-                                        cfg))
-    sd.pop("visual.class_embedding")
-    sd["visual.layer1.0.conv1.weight"] = torch.zeros((4, 4, 1, 1))
+    cfg = tm.CLIPConfig(**dict(CFG_KW, name="rn", vision_layers=(1, 2, 1, 1),
+                               vision_width=8, vision_patch_size=0))
+    tree = tm.clip_init(torch.Generator().manual_seed(0), cfg)
+    sd = openai_state_dict(tree)
+    assert "visual.class_embedding" not in sd
+    assert "visual.layer2.1.conv1.weight" in sd
     path = str(tmp_path / "rn.pt")
     torch.save(sd, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+    monkeypatch.setitem(tm.CLIP_CONFIGS, "RN50", cfg)
+    loaded, got_cfg = tm.load_clip("RN50", weights_path=path)
+    assert got_cfg is cfg
+    for a, b in zip(jax.tree.leaves(loaded), jax.tree.leaves(tree),
+                    strict=True):
+        assert torch.equal(a, b)
+    emb = tm.encode_image(loaded, cfg, torch.randn(2, 3, 32, 32))
+    assert emb.shape == (2, 32) and torch.isfinite(emb).all()
+    with pytest.raises(ValueError, match="checkpoint is a ResNet"):
         tm.load_clip("ViT-B/32", weights_path=path)

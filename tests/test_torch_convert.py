@@ -201,13 +201,32 @@ def test_wrong_model_raises_readable_error():
 
 
 def test_resnet_checkpoint_raises_until_ported():
-    """A ModifiedResNet checkpoint (no class embedding, `visual.layer*`)
-    is ROADMAP A.5: the port's converter refuses it by name."""
-    sd = _openai_sd(_tree())
-    sd.pop("visual.class_embedding")
-    sd["visual.layer1.0.conv1.weight"] = np.zeros((4, 4, 1, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
-        tconv.convert_checkpoint(sd)
+    """A ModifiedResNet checkpoint (no class embedding, `visual.layer*`),
+    which raised until its tower was ported (ROADMAP A.5), converts: a
+    tiny ResNet tree of numpy-seeded leaves (the BatchNorm statistics
+    too), written in the OpenAI layout from the port's tree, reads in the
+    port exactly as the JAX converter's tree turned into the port's (its
+    convolutions HWIO -> OIHW by `clip_params_from_numpy`)."""
+    kw = dict(CFG_KW, vision_layers=(1, 2, 1, 1), vision_width=8,
+              vision_patch_size=0, image_resolution=64)
+    shapes = jax.tree.map(lambda a: a.shape, jm.clip_init(
+        jax.random.PRNGKey(0), jm.CLIPConfig(**kw)))
+    rs = np.random.RandomState(5)
+    tree = jax.tree.map(lambda s: np.abs(rs.randn(*s)).astype(np.float32),
+                        shapes, is_leaf=lambda x: isinstance(x, tuple))
+    sd = _openai_sd(tconvert.clip_params_from_numpy(tree))
+    assert "visual.class_embedding" not in sd
+    assert sd["visual.layer2.0.downsample.0.weight"].shape == (64, 32, 1, 1)
+    got = tconv.convert_checkpoint(sd, expect_cfg=tm.CLIPConfig(**kw))
+    want = tconvert.clip_params_from_numpy(tree_np(jconv.convert_checkpoint(
+        sd, expect_cfg=jm.CLIPConfig(**kw))))
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree.leaves(want), strict=True):
+        assert a.dtype == torch.float32 and a.is_contiguous()
+        assert torch.equal(a, b), jax.tree_util.keystr(path)
+    np.testing.assert_array_equal(
+        got["visual"]["layers"][1][1]["bn2"]["v"].numpy(),
+        tree["visual"]["layers"][1][1]["bn2"]["v"])
 
 
 def test_weights_carried_across():
