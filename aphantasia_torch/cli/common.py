@@ -124,6 +124,23 @@ def apply_sample_budget(samples: int, model: str, dualmod=None,
     return max(samples, 1)
 
 
+def build_prompt_groups(groups):
+    """[(embs, wts, coeff)] -> a tuple of (embs, wts, coeff), the Nones
+    skipped: copies of the embeddings and weights, and each coefficient a
+    0-d float32 tensor on their device.  A frame step adopts its first
+    frame's groups as its buffers and copies later frames' into them, so
+    the groups must not alias a scene's encodings."""
+    out = []
+    for g in groups:
+        if g is None:
+            continue
+        embs, wts, coeff = g
+        out.append((embs.clone(), wts.clone(),
+                    torch.full((), float(coeff), dtype=torch.float32,
+                               device=embs.device)))
+    return tuple(out)
+
+
 def dualmod_steps(steps: int, dualmod: int) -> set:
     """The step indices handled by the second tower: every `dualmod`-th
     step from `dualmod` on."""

@@ -1,11 +1,12 @@
 """Conversions from the JAX package's state (given as numpy arrays) to the
 port's tensors: the CLIP parameter tree of `clip_init`, FFT spectrum and
 DWT pyramid params, the aesthetic head, the LPIPS weights and optax
-Adam/AMSGrad states.  The only place where layouts change: the port keeps
-the JAX layouts (linear weights [in, out], merged qkv, [1,3,H,W//2+1,2]
-spectra, the pyramid list), so those conversions are device/dtype moves of
-the same arrays; the LPIPS convolutions alone change, from the JAX HWIO
-to torch's OIHW.
+Adam/AMSGrad states and the Depth-Anything-V2 tree of `dav2_init`.  The
+only place where layouts change: the port keeps the JAX layouts (linear
+weights [in, out], merged qkv, [1,3,H,W//2+1,2] spectra, the pyramid
+list), so those conversions are device/dtype moves of the same arrays;
+the convolutions alone change, from the JAX HWIO to torch's OIHW (and
+DA-V2's two transposed convolutions to torch's [in, out, kh, kw]).
 """
 from __future__ import annotations
 
@@ -62,6 +63,24 @@ def lpips_params_from_numpy(params, device="cpu"):
                        "b": _tensor(c["b"], device).float()}
                       for c in params["convs"]],
             "lins": [_tensor(w, device).float() for w in params["lins"]]}
+
+
+def dav2_params_from_numpy(tree, device="cpu"):
+    """The JAX `dav2_init` / `convert_hf_dav2` tree -> the port's: the
+    convolutions (4-D leaves) from HWIO to OIHW, the transposed ones
+    (`up4_w`, `up2_w`) to [in, out, kh, kw]."""
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v, key) for v in t]
+        if key in ("up4_w", "up2_w"):
+            return _tensor(np.asarray(t).transpose(2, 3, 0, 1),
+                           device).float()
+        if np.ndim(t) == 4:
+            return _tensor(hwio_to_oihw(t), device).float()
+        return _tensor(t, device).float()
+    return walk(tree)
 
 
 def _moment(m, device):

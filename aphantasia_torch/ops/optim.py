@@ -74,6 +74,14 @@ class Adam:
         return OptState(count, zeros(), zeros(),
                         zeros() if self.amsgrad else None)
 
+    def reset(self, state: OptState) -> None:
+        """`state` made fresh in place, equal to what `init` gives: a
+        captured video frame zeroes it at each replay."""
+        state.count.zero_()
+        for t in (leaves(state.mu) + leaves(state.nu)
+                  + (leaves(state.nu_max) if self.amsgrad else [])):
+            t.zero_()
+
     def step(self, params, grads, state: OptState) -> None:
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         state.count.add_(1)

@@ -118,3 +118,61 @@ def resize_bicubic(img: torch.Tensor, size) -> torch.Tensor:
     wy = _bicubic_matrix(int(oh), int(h), img.device)
     wx = _bicubic_matrix(int(ow), int(w), img.device)
     return torch.matmul(torch.matmul(wy, img), wx.t())
+
+
+def _dense_matrix(idx: torch.Tensor, w: torch.Tensor,
+                  in_size: int) -> torch.Tensor:
+    """Tap weights [out, k] scattered into a dense [out, in_size] matrix,
+    duplicate taps summed."""
+    rows = torch.arange(idx.shape[0])[:, None].expand_as(idx)
+    mat = torch.zeros((idx.shape[0], in_size), dtype=w.dtype)
+    mat.index_put_((rows, idx.long()), w, accumulate=True)
+    return mat
+
+
+@functools.lru_cache(maxsize=32)
+def linear_axis_matrix(out_size: int, in_size: int,
+                       device="cpu") -> torch.Tensor:
+    """The dense [out, in] bilinear matrix of `F.interpolate(...,
+    mode='bilinear', align_corners=True)` along one axis, float32, built
+    once per size and device.  Shared: never written to."""
+    i = torch.arange(out_size, dtype=torch.float32)
+    src = i * ((in_size - 1.0) / max(out_size - 1, 1))
+    y0 = torch.floor(src)
+    t = src - y0
+    w = torch.stack([1.0 - t, t], dim=-1)
+    idx = torch.clamp(y0[:, None] + torch.arange(2, dtype=torch.float32),
+                      0.0, in_size - 1.0).to(torch.int32)
+    return _dense_matrix(idx, w, in_size).to(device)
+
+
+def resize_axis_taps_halfpix(out_size: int, in_size: int):
+    """Tap indices and weights for one axis with the half-pixel mapping
+    src = (i + 0.5) * in / out - 0.5, torch's cubic A = -0.75 and no
+    antialias (`F.interpolate(mode='bicubic', align_corners=False)`).
+    Returns (idx int32 [out,4], w float32 [out,4])."""
+    i = torch.arange(out_size, dtype=torch.float32)
+    src = (i + 0.5) * (in_size / out_size) - 0.5
+    y0 = torch.floor(src)
+    w = cubic_tap_weights(src - y0)
+    taps = y0[:, None] + torch.arange(-1, 3, dtype=torch.float32)
+    idx = torch.clamp(taps, 0.0, in_size - 1.0).to(torch.int32)
+    return idx, w
+
+
+@functools.lru_cache(maxsize=32)
+def _halfpix_matrix(out_size: int, in_size: int, device) -> torch.Tensor:
+    idx, w = resize_axis_taps_halfpix(out_size, in_size)
+    return _dense_matrix(idx, w, in_size).to(device)
+
+
+def resize_bicubic_halfpix(img: torch.Tensor, size) -> torch.Tensor:
+    """Full-frame bicubic resize of [..., H, W], align_corners=False, no
+    antialias (`F.interpolate(..., mode='bicubic', align_corners=False)`),
+    as two dense matrix products in float32."""
+    h, w = img.shape[-2:]
+    oh, ow = size
+    wy = _halfpix_matrix(int(oh), int(h), img.device)
+    wx = _halfpix_matrix(int(ow), int(w), img.device)
+    out = torch.matmul(wy, img)
+    return torch.matmul(out, wx.t())

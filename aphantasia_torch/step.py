@@ -16,8 +16,10 @@ sim_func(enc, out_enc); the LPIPS sync prog * sync * mean(lpips(half-size
 frame, target)) with prog = (total_steps - step_i) / total_steps read
 from the device's step index; sharpness -sharp * derivat(img); enforce
 -enforce * sim(out_enc, second-pass enc); expand +expand * sim(out_enc,
-prev_enc) gated by (step_i > 0) on the device; and the spectrum-shift
-noise inside the decode.  The aesthetic and sync terms are absent when
+prev_enc) gated by (step_i > 0) on the device; the spectrum-shift noise
+inside the decode; and, with `rgb_anchors` (illustrip --gen RGB), the
+brightness and contrast pins |mean - 0.45| and |std - 0.17| per channel
+(after the sharpness term, before enforce, as in JAX).  The aesthetic and sync terms are absent when
 their weights (`aest_params`, `lpips_bundle`) are None, as in JAX.
 
 The step loops (`build_train_loop`, `build_train_loop_frames`) run many
@@ -75,7 +77,8 @@ from aphantasia_torch.ops.sampler import Boxes
 class StepSettings:
     """Loss/step configuration."""
     sim: str = "mix"
-    sharp: float = 0.0             # finite-difference ('naiv') sharpness
+    sharp: float = 0.0
+    sharp_mode: str = "naiv"       # derivat's mode: naiv, sobel or scharr
     aest: float = 0.0
     enforce: float = 0.0
     expand: float = 0.0
@@ -83,6 +86,8 @@ class StepSettings:
     noise_centered: bool = False   # the shift noise u - 0.5 (illustra)
     sync: float = 0.0
     total_steps: int = 200         # the sync term's progress denominator
+    rgb_anchors: bool = False      # illustrip --gen RGB's brightness and
+    #                                contrast pins
     transform: str = "fast"
     persp: str = "affine"          # the `fast` perspective: affine|mixed|exact
     clip_dtype: Any = torch.float32
@@ -190,7 +195,11 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
             loss = loss + prog * settings.sync * torch.mean(
                 lpips_apply(lpips_params, half, img_in, normalize=True))
         if settings.sharp != 0:
-            loss = loss - settings.sharp * derivat(img, mode="naiv")
+            loss = loss - settings.sharp * derivat(img,
+                                                   mode=settings.sharp_mode)
+        if settings.rgb_anchors:
+            loss = loss + torch.mean(torch.abs(img.mean(dim=(2, 3)) - 0.45))
+            loss = loss + torch.mean(torch.abs(img.std(dim=(2, 3)) - 0.17))
         if settings.enforce != 0:
             enc2 = encode_cuts(clip_params, draws.cuts2, img)
             loss = loss - settings.enforce * sim_func(out_enc, enc2,
@@ -243,9 +252,12 @@ def build_render(parameterizer):
 # ---------------------------------------------------------------- step loops
 
 def _tree_clone(tree):
-    """A copy of a draw structure (named tuples of tensors, None)."""
+    """A copy of a draw structure (named tuples or dicts of tensors,
+    None)."""
     if tree is None or isinstance(tree, torch.Tensor):
         return None if tree is None else tree.clone()
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
     vals = [_tree_clone(v) for v in tree]
     return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
 
@@ -281,10 +293,14 @@ class LoopBuffers:
         self.n, self.frame_shape = n, frame_shape
         self.params = None
 
-    def bind(self, gen_params, opt_state, prev_enc, consts, draws):
+    def bind(self, gen_params, opt_state, prev_enc, consts, draws,
+             extra=None):
         """`consts`: one (clip_params, aest_params, lpips_bundle, prompts)
-        tuple per tower; `draws`: the group's n StepDraws."""
+        tuple per tower; `draws`: the group's n StepDraws; `extra`: a dict
+        of further input tensors (a video frame's motion scalars and depth
+        map), cloned like the draws."""
         if self.params is None:
+            self.extra = _tree_clone(extra)
             self.device = dev = leaves(gen_params)[0].device
             self.params, self.opt, self.prev = gen_params, opt_state, prev_enc
             self.consts = consts
@@ -297,6 +313,7 @@ class LoopBuffers:
             _tree_copy((self.params, self.opt, self.prev, self.consts),
                        (gen_params, opt_state, prev_enc, consts))
             _tree_copy(self.draws, list(draws))
+            _tree_copy(self.extra, extra)
 
 
 class StepGroup:
@@ -533,3 +550,223 @@ def frames_per_dispatch(size, n_frames_total: int,
         if n_frames_total % f == 0:
             best = f
     return best
+
+
+# ---------------------------------------------------------------- video frames
+
+class FrameGroup(StepGroup):
+    """One illustrip frame on its buffers (`FrameStep`): the motion warp of
+    the params, a fresh optimizer state unless `smooth`, `opt_steps` train
+    steps that all see the frame's step index, the uint8 render after the
+    last, and with depth the next depth preview (`preview`, allocated
+    before the first run)."""
+
+    def __init__(self, frame_step, train_step, bufs: LoopBuffers):
+        super().__init__((train_step,), (0,) * frame_step.opt_steps, False,
+                         bufs)
+        self.fs = frame_step
+        self.preview = None
+
+    def _steps(self) -> None:
+        b, fs = self.bufs, self.fs
+        with torch.no_grad():
+            b.params.copy_(fs.motion_warp(b.params, b.extra["motion"],
+                                          b.extra.get("depth")))
+            if not fs.smooth:
+                fs.optimizer.reset(b.opt)
+        for k in range(fs.opt_steps):
+            _, _, out_enc, loss = self.train_steps[0](
+                b.params, b.opt, b.prev, *b.consts[0], b.draws[k], b.index)
+            b.prev.copy_(out_enc)
+            b.losses[k].copy_(loss)
+        b.frame.copy_(fs.render(b.params, contrast=fs.contrast))
+        if fs.with_depth:
+            with torch.no_grad():
+                self.preview.copy_(fs.preview(b.params))
+
+
+class FrameStep:
+    """`build_frame_step`'s frame function.  Frames whose prompts have the
+    same shapes share one `FrameGroup` and its buffers (on the card one
+    CUDA graph); prompts of other shapes (a scene line with another number
+    of `|` parts) get a group of their own, which adopts the same params,
+    optimizer state and prev_enc, so both graphs work on one state."""
+
+    def __init__(self, parameterizer, sampler, clip_cfg, settings, optimizer,
+                 gen: str, size, opt_steps: int, smooth: bool,
+                 contrast: float, deptha, depth: float, colors: float):
+        self.par, self.optimizer = parameterizer, optimizer
+        self.gen, self.size = gen, tuple(size)
+        self.opt_steps, self.smooth, self.contrast = opt_steps, smooth, contrast
+        self.depth, self.colors = depth, colors
+        # the JAX gate: zero or negative strength disables the warp
+        self.with_depth = deptha is not None and depth > 0.0
+        self.train_step = build_train_step(parameterizer, sampler, clip_cfg,
+                                           settings, optimizer)
+        self.render = build_render(parameterizer)
+        self.groups: dict = {}
+
+    def decode_raw(self, params):
+        """The frame state in image space: the spectrum's ortho irfft2, or
+        the pixels themselves."""
+        from aphantasia_torch.params.fft import spectrum_to_image
+        return (spectrum_to_image(params, self.size) if self.gen == "FFT"
+                else params)
+
+    def motion_warp(self, params, motion, depth_map=None):
+        """The frame's motion on the params: decode, the depth warp (with
+        depth), `frame_transform` and, for FFT, the spectrum again.
+        `motion` is the [5] float32 tensor (angle, shift x, shift y,
+        scale, shear); the warp origin dx = 100 sh0 / w, dy = 100 sh1 / h,
+        dz = 0.5 + 32 (scale - 1) is computed on its device."""
+        from aphantasia_torch.ops.warp import frame_transform
+        from aphantasia_torch.params.fft import image_to_spectrum
+        h, w = self.size
+        angle, sh0, sh1, scale, shear = motion.unbind(0)
+        img = self.decode_raw(params)
+        if self.with_depth:
+            from aphantasia_torch.motion.depthwarp import grid_warp
+            # true divisions on every device (a CUDA tensor divided by a
+            # Python scalar is multiplied by its reciprocal)
+            dx = 100.0 * sh0 / torch.full_like(sh0, w)
+            dy = 100.0 * sh1 / torch.full_like(sh1, h)
+            dz = 0.5 + 32.0 * (scale - 1.0)
+            d = resize_bicubic(depth_map, (h, w))
+            img = grid_warp(img, d[0], self.depth, (dx, dy), dz)
+        img = frame_transform(img, (h, w), angle, (sh0, sh1), scale, shear)
+        return image_to_spectrum(img, (h, w)) if self.gen == "FFT" else img
+
+    def preview(self, params):
+        """The depth preview of the frame state (`_depth_preview`)."""
+        return _depth_preview(self.decode_raw(params), self.size, self.colors)
+
+    def __call__(self, params_tmp, opt_state, prev_enc, clip_params,
+                 aest_params, prompts, draws, step_i, motion, depth_map=None):
+        key = tuple(tuple(tuple(t.shape) for t in g[:2]) for g in prompts)
+        group = self.groups.get(key)
+        if group is None:
+            bufs = LoopBuffers(self.opt_steps, tuple(self.size) + (3,))
+            group = self.groups[key] = FrameGroup(self, self.train_step, bufs)
+        dev = leaves(params_tmp)[0].device
+        mot = torch.stack([v.float() if isinstance(v, torch.Tensor)
+                           else torch.full((), float(v), device=dev)
+                           for v in motion])
+        extra = {"motion": mot}
+        if self.with_depth:
+            extra["depth"] = depth_map
+        b = group.bufs
+        b.bind(params_tmp, opt_state, prev_enc,
+               ((clip_params, aest_params, None, tuple(prompts)),),
+               list(draws), extra)
+        if self.with_depth and group.preview is None:
+            from aphantasia_torch.motion.depthwarp import depth_dims
+            group.preview = torch.zeros((1, 3) + depth_dims(self.size),
+                                        device=dev)
+        group.run(int(step_i))
+        out = (b.params, b.opt, b.prev, b.frame.clone(), b.losses.clone())
+        if self.with_depth:
+            out += (group.preview.clone(),)
+        return out
+
+
+def build_frame_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
+                     optimizer, gen: str, size, opt_steps: int, smooth: bool,
+                     contrast: float = 1.0, deptha=None, depth: float = 0.0,
+                     colors: float = 1.0) -> FrameStep:
+    """One illustrip video frame a call (JAX `build_frame_step`).
+
+    Returns frame_fn(params_tmp, opt_state, prev_enc, clip_params,
+    aest_params, prompts, draws, step_i, motion[, depth_map]) ->
+    (params_tmp, opt_state, prev_enc, frame_u8 [H,W,3], losses
+    [opt_steps][, preview]).  `draws` are the frame's `opt_steps`
+    StepDraws (the JAX frame folds its key with the step s); every step
+    sees `step_i`, the frame's index in its scene; `motion` = (angle_deg,
+    shift_x, shift_y, scale, shear_deg), floats or 0-d tensors.  A frame:
+    the motion warp (RGB: `frame_transform` on the params; FFT: decode,
+    warp, re-encode), a fresh optimizer state (zeroed in place) or with
+    `smooth` the carried one, the steps, and the render after the last
+    step.  With depth (`deptha` and `depth` > 0) the frame takes the
+    mirror-fused depth map at the DA-V2 inference size, warps the frame
+    by it (`grid_warp`, before `frame_transform`) and returns the preview
+    of its raw state after the steps, for the next depth forward
+    (`build_depth_helpers`).  The returned state is the frame group's own
+    buffers, updated in place by the next call; the frame, the losses and
+    the preview are copies.  On the card a group's first frame runs
+    eagerly and is captured, later frames replay (module docstring)."""
+    return FrameStep(parameterizer, sampler, clip_cfg, settings, optimizer,
+                     gen, size, opt_steps, smooth, contrast, deptha, depth,
+                     colors)
+
+
+def _depth_preview(img_raw, size, colors):
+    """The DA-V2-sized preview (motion/depthwarp.py:depth_preview) of the
+    frame's raw (before the color head's std normalisation) state."""
+    from aphantasia_torch.motion.depthwarp import depth_preview
+    from aphantasia_torch.params.color import to_valid_rgb
+    return depth_preview(to_valid_rgb(img_raw, colors=colors), size)
+
+
+class GraphFn:
+    """fn(x) with no gradient at one input shape.  On the card its first
+    call runs eagerly on a side stream (that result is returned) and is
+    then captured into a `kernels.CountedGraph`; later calls copy x into
+    the graph's input and replay, and return the graph's output, which
+    the next call overwrites.  On the CPU every call runs eagerly."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph = self.x = self.out = None
+        self.first_seconds = None
+
+    @torch.no_grad()
+    def __call__(self, x):
+        if x.device.type != "cuda":
+            return self.fn(x)
+        if self.graph is not None:
+            self.x.copy_(x)
+            self.graph.replay()
+            return self.out
+        torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        self.x = x.clone()
+        main = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = self.fn(self.x)
+        main.wait_stream(side)
+        graph = kernels.CountedGraph()
+        with graph.capture(capture_error_mode="thread_local"):
+            self.out = self.fn(self.x)
+        self.graph = graph
+        torch.cuda.synchronize(x.device)
+        self.first_seconds = time.perf_counter() - t0
+        return first
+
+
+class DepthHelpers(NamedTuple):
+    """`build_depth_helpers`' pair: `preview(params)`, the frame-0
+    bootstrap, and `infer(preview)`, the mirror-fused depth map."""
+    preview: Callable
+    infer: GraphFn
+
+
+def build_depth_helpers(gen: str, size, deptha, colors: float) -> DepthHelpers:
+    """The host-side companions of `build_frame_step`'s depth mode:
+    `preview(params)` gives the first frame's preview (later frames reuse
+    the one the frame returns); `infer(preview)` runs ONE batched DA-V2
+    forward of the preview and its mirror and returns their fused product
+    `d * flip(d_mirror)` [1,1,hd,wd] (`mirror_fused_depth`), on the card
+    as a CUDA graph of its own at the fixed preview shape."""
+    from aphantasia_torch.motion.depthwarp import mirror_fused_depth
+    from aphantasia_torch.params.fft import spectrum_to_image
+    h, w = size
+
+    @torch.no_grad()
+    def preview(params_tmp):
+        img = (spectrum_to_image(params_tmp, (h, w)) if gen == "FFT"
+               else params_tmp)
+        return _depth_preview(img, (h, w), colors)
+
+    return DepthHelpers(preview, GraphFn(
+        lambda x: mirror_fused_depth(deptha, x)))

@@ -11,6 +11,25 @@ def txt_clean(txt: str) -> str:
     return txt.translate(table).replace(" ", "_").replace('"', "")
 
 
+def intrl(a: list, b: list, step: int = 2) -> list:
+    """Every `step`-th element of `b` (from index `step` on) put into `a`,
+    in place; the lists must be equally long and `step` > 1."""
+    assert len(a) == len(b), f" diff lengths: {len(a)} {len(b)}"
+    assert step > 1
+    for num in list(range(len(a)))[step::step]:
+        a[num] = b[num]
+    return a
+
+
+def minmax(x) -> tuple:
+    """(min, max) of an array or tensor, as floats."""
+    import numpy as np
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+    x = np.asarray(x)
+    return (float(x.min()), float(x.max()))
+
+
 def save_cfg(args, dir: str = "./", file: str | None = "config.txt"):
     """Dump the sorted run config."""
     if dir != "":

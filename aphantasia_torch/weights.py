@@ -12,7 +12,7 @@ import os
 import sys
 
 ENV_VARS = {"clip": "APHANTASIA_CLIP_PT", "aesthetic": "APHANTASIA_AEST_PT",
-            "lpips": "APHANTASIA_LPIPS_PT"}
+            "lpips": "APHANTASIA_LPIPS_PT", "dav2": "APHANTASIA_DAV2_PT"}
 
 _warned: set = set()
 

@@ -38,8 +38,16 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            scenes; (p) `interpol` on (n)'s snapshots; (q) `illustra -m
            ViT-L/14@336px --samples 40`; (r) one eager step of that model
            at illustra's default budget (its peak memory or its
-           out-of-memory error, reported).  Each prints its steps/s, peak
-           memory and wall.  The
+           out-of-memory error, reported); `illustrip` at 100 samples
+           (95 cutouts, ViT-B/32): (s) `--gen RGB` over two scenes of 24
+           frames, (t) `--gen FFT --opt_step 3 -tf fast` (the
+           configuration of `bench_illustrip.py`), 24 frames, (u) (s) with
+           `--pallas`, (v) (t) with `--depth 1` (DA-V2 b) and
+           `--depth_dir`, 16 frames, (w) `--gen FFT --smooth --dualmod 2`
+           (21 cutouts), 24 frames, each with frames/min (the first frame
+           apart), device ms a frame by graph replay and busy share; (x)
+           `depth` on three images of two sizes.  Each prints its
+           steps/s, peak memory and wall.  The
            launch counts are set to 0 just before each run and read just
            after, and must equal the counts the path implies.  The 8-step
            runs take the CLI's chunked path (one eager frame group and its
@@ -58,15 +66,19 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            graph's device ms by replay, busy share, peak memory
            (`phase_loop`); then two `illustra` scenes, the first scene's
            graph replayed in the second after its copy-in, held to two
-           eager runs with no second capture (`phase_loop_illustra`).
+           eager runs with no second capture (`phase_loop_illustra`);
+           then illustrip frames (RGB, FFT `--smooth`, FFT `--depth 1`)
+           through `build_frame_step` and the DA-V2 graph, held to two
+           eager runs of the frame step's pieces (`phase_loop_illustrip`).
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
            (kernel shift) transforms, for `none` under the cutout and
            LayerNorm switches and under the block switch, with `--aest`
            and `--sync`, on a DWT pyramid, two `--dualmod` steps, a tiny
-           ModifiedResNet step, and two `illustra` scenes (the second
-           replayed on the card).
+           ModifiedResNet step, two `illustra` scenes (the second
+           replayed on the card), and two illustrip frames of RGB and of
+           FFT (the second replayed on the card).
   cudnn    (only when asked for) the (j) loop path with cuDNN's
            nondeterministic algorithms allowed: device ms and bits.
   profile  (only when asked for) torch.profiler over steady replayed steps
@@ -386,17 +398,19 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
     return res
 
 
-def check_cutout(seed=0, s=200, m=224):
+def check_cutout(seed=0, s=200, m=224, align="uniform"):
     """Cutout kernels against `cutout_plain` at 1280x720, S cutouts of M
     (the main path's 200 of 224; RN50x4's 30 of 288 and RN50x64's one of
-    448 run the forward's column bands past 256); each also against
-    itself, two launches and a CUDA-graph replay, bit for bit."""
+    448 run the forward's column bands past 256; illustrip's 95 of 224
+    with `overscan`'s folded taps); each also against itself, two
+    launches and a CUDA-graph replay, bit for bit."""
     import torch
     from aphantasia_torch.ops import cutout as C
     from aphantasia_torch.ops.sampler import CutoutSampler, _contract
     h, w = 720, 1280
     g = torch.Generator(device="cuda").manual_seed(seed)
-    sampler = CutoutSampler((h, w), s, m, "uniform", 0.4)
+    sampler = CutoutSampler((h, w), s, m, align,
+                            0.3 if align == "overscan" else 0.4)
     boxes = sampler.sample_boxes(g)
     taps = sampler.tap_indices(boxes)
     img = torch.rand((3, h, w), generator=g, device="cuda")
@@ -1155,18 +1169,19 @@ def phase_kernels(report):
           f"min {cut['tile_crops'][0]:.0f}, median {cut['tile_crops'][1]:.0f}"
           f", max {cut['tile_crops'][2]:.0f}")
     cut_err = {"fwd": cut["fwd_err"], "bwd": cut["grad_err"]}
-    for ns, m in ((200, 224), (30, 288), (1, 448)):
-        r = cut if m == 224 else check_cutout(s=ns, m=m)
-        if m != 224:
-            print(f"[kernels] cutout S={ns} M={m}: fwd max|err| "
+    for ns, m, align in ((200, 224, "uniform"), (30, 288, "uniform"),
+                         (1, 448, "uniform"), (95, 224, "overscan")):
+        r = cut if ns == 200 else check_cutout(s=ns, m=m, align=align)
+        if ns != 200:
+            print(f"[kernels] cutout S={ns} M={m} {align}: fwd max|err| "
                   f"{r['fwd_err']:.3g} (|ref| {r['fwd_scale']:.3g}), grad "
                   f"max|err| {r['grad_err']:.3g} (|ref| "
                   f"{r['grad_scale']:.3g}); both repeat bit for bit")
             cut_err = {"fwd": max(cut_err["fwd"], r["fwd_err"]),
                        "bwd": max(cut_err["bwd"], r["grad_err"])}
         for k in ("fwd", "bwd"):
-            print(f"[kernels] cutout {k} S={ns} M={m} 720x1280: kernel "
-                  f"{r['ms_' + k]:.4f} ms (graph replay "
+            print(f"[kernels] cutout {k} S={ns} M={m} {align} 720x1280: "
+                  f"kernel {r['ms_' + k]:.4f} ms (graph replay "
                   f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} ms, "
                   f"einsum {r['lib_' + k]:.4f} ms, bound "
                   f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
@@ -1482,6 +1497,7 @@ def phase_main(report, steps: int):
     phase_main_336()
     phase_main_resnet(steps)
     phase_main_illustra(steps)
+    phase_main_illustrip()
 
 
 _TMP: list = []
@@ -1867,6 +1883,197 @@ def phase_main_illustra(steps: int):
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).total_memory / 2**20:.0f} "
           f"MiB on the card")
+
+
+# ---------------------------------------------------------------- illustrip
+
+TRIP_SCENES = ("a lighthouse on a cliff at dawn\n"
+               "the same lighthouse in a storm\n")
+
+
+def trip_file() -> str:
+    """The two scenes of the illustrip paths, one prompt part each."""
+    path = os.path.join(tmp_dir(), "trip.txt")
+    with open(path, "w") as f:
+        f.write(TRIP_SCENES)
+    return path
+
+
+def depth_images() -> str:
+    """Three images of two sizes (two 1280x720, one 640x480) for the
+    `depth` CLI: smooth colour ramps under seeded noise."""
+    import numpy as np
+    from PIL import Image
+    d = os.path.join(tmp_dir(), "depth_in")
+    os.makedirs(d, exist_ok=True)
+    rs = np.random.RandomState(5)
+    for name, (h, w) in (("a", (720, 1280)), ("b", (480, 640)),
+                         ("c", (720, 1280))):
+        yy, xx = np.mgrid[0:h, 0:w]
+        ramp = np.stack([xx / w, yy / h, (xx + yy) / (h + w)], -1)
+        img = np.clip(ramp + 0.1 * rs.randn(h, w, 3), 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(d, f"{name}.png"))
+    return d
+
+
+def _trip_stats(res, a, dual=None):
+    """(first frame s, steady frames/min, device ms a frame by graph
+    replay, busy share) of an illustrip run: steady is every frame after
+    the last that ran a group's eager first run and capture, up to the
+    run's end after a synchronise; a frame's device ms is its group's
+    graph replayed (10 back to back, CUDA events), with the second
+    tower's graph on its frames (`dual`) and the DA-V2 graph once a frame
+    with depth."""
+    from aphantasia_torch.cli.common import dualmod_steps
+    k = max(res.first_frames) + 1
+    check(k < res.frames, f"illustrip: no steady frames ({res.first_frames})")
+    fpm = (res.frames - k) / (res.end - res.starts[k]) * 60.0
+    ms = [cuda_ms(next(iter(fs.groups.values())).graph.graph.replay,
+                  iters=10, warmup=2) for fs in res.frame_steps]
+    if dual is None:
+        frame_ms = ms[0]
+    else:
+        n2 = len(dualmod_steps(a.steps, dual))
+        frame_ms = (ms[0] * (a.steps - n2) + ms[1] * n2) / a.steps
+    dav2_ms = None
+    if res.depth is not None:
+        dav2_ms = cuda_ms(res.depth.infer.graph.graph.replay, iters=10,
+                          warmup=2)
+        frame_ms += dav2_ms
+    return (res.starts[1] - res.starts[0], fpm, frame_ms,
+            frame_ms * fpm / 60000.0, ms, dav2_ms)
+
+
+def _run_illustrip(label, argv, want, frames: int, samples: int,
+                   dual=None, depth_dir=None):
+    """One `illustrip` run at full width with its checks: the launch
+    counts, the cutouts, `frames` frames in ttt/ and the video, finite
+    losses and state, one captured group a tower (each frame step replays
+    it) and, with depth, the DA-V2 graph and a depth map a frame in
+    `depth_dir`; prints frames/min (the first frame apart), device ms a
+    frame by replay, busy share, peak memory and wall."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import illustrip
+    out = os.path.join(OUT_DIR, "trip", label[1])    # a directory a path
+    a = illustrip.get_args(argv + ["--out_dir", out, "-nv", "--seed", "1"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = illustrip.run(a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[main] {label} run: launches {got}")
+    check(res.samples == samples, f"{label}: {res.samples} cutouts")
+    ttt = [f for f in os.listdir(os.path.join(res.workdir, "ttt"))
+           if f.endswith(".jpg")]
+    check(res.frames == frames and len(ttt) == frames
+          and len(res.losses) == frames
+          and all(math.isfinite(x) for ls in res.losses for x in ls),
+          f"{label}: {res.frames} frames, {len(ttt)} files, losses "
+          f"{res.losses[:3]}")
+    check(res.video is not None and os.path.getsize(res.video) > 0
+          and os.path.isfile(os.path.join(res.workdir, "config.txt")),
+          f"{label}: video {res.video}")
+    check(bool(torch.isfinite(res.params).all()), f"{label}: params")
+    check(all(len(fs.groups) == 1 and next(iter(fs.groups.values())).graph
+              is not None for fs in res.frame_steps),
+          f"{label}: groups {[len(fs.groups) for fs in res.frame_steps]}")
+    if depth_dir is not None:
+        maps = [f for f in os.listdir(depth_dir) if f.endswith(".jpg")]
+        check(len(maps) == frames and res.depth.infer.graph is not None,
+              f"{label}: {len(maps)} depth maps")
+    check(got == want, f"{label}: launches {got} != expected {want}")
+    first, fpm, frame_ms, busy, ms, dav2_ms = _trip_stats(res, a, dual)
+    losses = [round(x, 5) for x in res.losses[-1]]
+    k = max(res.first_frames) + 1
+    host = [sorted(x[j] for x in res.host[k:])[(len(res.host) - k) // 2]
+            * 1e3 for j in range(3)]
+    print(f"[main] {label}: {frames} frames at 1280x720, {res.samples} "
+          f"cutouts, opt_step {a.opt_step}, first frame {first:.3f} s, "
+          f"steady {fpm:.3f} frames/min (after frame "
+          f"{max(res.first_frames)}), device ms a frame by replay "
+          f"{frame_ms:.3f} (graphs {[round(x, 3) for x in ms]}"
+          + ("" if dav2_ms is None else f", DA-V2 {dav2_ms:.3f}")
+          + f"), busy share {busy:.3f}, host ms a steady frame (median) "
+          f"prompts and draws {host[0]:.3f}, dispatch {host[1]:.3f}, writer "
+          f"admit {host[2]:.3f}, peak memory {peak / 2**20:.0f} MiB, "
+          f"wall {wall:.1f} s on {torch.cuda.get_device_name(0)}; last "
+          f"losses {losses}")
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_main_illustrip():
+    """(s)-(w) `illustrip` at full width (ViT-B/32, random weights from a
+    seed, 1280x720, 100 samples before the budget) and (x) `depth`:
+    (s) the default video workload, `--gen RGB`, two scenes of 24 frames,
+    `--fstep 12`; (t) `bench_illustrip.py`'s configuration, `--gen FFT
+    --opt_step 3 -tf fast`, 24 frames; (u) (s) with `--pallas`; (v) (t)
+    with `--depth 1` (DA-V2 `b`) and `--depth_dir`, 16 frames; (w) `--gen
+    FFT --smooth --dualmod 2`, 24 frames; (x) `python -m
+    aphantasia_torch.cli.depth` on three images of two sizes.  Launches:
+    12 text-tower forwards a scene line and tower, 12 + 12 attention
+    launches a train step (ViT-B/16 on the flat stream too), one cutout
+    each way a step under `--pallas`; DINOv2 and the DPT head launch no
+    kernel of the port."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import depth
+    base = ["--size", "1280-720", "--samples", "100"]
+    rgb = ["-t", trip_file(), "--steps", "24", "--fstep", "12"] + base
+    fft = (["-t", "benchmark scene", "--steps", "24", "--fstep", "24",
+            "--opt_step", "3", "--gen", "FFT", "-tf", "fast"] + base)
+    _run_illustrip("(s) illustrip --gen RGB, 2 scenes", rgb,
+                   {"attn_fwd": 24 + 12 * 48, "attn_bwd": 12 * 48}, 48, 95)
+    _run_illustrip("(t) illustrip --gen FFT --opt_step 3", fft,
+                   {"attn_fwd": 12 + 36 * 24, "attn_bwd": 36 * 24}, 24, 95)
+    _run_illustrip("(u) illustrip --gen RGB --pallas, 2 scenes",
+                   rgb + ["--pallas"],
+                   {"attn_fwd": 24 + 12 * 48, "attn_bwd": 12 * 48,
+                    "cutout_fwd": 48, "cutout_bwd": 48}, 48, 95)
+    ddir = os.path.join(tmp_dir(), "depth_maps")
+    dfft = list(fft)
+    dfft[dfft.index("--steps") + 1] = dfft[dfft.index("--fstep") + 1] = "16"
+    _run_illustrip("(v) illustrip --gen FFT --opt_step 3 --depth 1",
+                   dfft + ["--depth", "1", "--depth_dir", ddir],
+                   {"attn_fwd": 12 + 36 * 16, "attn_bwd": 36 * 16}, 16, 95,
+                   depth_dir=ddir)
+    _run_illustrip("(w) illustrip --gen FFT --smooth --dualmod 2",
+                   ["-t", "benchmark scene", "--steps", "24", "--gen", "FFT",
+                    "--smooth", "--dualmod", "2"] + base,
+                   {"attn_fwd": 24 + 12 * 24, "attn_bwd": 12 * 24}, 24, 21,
+                   dual=2)
+    src = depth_images()
+    out = os.path.join(OUT_DIR, "depth")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    n = depth.main(["-i", src, "-o", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from PIL import Image
+    import numpy as np
+    sizes = []
+    for name in ("a", "b", "c"):
+        with Image.open(os.path.join(out, f"{name}.png")) as im:
+            arr = np.asarray(im)
+        sizes.append(arr.shape)
+        check(arr.std() > 0, f"(x) depth: {name}.png is flat")
+    check(n == 3 and sizes == [(720, 1280, 3), (480, 640, 3), (720, 1280, 3)]
+          and not any(kernels.LAUNCHES.values()),
+          f"(x) depth: {n} maps, sizes {sizes}, launches "
+          f"{dict(kernels.LAUNCHES)}")
+    print(f"[main] (x) depth on 3 images of two sizes (DA-V2 b, float32, "
+          f"short side 768): {n} maps, no kernel of the port launched, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
+          f"wall {wall:.1f} s with set-up on "
+          f"{torch.cuda.get_device_name(0)}")
 
 
 def phase_main_switches(report, steps: int):
@@ -2291,6 +2498,158 @@ def phase_loop_illustra(steps: int = 8):
     torch.cuda.empty_cache()
 
 
+def _trip_eager(su, start):
+    """`a.steps` frames of scene 1 of the illustrip setup `su`, each run
+    eagerly from the frame step's public pieces (`motion_warp`, a fresh
+    optimizer state unless --smooth, `train_step` `opt_step` times,
+    `render`, and with depth `preview` and the DA-V2 forward through
+    `mirror_fused_depth`), from the run generator's state `start`: the
+    state after the last frame, the losses, frames and previews."""
+    import torch
+    from aphantasia_torch.motion.depthwarp import mirror_fused_depth
+    a = su.a
+    su.gen.set_state(start)
+    fs = su.frame_steps()[0]
+    _, vis, aest = su.towers[0]
+    p = su.params.clone()
+    st = su.optimizer.init(p)
+    prev = torch.zeros((a.samples, su.towers[0][0].embed_dim),
+                       device=su.device)
+    sched = su.scene(0)
+    dmap = (mirror_fused_depth(su.deptha, fs.preview(p)) if fs.with_depth
+            else None)
+    losses, frames, previews = [], [], []
+    for ii in range(a.steps):
+        _, prompts, motion = su.frame(sched, 0, ii)
+        draws = [su.draw(su.gen) for _ in range(a.opt_step)]
+        mot = torch.stack([torch.full((), float(v), device=su.device)
+                           for v in motion])
+        with torch.no_grad():
+            p = fs.motion_warp(p, mot, dmap)
+        if not a.smooth:
+            st = su.optimizer.init(p)
+        for k in range(a.opt_step):
+            p, st, prev, loss = fs.train_step(p, st, prev, vis, aest, None,
+                                              prompts, draws[k], ii)
+            losses.append(loss.item())
+        frames.append(fs.render(p, contrast=a.contrast).cpu())
+        if fs.with_depth:
+            with torch.no_grad():
+                pv = fs.preview(p)
+                dmap = mirror_fused_depth(su.deptha, pv)
+            previews.append(pv.cpu())
+    out = _leaves(p, st, prev)
+    out.update(losses=torch.tensor(losses), frames=torch.stack(frames))
+    if previews:
+        out["previews"] = torch.cat(previews)
+    return out
+
+
+def _trip_replayed(su, start):
+    """The same frames through `build_frame_step` and the depth helpers as
+    `illustrip.run` drives them: the first frame eager and captured, the
+    others replayed (and the DA-V2 forward from its own graph after the
+    first), under sync debug mode "error" from the second frame on."""
+    import torch
+    a = su.a
+    su.gen.set_state(start)
+    (fs,) = su.frame_steps()
+    helpers = su.depth_helpers()
+    p = su.params.clone()
+    st = su.optimizer.init(p)
+    prev = torch.zeros((a.samples, su.towers[0][0].embed_dim),
+                       device=su.device)
+    sched = su.scene(0)
+    _, vis, aest = su.towers[0]
+    dmap = (helpers.infer(helpers.preview(p)) if helpers is not None
+            else None)
+    losses, frames, previews = [], [], []
+    for ii in range(a.steps):
+        torch.cuda.set_sync_debug_mode("error" if ii else 0)
+        try:
+            _, prompts, motion = su.frame(sched, 0, ii)
+            draws = [su.draw(su.gen) for _ in range(a.opt_step)]
+            args = (p, st, prev, vis, aest, prompts, draws, ii, motion)
+            if helpers is not None:
+                p, st, prev, frame, ls, pv = fs(*args, dmap)
+                dmap = helpers.infer(pv)
+                previews.append(pv)
+            else:
+                p, st, prev, frame, ls = fs(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(ls)
+        frames.append(frame)
+    out = {k: v.clone() for k, v in _leaves(p, st, prev).items()}
+    out.update(losses=torch.cat(losses).cpu(),
+               frames=torch.stack(frames).cpu())
+    if previews:
+        out["previews"] = torch.cat(previews).cpu()
+    return out, fs, helpers
+
+
+TRIP_LOOP_PATHS = (
+    ("RGB", ["--gen", "RGB"]),
+    ("FFT --smooth", ["--gen", "FFT", "--smooth"]),
+    ("FFT --depth 1", ["--gen", "FFT", "--depth", "1"]),
+)
+
+
+def phase_loop_illustrip(frames: int = 6, paths=TRIP_LOOP_PATHS):
+    """illustrip frames at full width (ViT-B/32, 95 cutouts, 1280x720,
+    `--opt_step 2`, `fast`, random weights from a seed) on RGB, FFT
+    `--smooth` and FFT with depth (DA-V2 `b`): twice eagerly from the
+    frame step's pieces, then through the frame step and the depth
+    helpers (the first frame eager and captured, every later frame and
+    DA-V2 forward replayed), from the same draws.  Params, optimizer
+    state, prev_enc, losses, frames and previews must equal the eager
+    frames bit for bit where the two eager runs agree bit for bit, else
+    within twice their spread.  Prints the frame group's device ms by
+    replay."""
+    import torch
+    from aphantasia_torch.cli import illustrip
+    for label, flags in paths:
+        a = illustrip.get_args(
+            ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+             "--samples", "100", "--steps", str(frames), "--fstep", "4",
+             "--opt_step", "2", "-nv", "--seed", "1", "--out_dir",
+             os.path.join(OUT_DIR, "loop_trip")] + flags)
+        su = illustrip.setup(a)
+        start = su.gen.get_state()
+        want, again = (_trip_eager(su, start) for _ in range(2))
+        got, fs, helpers = _trip_replayed(su, start)
+        worst = {}
+        for k, ref in want.items():
+            check(got[k].shape == ref.shape, f"illustrip loop {label}: {k} "
+                  f"shape {tuple(got[k].shape)} != {tuple(ref.shape)}")
+            worst[k] = ((got[k].double() - ref.double()).abs().max().item(),
+                        (again[k].double() - ref.double()).abs().max().item())
+        check(all(e == 0 if sp == 0 else e <= 2 * sp
+                  for e, sp in worst.values()),
+              f"illustrip loop {label}: the replay differs from the eager "
+              f"frames: " + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
+                                      for k, (e, sp) in worst.items()))
+        (group,) = fs.groups.values()
+        check(group.graph is not None and (
+            helpers is None or helpers.infer.graph is not None),
+            f"illustrip loop {label}: no graph")
+        ms = cuda_ms(group.graph.graph.replay, iters=10, warmup=2)
+        extra = ""
+        if helpers is not None:
+            dav2 = cuda_ms(helpers.infer.graph.graph.replay, iters=10,
+                           warmup=2)
+            extra = f", DA-V2 graph {dav2:.3f}"
+        exact = all(e == 0 for e, _ in worst.values())
+        print(f"[loop] illustrip {label}: {frames} frames, {a.samples} "
+              f"cutouts, opt_step 2, frame group device ms {ms:.3f}{extra} "
+              f"on {torch.cuda.get_device_name(0)}; "
+              + ("bit for bit" if exact else "max |replayed - eager| (eager "
+                 "spread): " + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
+                                         for k, (e, sp) in worst.items())))
+        del su, want, again, got, fs, helpers, group
+        torch.cuda.empty_cache()
+
+
 def sync_term_ms(su):
     """The `--sync` term alone at the run's shapes, by graph replay
     (`graph_ms`, 5 calls a graph): the resize of the 720x1280 frame, both
@@ -2603,6 +2962,7 @@ def phase_parity():
     # the params moves it by 9.0e-4): the gradient is held at 5e-3
     _parity_one_step(False, "none", "affine", tol=(1e-4, 5e-3), resnet=True)
     _parity_illustra()
+    _parity_frames()
 
 
 def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
@@ -2734,6 +3094,69 @@ def _parity_illustra(steps: int = 2):
           "illustra: card vs CPU params differ")
 
 
+def _parity_frames():
+    """Two illustrip frames (`build_frame_step`, opt_steps 2, the float32
+    `none` transform, 6 overscan cutouts of a 64x96 frame, the tiny ViT)
+    of RGB (pixels, `rgb_anchors`) and of FFT (centred spectrum noise) on
+    the CPU and on the card, where the first frame runs eagerly and is
+    captured and the second replays; each frame with its own motion and
+    prompt weights, from the same draws.  Losses within 1e-4, the frames
+    within 1 grey level, params within 2e-3 / 5e-2 of the learning rate
+    (mean / worst)."""
+    import dataclasses
+    import torch
+    from aphantasia_torch.cli.common import build_prompt_groups
+    from aphantasia_torch.ops.sampler import CutoutSampler
+    from aphantasia_torch.params.pixel import PixelParameterizer
+    from aphantasia_torch.step import (build_draw_fn, build_frame_step,
+                                       to_device)
+    for gen in ("RGB", "FFT"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            c = _parity_setup(dev, False, "none")
+            settings = dataclasses.replace(
+                c["settings"], expand=0.0, sharp=0.0, noise_centered=True,
+                noise=2.0 if gen == "FFT" else 0.0,
+                rgb_anchors=gen == "RGB")
+            sampler = CutoutSampler((64, 96), 6, 64, "overscan", 0.3)
+            if gen == "RGB":
+                par = PixelParameterizer((64, 96), 2.3)
+                p = torch.randn((1, 3, 64, 96), generator=c["g"]).to(dev)
+            else:
+                par, p = c["par"], c["p0"].clone()
+            draw = build_draw_fn(sampler, settings, tuple(p.shape))
+            fs = build_frame_step(par, sampler, c["cfg"], settings, c["opt"],
+                                  gen, (64, 96), 2, False, contrast=1.2)
+            st, prev = c["opt"].init(p), torch.zeros((6, 64), device=dev)
+            g = torch.Generator().manual_seed(5)
+            losses, frames = [], []
+            for ii, motion in enumerate([(3.0, 1.5, -2.0, 1.02, 0.5),
+                                         (-1.0, -0.7, 2.5, 0.99, -0.3)]):
+                e, wt, k = c["prompts"][0]
+                prompts = build_prompt_groups(
+                    [(e, wt * (1.0 - 0.3 * ii), k)])
+                p, st, prev, frame, ls = fs(
+                    p, st, prev, c["clip"], None, prompts,
+                    [to_device(draw(g), dev) for _ in range(2)], ii, motion)
+                losses += ls.tolist()
+                frames.append(frame.cpu())
+            check(dev == "cpu" or next(iter(fs.groups.values())).graph
+                  is not None, f"parity frame {gen}: no graph on the card")
+            runs[dev] = (losses, p.cpu(), torch.stack(frames))
+        le = max(abs(a - b) for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
+        err = (runs["cpu"][1] - runs["cuda"][1]).abs()
+        fd = (runs["cpu"][2].int() - runs["cuda"][2].int()).abs().max().item()
+        print(f"[parity] illustrip {gen}, two frames of 2 steps (the second "
+              f"replayed): losses cpu {runs['cpu'][0]} cuda "
+              f"{runs['cuda'][0]}; params |err| mean {err.mean().item():.3g} "
+              f"max {err.max().item():.3g}; frames max |diff| {fd} levels")
+        check(le <= 1e-4, f"illustrip {gen}: card vs CPU loss differs by {le}")
+        check(fd <= 1, f"illustrip {gen}: frames differ by {fd} levels")
+        check(err.mean().item() <= 2e-3 * PARITY_LR
+              and err.max().item() <= 5e-2 * PARITY_LR,
+              f"illustrip {gen}: card vs CPU params differ")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,main,loop,parity")
@@ -2770,7 +3193,8 @@ def main(argv=None) -> int:
             t = time.time()
             {"kernels": lambda: phase_kernels(report),
              "main": lambda: phase_main(report, args.steps),
-             "loop": lambda: (phase_loop(), phase_loop_illustra()),
+             "loop": lambda: (phase_loop(), phase_loop_illustra(),
+                              phase_loop_illustrip()),
              "parity": phase_parity,
              "cudnn": phase_cudnn,
              "profile": lambda: phase_profile(

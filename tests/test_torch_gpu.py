@@ -142,6 +142,8 @@ def _cutout_taps(cuda, h, w, s, m, align="uniform", edge=False,
                  id="small-overscan-edge"),
     pytest.param(720, 1920, 24, 224, "uniform", False, False,
                  id="720-1920-24-224"),
+    pytest.param(720, 1280, 95, 224, "overscan", False, False,
+                 id="illustrip-720-1280-95-224-overscan"),
     pytest.param(300, 300, 8, 224, "uniform", False, True,
                  id="whole-frame")])
 def test_cutout_kernel_matches_plain(cuda, monkeypatch, h, w, s, m, align,
@@ -805,6 +807,21 @@ def test_replayed_loop_equals_the_eager_steps(cuda, path):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         cs.phase_loop(steps=4, nf=2, paths=[cs.LOOP_PATHS[path]])
+    except cs.SmokeFailure as e:
+        pytest.fail(str(e))
+
+
+@pytest.mark.parametrize("path", range(3))
+def test_illustrip_frames_replay_equal_eager(cuda, path):
+    """chip_smoke.py's illustrip loop on one of its three paths (RGB, FFT
+    --smooth, FFT --depth 1) at full width, 4 frames of 2 steps: the frame
+    step (its first frame eager and captured, the others and the DA-V2
+    forward replayed) against two eager runs of its pieces, bit for bit
+    (or within twice the eager runs' spread)."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cs.phase_loop_illustrip(frames=4, paths=[cs.TRIP_LOOP_PATHS[path]])
     except cs.SmokeFailure as e:
         pytest.fail(str(e))
 
