@@ -48,9 +48,9 @@ import numpy as np
 import torch
 
 from aphantasia_torch.cli.common import (
-    ClipWrapper, add_parallel_flags, apply_sample_budget, card_settings,
-    check_ported, dualmod_steps, maybe_translate, parse_size, resolve_dtype,
-    resolve_persp)
+    ClipWrapper, RunSetup, Tower, add_parallel_flags, apply_sample_budget,
+    card_settings, check_ported, dispatch_seconds, dualmod_steps,
+    maybe_translate, parse_size, resolve_dtype, resolve_persp)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import (AsyncFrameWriter, frames_to_video,
@@ -151,55 +151,6 @@ class RunResult:
     out_name: str                 # run directory / file stem under out_dir
     video: str | None             # the video written, if any
     loop: object = None           # the chunked path's FrameLoop, if taken
-
-
-@dataclasses.dataclass
-class Tower:
-    """One CLIP tower's constants of the train step."""
-    cfg: object                   # the tower's CLIPConfig
-    vis: dict                     # its vision weights in the compute dtype
-    aest: dict | None             # its aesthetic head (--aest)
-    prompts: list                 # (embs [K,D], wts [K], coeff) groups
-
-
-@dataclasses.dataclass
-class RunSetup:
-    """What a run builds before its training loop."""
-    par: object                   # FFTParameterizer or DWTParameterizer
-    sampler: CutoutSampler
-    towers: list                  # [Tower]; the second under --dualmod
-    lpips_bundle: tuple | None    # (LPIPS params, half-size target), --sync
-    dm_every: int | None          # --dualmod
-    settings: StepSettings
-    optimizer: object
-    draw: object                  # draw(generator) -> StepDraws
-    gen: torch.Generator          # the run's generator, after the init
-    gen_params: object            # the start params (a tensor or a list)
-    out_name: str
-    tempdir: str                  # the run directory (frames, config.txt)
-
-    @property
-    def clip_cfg(self):
-        return self.towers[0].cfg
-
-    @property
-    def dual(self):
-        """`build_train_loop_frames`'s `dual`, or None."""
-        if self.dm_every is None:
-            return None
-        return self.towers[1].cfg, self.dm_every
-
-    def consts(self, tower: int = 0) -> tuple:
-        """(clip_params, aest_params, lpips_bundle, prompts) of a tower:
-        the train step's arguments after prev_enc."""
-        t = self.towers[tower]
-        return t.vis, t.aest, self.lpips_bundle, t.prompts
-
-    def loop_args(self) -> tuple:
-        """A frame loop's arguments after prev_enc and before the draws."""
-        extra = () if self.dm_every is None else (
-            self.towers[1].vis, self.towers[1].aest, self.towers[1].prompts)
-        return self.consts(0) + extra
 
 
 def main(argv=None):
@@ -365,12 +316,8 @@ def run(a, on_step=None) -> RunResult:
                                    for f in range(c * nf, (c + 1) * nf)],
                                   frames, tone)
                 losses += dl.tolist()     # the dispatch's one wait
-                wall = time.perf_counter() - t0
-                # each first run of a pattern its own, the rest shared
-                firsts = loop.first_runs
-                rest = (wall - sum(firsts.values())) / max(nf - len(firsts), 1)
-                for j in range(nf):
-                    seconds += [firsts.get(j, rest) / a.opt_step] * a.opt_step
+                seconds += dispatch_seconds(time.perf_counter() - t0,
+                                            loop.first_runs, nf, a.opt_step)
                 for i in range(c * nf * a.opt_step, len(losses)):
                     if pbar is not None and i % a.opt_step == 0:
                         pbar.upd()

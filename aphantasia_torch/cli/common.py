@@ -3,6 +3,7 @@ encoding, the sample-budget cascade, precision and device selection, and
 the spectrum crossfade of illustra and interpol."""
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -17,7 +18,8 @@ from aphantasia_torch.models.clip.tokenizer import tokenize
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.color import clip_normalize
 from aphantasia_torch.progress import ProgressBar
-from aphantasia_torch.step import build_shift_render_loop, frames_per_dispatch
+from aphantasia_torch.step import (StepSettings, build_shift_render_loop,
+                                   frames_per_dispatch)
 
 
 def parse_size(size_str):
@@ -96,6 +98,55 @@ class ClipWrapper:
         return encode_image(self.params, self.cfg, clip_normalize(cuts)), img
 
 
+@dataclasses.dataclass
+class Tower:
+    """One CLIP tower's constants of the train step."""
+    cfg: object                   # the tower's CLIPConfig
+    vis: dict                     # its vision weights in the compute dtype
+    aest: dict | None             # its aesthetic head (--aest)
+    prompts: list                 # (embs [K,D], wts [K], coeff) groups
+
+
+@dataclasses.dataclass
+class RunSetup:
+    """What a run builds before its training loop."""
+    par: object                   # the parameterizer
+    sampler: CutoutSampler
+    towers: list                  # [Tower]; the second under --dualmod
+    lpips_bundle: tuple | None    # (LPIPS params, half-size target), --sync
+    dm_every: int | None          # --dualmod
+    settings: StepSettings
+    optimizer: object
+    draw: object                  # draw(generator) -> StepDraws
+    gen: torch.Generator          # the run's generator, after the init
+    gen_params: object            # the start params (a tensor or a list)
+    out_name: str
+    tempdir: str                  # the run directory (frames, config.txt)
+
+    @property
+    def clip_cfg(self):
+        return self.towers[0].cfg
+
+    @property
+    def dual(self):
+        """`build_train_loop_frames`'s `dual`, or None."""
+        if self.dm_every is None:
+            return None
+        return self.towers[1].cfg, self.dm_every
+
+    def consts(self, tower: int = 0) -> tuple:
+        """(clip_params, aest_params, lpips_bundle, prompts) of a tower:
+        the train step's arguments after prev_enc."""
+        t = self.towers[tower]
+        return t.vis, t.aest, self.lpips_bundle, t.prompts
+
+    def loop_args(self) -> tuple:
+        """A frame loop's arguments after prev_enc and before the draws."""
+        extra = () if self.dm_every is None else (
+            self.towers[1].vis, self.towers[1].aest, self.towers[1].prompts)
+        return self.consts(0) + extra
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -122,6 +173,15 @@ def apply_sample_budget(samples: int, model: str, dualmod=None,
     for _ in range(extra_prompts):
         samples = int(samples * 0.75)
     return max(samples, 1)
+
+
+def dispatch_seconds(wall: float, firsts: dict, nf: int, n: int) -> list:
+    """A chunked dispatch's wall split over its `nf` frame groups of `n`
+    steps, one entry a step: each group that ran its pattern's eager
+    first run and capture (`firsts`, group -> seconds) its own, the other
+    groups the rest in equal shares."""
+    rest = (wall - sum(firsts.values())) / max(nf - len(firsts), 1)
+    return [firsts.get(j, rest) / n for j in range(nf) for _ in range(n)]
 
 
 def build_prompt_groups(groups):

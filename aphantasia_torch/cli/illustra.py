@@ -41,7 +41,8 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, add_parallel_flags, card_settings, check_ported, crossfade,
-    dualmod_steps, maybe_translate, parse_size, resolve_dtype, resolve_persp)
+    dispatch_seconds, dualmod_steps, maybe_translate, parse_size,
+    resolve_dtype, resolve_persp)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import (AsyncFrameWriter, basename, file_list,
@@ -218,14 +219,10 @@ class SceneLoop:
                 if save_frames is not None:
                     save_frames(c * self.nf, frames)
                 losses += dl.tolist()         # the dispatch's one wait
-                wall = time.perf_counter() - t0
-                firsts = loop.first_runs
-                rest = ((wall - sum(firsts.values()))
-                        / max(self.nf - len(firsts), 1))
-                for j in range(self.nf):
-                    seconds += [firsts.get(j, rest) / n] * n
-                    if on_frame is not None:
-                        on_frame()
+                seconds += dispatch_seconds(time.perf_counter() - t0,
+                                            loop.first_runs, self.nf, n)
+                for _ in range(self.nf if on_frame is not None else 0):
+                    on_frame()
             return gen_params, opt_state, losses, seconds
         for i in range(self.steps):
             t0 = time.perf_counter()

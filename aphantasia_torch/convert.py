@@ -1,12 +1,15 @@
 """Conversions from the JAX package's state (given as numpy arrays) to the
 port's tensors: the CLIP parameter tree of `clip_init`, FFT spectrum and
-DWT pyramid params, the aesthetic head, the LPIPS weights and optax
+DWT pyramid params, the CPPN and SIREN layers, the aesthetic head, the
+LPIPS weights, the VQGAN decoder of `vqgan_init` / `convert_taming`, optax
 Adam/AMSGrad states and the Depth-Anything-V2 tree of `dav2_init`.  The
 only place where layouts change: the port keeps the JAX layouts (linear
 weights [in, out], merged qkv, [1,3,H,W//2+1,2] spectra, the pyramid
 list), so those conversions are device/dtype moves of the same arrays;
 the convolutions alone change, from the JAX HWIO to torch's OIHW (and
-DA-V2's two transposed convolutions to torch's [in, out, kh, kw]).
+DA-V2's two transposed convolutions to torch's [in, out, kh, kw]), and the
+coordinate nets' list of {"w", "b"} layers becomes the flat list [w0, b0,
+w1, b1, ...], read by key.
 """
 from __future__ import annotations
 
@@ -51,6 +54,27 @@ def dwt_params_from_numpy(params, device="cpu"):
     return [_tensor(p, device).float().contiguous() for p in params]
 
 
+def coord_params_from_numpy(layers, device="cpu"):
+    """The CPPN / SIREN layers, a list of {"w" [in,out], "b" [out]} (the
+    JAX tree, whose flattening puts "b" before "w"), -> the port's flat
+    list [w0, b0, w1, b1, ...], read by key."""
+    return [_tensor(layer[k], device).float()
+            for layer in layers for k in ("w", "b")]
+
+
+def vqgan_params_from_numpy(tree, device="cpu"):
+    """The JAX VQGAN decoder tree (`vqgan_init`, `convert_taming`) -> the
+    port's: the same nested dicts and lists, float32, the convolutions
+    (the 4-D leaves) from HWIO to OIHW."""
+    if isinstance(tree, dict):
+        return {k: vqgan_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [vqgan_params_from_numpy(v, device) for v in tree]
+    if np.ndim(tree) == 4:
+        return _tensor(hwio_to_oihw(tree), device).float()
+    return _tensor(tree, device).float()
+
+
 def aesthetic_params_from_numpy(params, device="cpu"):
     """The aesthetic head {"w" [nf,1], "b" [1]} (same layout)."""
     return {k: _tensor(v, device).float() for k, v in params.items()}
@@ -84,7 +108,10 @@ def dav2_params_from_numpy(tree, device="cpu"):
 
 
 def _moment(m, device):
-    """A moment of the state: one array, or a list for list params."""
+    """A moment of the state: one array, a list for list params, or the
+    coordinate nets' list of {"w", "b"} layers (flattened by key)."""
+    if isinstance(m, (list, tuple)) and m and isinstance(m[0], dict):
+        return coord_params_from_numpy(m, device)
     if isinstance(m, (list, tuple)):
         return [_tensor(x, device).float() for x in m]
     return _tensor(m, device).float()

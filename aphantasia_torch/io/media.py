@@ -90,6 +90,17 @@ def img_save(path, img):
         f.write(encode_image_bytes(to_uint8(img), ext))
 
 
+def checkout(img, fname=None):
+    """A CHW float image in [0,1] (array or tensor) -> an HWC uint8 file
+    at `fname` (clipped, scaled by 255 and truncated, as the JAX package's
+    `checkout`), written through img_save."""
+    if hasattr(img, "detach"):
+        img = img.detach().cpu().numpy()
+    img = np.transpose(np.asarray(img), (1, 2, 0))
+    if fname is not None:
+        img_save(fname, np.clip(img * 255, 0, 255).astype(np.uint8))
+
+
 def frames_to_video(frame_dir: str, out_path: str, pattern: str = "%04d.jpg",
                     fps: int = 25) -> str | None:
     """Assemble numbered JPEG frames into a video: ffmpeg binary ->

@@ -28,9 +28,10 @@ steps a dispatch, as the JAX package's scanned loops do.  Their unit is a
 `opt_step - 1` steps).  Groups work on buffers that live for the run
 (`LoopBuffers`): the params and the optimizer state (adopted from the
 first call and updated in place), `prev_enc`, the step index, the draws
-of each of a group's steps, its loss slots and its frame slot, and the
-constants of each tower (CLIP weights, aesthetic head, LPIPS bundle and
-prompts) of the first call.  On the card a group's first run is eager, on
+of each of a group's steps, its loss slots, its frame slot and (cppn's
+`with_params`) its params snapshot slot, and the constants of each tower
+(CLIP weights, aesthetic head, LPIPS bundle and prompts) of the first
+call.  On the card a group's first run is eager, on
 a side stream, which fills every cache (the host tables, cuFFT's plans,
 cuBLAS's and cuDNN's workspaces, the kernels' attributes) and whose
 results stand; then the same group is captured into a CUDA graph
@@ -287,11 +288,14 @@ def _tree_copy(dst, src):
 class LoopBuffers:
     """The run's buffers (module docstring), shared by every group of a
     loop: the first `bind` adopts the state and the constants and clones
-    the draws; later binds copy in what differs."""
+    the draws; later binds copy in what differs.  With `with_params`,
+    `snap` holds a copy of each params tensor, which a group fills at its
+    render point."""
 
-    def __init__(self, n: int, frame_shape=None):
+    def __init__(self, n: int, frame_shape=None, with_params: bool = False):
         self.n, self.frame_shape = n, frame_shape
-        self.params = None
+        self.with_params = with_params
+        self.params = self.snap = None
 
     def bind(self, gen_params, opt_state, prev_enc, consts, draws,
              extra=None):
@@ -309,6 +313,8 @@ class LoopBuffers:
             self.losses = torch.zeros((self.n,), device=dev)
             self.frame = (None if self.frame_shape is None else torch.zeros(
                 self.frame_shape, dtype=torch.uint8, device=dev))
+            if self.with_params:
+                self.snap = [torch.empty_like(p) for p in leaves(gen_params)]
         else:
             _tree_copy((self.params, self.opt, self.prev, self.consts),
                        (gen_params, opt_state, prev_enc, consts))
@@ -362,6 +368,9 @@ class StepGroup:
             b.losses[k].copy_(loss)
             if k == 0 and self.render is not None:
                 b.frame.copy_(self.render(b.params, contrast=self.contrast))
+                if b.snap is not None:
+                    for d, p in zip(b.snap, leaves(b.params), strict=True):
+                        d.copy_(p)
 
     def _capture(self) -> None:
         """The eager group on a side stream (PyTorch captures autograd
@@ -408,16 +417,17 @@ class FrameLoop:
     each through the StepGroup of its tower pattern (one pattern without
     `dm_every`).  `first_runs` maps the index in the last call of each
     group that ran its pattern's eager group and capture to that run's
-    seconds."""
+    seconds.  With `with_params` a call also returns each group's params
+    snapshot, stacked."""
 
     def __init__(self, train_steps, render, opt_step: int, n_frames: int,
                  contrast: float, step_index: str, frame_shape,
-                 dm_every: int | None = None):
+                 dm_every: int | None = None, with_params: bool = False):
         self.train_steps, self.render = tuple(train_steps), render
         self.opt_step, self.n_frames = opt_step, n_frames
         self.contrast, self.step_index = contrast, step_index
         self.dm_every = dm_every
-        self.bufs = LoopBuffers(opt_step, tuple(frame_shape))
+        self.bufs = LoopBuffers(opt_step, tuple(frame_shape), with_params)
         self.groups: dict = {}
         self.first_runs: dict = {}
 
@@ -449,6 +459,9 @@ class FrameLoop:
         frames = torch.empty((nf,) + b.frame_shape, dtype=torch.uint8,
                              device=dev)
         losses = torch.empty((nf * n,), device=dev)
+        snaps = ([torch.empty((nf,) + tuple(p.shape), dtype=p.dtype,
+                              device=dev) for p in leaves(gen_params)]
+                 if b.with_params else None)
         self.first_runs = {}
         for j in range(nf):
             fstep = int(frame0) + j
@@ -462,7 +475,14 @@ class FrameLoop:
                 self.first_runs[j] = group.first_seconds
             frames[j].copy_(b.frame)
             losses[j * n:(j + 1) * n].copy_(b.losses)
+            if snaps is not None:
+                for d, s in zip(snaps, b.snap, strict=True):
+                    d[j].copy_(s)
             gen_params, opt_state, prev_enc = b.params, b.opt, b.prev
+        if snaps is not None:
+            if not isinstance(gen_params, (list, tuple)):
+                snaps = snaps[0]
+            return gen_params, opt_state, prev_enc, frames, snaps, losses
         return gen_params, opt_state, prev_enc, frames, losses
 
 
@@ -504,12 +524,16 @@ def build_train_loop_frames(parameterizer, sampler, clip_cfg,
     `dual=(clip_cfg2, dm_every)` (`--dualmod`): global step g runs the
     second tower when g % dm_every == 0 and g > 0 (module docstring), and
     the loop takes (clip_params2, aest_params2, prompts2) after `prompts`,
-    as the JAX loop does.  `with_params` (the frame-boundary params, for
-    cppn) is not ported."""
-    if with_params:
-        raise NotImplementedError(
-            "with_params (cppn's per-frame snapshots) is not ported to "
-            "aphantasia_torch yet; see ROADMAP.md")
+    as the JAX loop does.
+
+    `with_params=True` (cppn's per-frame `.npy` snapshots) returns, after
+    the frames, each group's params at its render point (after its first
+    step, as the frame), stacked: (gen_params, opt_state, prev_enc,
+    frames, snaps, losses), `snaps` a tensor [n_frames, ...] or, for list
+    params, a list of them in the params' order.  A group copies its
+    params into a slot of the loop's buffers (on the card inside its
+    graph, so the next replay does not overwrite them), and the call
+    gathers the slots as it gathers the frames."""
     if step_index not in ("frame", "step", "global"):
         raise ValueError(f"step_index must be 'frame' or 'step' ('global'), "
                          f"not {step_index!r}")
@@ -518,7 +542,8 @@ def build_train_loop_frames(parameterizer, sampler, clip_cfg,
                               optimizer) for cfg in cfgs]
     return FrameLoop(steps, build_render(parameterizer), opt_step, n_frames,
                      contrast, step_index, tuple(parameterizer.size) + (3,),
-                     dm_every=None if dual is None else dual[1])
+                     dm_every=None if dual is None else dual[1],
+                     with_params=with_params)
 
 
 def build_shift_render_loop(parameterizer, contrast: float = 1.0):

@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            events around back-to-back calls, and for the kernels (and the
            library calls of the windowed cutout and the LayerNorm) the
            device time of the same calls replayed from a CUDA graph
-           (`graph_ms`, no profiler needed).
+           (`graph_ms`, no profiler needed).  The cutout pair also at
+           cppn's 47 cutouts (overscan) of a 512x512 frame and clip_vqgan's
+           190 of 640x512; the VQGAN decode alone (f16 at 640x480, gumbel
+           f8 at 640x512): bf16 held to float32 by the JAX package's bound,
+           each dtype's forward and forward + latent gradient by graph
+           replay against their operation bounds.
   main     `aphantasia_torch.cli.clip_fft.run` at full width (ViT-B/32 with
            random weights, 1280x720, 200 samples, `--pallas`), then the same
            run without `--pallas` (the default einsum cutout), then with
@@ -46,7 +51,14 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            `--depth_dir`, 16 frames, (w) `--gen FFT --smooth --dualmod 2`
            (21 cutouts), 24 frames, each with frames/min (the first frame
            apart), device ms a frame by graph replay and busy share; (x)
-           `depth` on three images of two sizes.  Each prints its
+           `depth` on three images of two sizes; (y) `cppn` (a 10-layer
+           CPPN, 512x512, 50 cutouts, a frame and a `.npy` snapshot a
+           step, the shaders), (z) `cppn --gen siren`, (aa) `cppn --pallas
+           -tf --fstep 2` (47 cutouts), (ab) `clip_vqgan` (imagenet f16
+           from a taming state dict written here, 640x480, 190 cutouts),
+           (ac) `clip_vqgan --vqgan gumbel_f8_8192 -s 640-512 --pallas`,
+           each with steps/s, device ms a step by replay and busy share.
+           Each prints its
            steps/s, peak memory and wall.  The
            launch counts are set to 0 just before each run and read just
            after, and must equal the counts the path implies.  The 8-step
@@ -69,7 +81,11 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            eager runs with no second capture (`phase_loop_illustra`);
            then illustrip frames (RGB, FFT `--smooth`, FFT `--depth 1`)
            through `build_frame_step` and the DA-V2 graph, held to two
-           eager runs of the frame step's pieces (`phase_loop_illustrip`).
+           eager runs of the frame step's pieces (`phase_loop_illustrip`);
+           then cppn (`--fstep 2`, with its per-group params snapshots)
+           and clip_vqgan (f16) through their CLIs' `setup`, the replayed
+           frame loop held to two eager runs, snapshots included
+           (`phase_loop_coord`).
   parity   the train step on the card against the same step on the CPU,
            from the same weights and the same random draws, at a small size,
            for the `none`, `fast` (affine, mixed and exact) and `elastic`
@@ -77,8 +93,9 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            LayerNorm switches and under the block switch, with `--aest`
            and `--sync`, on a DWT pyramid, two `--dualmod` steps, a tiny
            ModifiedResNet step, two `illustra` scenes (the second
-           replayed on the card), and two illustrip frames of RGB and of
-           FFT (the second replayed on the card).
+           replayed on the card), two illustrip frames of RGB and of
+           FFT (the second replayed on the card), and one step each of a
+           CPPN, a SIREN and a float32 VQGAN decoder.
   cudnn    (only when asked for) the (j) loop path with cuDNN's
            nondeterministic algorithms allowed: device ms and bits.
   profile  (only when asked for) torch.profiler over steady replayed steps
@@ -398,16 +415,17 @@ def check_attention(rows, t, d, heads, dtype, causal=False, valid_t=None,
     return res
 
 
-def check_cutout(seed=0, s=200, m=224, align="uniform"):
-    """Cutout kernels against `cutout_plain` at 1280x720, S cutouts of M
-    (the main path's 200 of 224; RN50x4's 30 of 288 and RN50x64's one of
-    448 run the forward's column bands past 256; illustrip's 95 of 224
-    with `overscan`'s folded taps); each also against itself, two
-    launches and a CUDA-graph replay, bit for bit."""
+def check_cutout(seed=0, s=200, m=224, align="uniform", h=720, w=1280):
+    """Cutout kernels against `cutout_plain` on an h x w frame (1280x720
+    unless given), S cutouts of M (the main path's 200 of 224; RN50x4's
+    30 of 288 and RN50x64's one of 448 run the forward's column bands past
+    256; illustrip's 95 of 224 with `overscan`'s folded taps; cppn's 47
+    of 224 with overscan from 512x512; clip_vqgan's 190 of 224 from
+    640x512); each also against itself, two launches and a CUDA-graph
+    replay, bit for bit."""
     import torch
     from aphantasia_torch.ops import cutout as C
     from aphantasia_torch.ops.sampler import CutoutSampler, _contract
-    h, w = 720, 1280
     g = torch.Generator(device="cuda").manual_seed(seed)
     sampler = CutoutSampler((h, w), s, m, align,
                             0.3 if align == "overscan" else 0.4)
@@ -478,6 +496,120 @@ def check_cutout(seed=0, s=200, m=224, align="uniform"):
     res["bound_bwd"] = bound(s * 3 * m * m * 4 + tap_bytes + 3 * h * w * 4,
                              s * 3 * m * m * 40, "f32")
     return res
+
+
+def vqgan_ops(cfg, h, w):
+    """(convolution, attention-product) operations of one forward of the
+    VQGAN decoder to an h x w image, from its layers' shapes: 2 k^2 cin
+    cout per output pixel of each convolution, 2 t^2 c for each of an
+    attention's two products over its t tokens."""
+    n = (h // cfg.f) * (w // cfg.f)
+    conv = attn = 0
+
+    def cv(cin, cout, k, n):
+        return 2 * k * k * cin * cout * n
+
+    def res(cin, cout, n):
+        return (cv(cin, cout, 3, n) + cv(cout, cout, 3, n)
+                + (cv(cin, cout, 1, n) if cin != cout else 0))
+
+    cur = cfg.ch * cfg.ch_mult[-1]
+    conv += cv(cfg.z_channels, cur, 3, n) + 2 * res(cur, cur, n) + 4 * cv(
+        cur, cur, 1, n)
+    attn += 4 * n * n * cur
+    for level in reversed(range(len(cfg.ch_mult))):
+        cout = cfg.ch * cfg.ch_mult[level]
+        for _ in range(cfg.num_res_blocks + 1):
+            conv += res(cur, cout, n)
+            cur = cout
+            if level == len(cfg.ch_mult) - 1:
+                conv += 4 * cv(cur, cur, 1, n)
+                attn += 4 * n * n * cur
+        if level:
+            n *= 4
+            conv += cv(cur, cur, 3, n)
+    conv += cv(cur, 3, 3, n)
+    return conv, attn
+
+
+def check_vqgan_decode(name="imagenet_f16_16384", h=480, w=640, seed=0):
+    """The VQGAN decode alone at a CLI's size, random weights from a seed:
+    the bf16 decode (the card's "auto") against the float32 one, within
+    the JAX package's bound (mean |diff| / std(f32) < 0.05 and
+    correlation > 0.995, tests/test_vqgan.py); then each dtype's forward
+    and forward + latent gradient (what a step runs, the render aside) by
+    graph replay, against the bound of its operations at the dtype's peak
+    (the backward's data gradients: each convolution's again, each
+    attention product's twice) or of its bytes (weights, latent and
+    image); beside each, the same decode with PyTorch's `F.group_norm`
+    (the library's GroupNorm, the first design) in place of the port's;
+    and the bf16 forward's device time by torch.profiler (None where it
+    records none)."""
+    import torch
+    import torch.nn.functional as F
+    from aphantasia_torch.models import vqgan as V
+
+    def library_gn(x, p, groups=32, eps=1e-6):
+        return F.group_norm(x.float(), min(groups, x.shape[1]), p["g"],
+                            p["b"], eps).to(x.dtype)
+    cfg = V.VQGAN_CONFIGS[name]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    par32 = V.VQGANParameterizer((h, w), cfg, V.vqgan_init(g, cfg),
+                                 torch.float32)
+    z = par32.init(g)
+    co = torch.randn((1, 3, h, w), generator=g, device="cuda")
+    res = {"name": name, "h": h, "w": w}
+    with torch.no_grad():
+        f32 = par32.image(z)
+        bf = V.VQGANParameterizer((h, w), cfg, par32.decoder_params,
+                                  torch.bfloat16).image(z)
+    res["err"] = ((bf - f32).abs().mean() / (f32.std() + 1e-9)).item()
+    res["corr"] = torch.corrcoef(torch.stack([bf.flatten(),
+                                              f32.flatten()]))[0, 1].item()
+    res["saturated"] = ((f32 == 0) | (f32 == 1)).float().mean().item()
+    check(res["err"] < 0.05 and res["corr"] > 0.995,
+          f"vqgan {name}: bf16 decode vs float32 mean|diff|/std "
+          f"{res['err']:.4f}, corr {res['corr']:.5f}")
+    conv, attn = vqgan_ops(cfg, h, w)
+    res["gflop_fwd"], res["gflop_step"] = ((conv + attn) / 1e9,
+                                           (2 * conv + 3 * attn) / 1e9)
+    nweights = sum(4 * t.numel() for t in _tree_leaves(par32.decoder_params))
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        par = V.VQGANParameterizer((h, w), cfg, par32.decoder_params, dt)
+        par.decoder(dt)
+        size = 2 if dt == torch.bfloat16 else 4
+        xb = z.numel() * 4 + 3 * h * w * 4 + nweights // 4 * size
+
+        def fwd():
+            with torch.no_grad():
+                return par.image(z)
+
+        def step():
+            x = z.detach().requires_grad_(True)
+            return torch.autograd.grad(par.image(x), x, co)[0]
+        res[f"fwd_{kind}"] = graph_ms(fwd, iters=5, replays=3)
+        res[f"step_{kind}"] = graph_ms(step, iters=3, replays=3)
+        if kind == "bf16":
+            res["prof_fwd_bf16"] = device_ms(fwd, iters=3, warmup=1)
+        own, V._group_norm = V._group_norm, library_gn
+        try:
+            res[f"lib_fwd_{kind}"] = graph_ms(fwd, iters=5, replays=3)
+            res[f"lib_step_{kind}"] = graph_ms(step, iters=3, replays=3)
+        finally:
+            V._group_norm = own
+        res[f"bound_fwd_{kind}"] = bound(xb, conv + attn, kind)
+        res[f"bound_step_{kind}"] = bound(2 * xb, 2 * conv + 3 * attn, kind)
+        del par
+        torch.cuda.empty_cache()
+    return res
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
 
 
 def persp_case(kind, s, h, w, seed=0):
@@ -1169,22 +1301,46 @@ def phase_kernels(report):
           f"min {cut['tile_crops'][0]:.0f}, median {cut['tile_crops'][1]:.0f}"
           f", max {cut['tile_crops'][2]:.0f}")
     cut_err = {"fwd": cut["fwd_err"], "bwd": cut["grad_err"]}
-    for ns, m, align in ((200, 224, "uniform"), (30, 288, "uniform"),
-                         (1, 448, "uniform"), (95, 224, "overscan")):
-        r = cut if ns == 200 else check_cutout(s=ns, m=m, align=align)
+    for ns, m, align, h, w in ((200, 224, "uniform", 720, 1280),
+                               (30, 288, "uniform", 720, 1280),
+                               (1, 448, "uniform", 720, 1280),
+                               (95, 224, "overscan", 720, 1280),
+                               (47, 224, "overscan", 512, 512),
+                               (190, 224, "uniform", 512, 640)):
+        r = cut if ns == 200 else check_cutout(s=ns, m=m, align=align, h=h,
+                                               w=w)
         if ns != 200:
-            print(f"[kernels] cutout S={ns} M={m} {align}: fwd max|err| "
+            print(f"[kernels] cutout S={ns} M={m} {align} {h}x{w}: fwd "
+                  f"max|err| "
                   f"{r['fwd_err']:.3g} (|ref| {r['fwd_scale']:.3g}), grad "
                   f"max|err| {r['grad_err']:.3g} (|ref| "
                   f"{r['grad_scale']:.3g}); both repeat bit for bit")
             cut_err = {"fwd": max(cut_err["fwd"], r["fwd_err"]),
                        "bwd": max(cut_err["bwd"], r["grad_err"])}
         for k in ("fwd", "bwd"):
-            print(f"[kernels] cutout {k} S={ns} M={m} {align} 720x1280: "
+            print(f"[kernels] cutout {k} S={ns} M={m} {align} {h}x{w}: "
                   f"kernel {r['ms_' + k]:.4f} ms (graph replay "
                   f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} ms, "
                   f"einsum {r['lib_' + k]:.4f} ms, bound "
                   f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
+    for name, h, w in (("imagenet_f16_16384", 480, 640),
+                       ("gumbel_f8_8192", 512, 640)):
+        r = check_vqgan_decode(name, h, w)
+        print(f"[kernels] vqgan decode {name} {w}x{h}: bf16 vs float32 "
+              f"mean|diff|/std {r['err']:.4f} (< 0.05), corr "
+              f"{r['corr']:.5f} (> 0.995), {r['saturated']:.3f} of the "
+              f"float32 pixels clamped; forward {r['gflop_fwd']:.1f} GFLOP, "
+              f"forward + latent gradient {r['gflop_step']:.1f} GFLOP")
+        for k in ("fwd", "step"):
+            for kind in ("bf16", "f32"):
+                ms, (bms, by) = r[f"{k}_{kind}"], r[f"bound_{k}_{kind}"]
+                gf = r["gflop_fwd" if k == "fwd" else "gflop_step"]
+                print(f"[kernels] vqgan {k} {name} {w}x{h} {kind}: graph "
+                      f"replay {ms:.4f} ms ({gf / ms:.1f} TFLOP/s), bound "
+                      f"{bms:.4f} ms ({by}), {ms / bms:.2f}x the bound; "
+                      f"with F.group_norm {r[f'lib_{k}_{kind}']:.4f} ms")
+        print(f"[kernels] vqgan fwd {name} bf16: device time by "
+              f"torch.profiler {fmt_ms(r['prof_fwd_bf16'])} ms")
     persp, persp_err = None, {"fwd": 0.0, "bwd": 0.0}
     for kind, h, w, dtype, timed in (
             ("persp-main", 224, 224, torch.bfloat16, True),
@@ -1498,6 +1654,7 @@ def phase_main(report, steps: int):
     phase_main_resnet(steps)
     phase_main_illustra(steps)
     phase_main_illustrip()
+    phase_main_coord(steps)
 
 
 _TMP: list = []
@@ -1674,10 +1831,11 @@ def _steady_sps(secs) -> float:
 
 
 def _graph_step_ms(loop) -> float:
-    """Device ms a step of a one-pattern frame loop (one step a group):
-    CUDA events around 10 back-to-back replays of its graph."""
+    """Device ms a step of a one-pattern frame loop: CUDA events around 10
+    back-to-back replays of its graph, over the group's steps."""
     (group,) = loop.groups.values()
-    return cuda_ms(group.graph.graph.replay, iters=10, warmup=2)
+    return cuda_ms(group.graph.graph.replay, iters=10,
+                   warmup=2) / loop.opt_step
 
 
 def phase_main_resnet(steps: int):
@@ -2076,6 +2234,160 @@ def phase_main_illustrip():
           f"{torch.cuda.get_device_name(0)}")
 
 
+def taming_state_dict(params) -> dict:
+    """A decoder tree (`vqgan_init`'s) in taming-transformers' key layout
+    (OIHW, `decoder.*` and `post_quant_conv.*`), the inverse of
+    `convert_taming`."""
+    sd = {}
+
+    def put(prefix, p):
+        for k, v in p.items():
+            sd[f"{prefix}.{'weight' if k in ('w', 'g') else 'bias'}"] = v
+
+    def res(prefix, p):
+        for k, name in (("norm1", "norm1"), ("conv1", "conv1"),
+                        ("norm2", "norm2"), ("conv2", "conv2"),
+                        ("nin", "nin_shortcut")):
+            if k in p:
+                put(f"{prefix}.{name}", p[k])
+
+    def attn(prefix, p):
+        for k, name in (("norm", "norm"), ("q", "q"), ("k", "k"),
+                        ("v", "v"), ("proj", "proj_out")):
+            put(f"{prefix}.{name}", p[k])
+
+    put("post_quant_conv", params["post_quant"])
+    put("decoder.conv_in", params["conv_in"])
+    res("decoder.mid.block_1", params["mid"]["block1"])
+    attn("decoder.mid.attn_1", params["mid"]["attn"])
+    res("decoder.mid.block_2", params["mid"]["block2"])
+    for level, lev in enumerate(params["up"]):
+        for j, blk in enumerate(lev["blocks"]):
+            res(f"decoder.up.{level}.block.{j}", blk)
+        for j, att in enumerate(lev.get("attns", [])):
+            attn(f"decoder.up.{level}.attn.{j}", att)
+        if "upsample" in lev:
+            put(f"decoder.up.{level}.upsample.conv", lev["upsample"])
+    put("decoder.norm_out", params["norm_out"])
+    put("decoder.conv_out", params["conv_out"])
+    return sd
+
+
+def _run_main(label, cli, argv, want, samples):
+    """One run of a CLI module's `run` with its launch counts (exactly
+    `want`), cutouts, finite losses, steps/s (the median step after the
+    first), device ms a step by replay of the run's one graph, busy share,
+    peak memory and wall; returns the result."""
+    import torch
+    from aphantasia_torch import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = cli.run(cli.get_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[main] {label} run: launches {got}")
+    check(res.samples == samples, f"{label}: {res.samples} cutouts")
+    check(all(math.isfinite(x) for x in res.losses),
+          f"{label}: losses not finite: {res.losses}")
+    check(got == want, f"{label}: launches {got} != expected {want}")
+    sps = _steady_sps(res.step_seconds)
+    ms = _graph_step_ms(res.loop)
+    print(f"[main] {label}: {len(res.losses)} steps, {res.samples} cutouts, "
+          f"first group {res.step_seconds[0] * res.loop.opt_step:.3f} s, "
+          f"steady {sps:.3f} steps/s, device ms a step by replay {ms:.3f}, "
+          f"busy share {ms * sps / 1000:.3f}, peak memory "
+          f"{peak / 2**20:.0f} MiB, wall {wall:.1f} s with set-up on "
+          f"{torch.cuda.get_device_name(0)}; losses "
+          f"{[round(x, 5) for x in res.losses]}")
+    return res
+
+
+def phase_main_coord(steps: int):
+    """(y)-(ac): `cppn` and `clip_vqgan` at full width, `steps` steps each
+    (ViT-B/32, random weights from a seed).  (y) cppn as configured by
+    default: 512x512, 50 cutouts, overscan, no transform, a 10-layer CPPN
+    of width 24 (unbias), Adam at 0.003, --fstep 1 (a frame and a `.npy`
+    snapshot every step); (z) `--gen siren` (5 layers of 256); (aa)
+    `--pallas -tf --fstep 2` (47 cutouts, the snapshot at each group's
+    render point); (ab) clip_vqgan with the imagenet_f16_16384 decoder
+    from a full-width taming state dict written here from random weights
+    and deleted, 640x480, 190 cutouts, uniform, fast, adam_custom at 0.1,
+    sim mix; (ac) `--vqgan gumbel_f8_8192 -s 640-512 --pallas` (random
+    decoder, 190 cutouts).  Launches: 12 text-tower forwards once, 12 +
+    12 attention launches a step, one cutout each way a step under
+    --pallas; the CPPN, SIREN and VQGAN decodes launch no kernel of the
+    port."""
+    import torch
+    from aphantasia_torch.cli import clip_vqgan, cppn
+    from aphantasia_torch.models import vqgan as V
+    text = ["-t", "a lighthouse on a cliff at dawn", "--steps", str(steps),
+            "--seed", "1"]
+    attn = {"attn_fwd": 12 + 12 * steps, "attn_bwd": 12 * steps}
+    cut = dict(attn, cutout_fwd=steps, cutout_bwd=steps)
+    for label, extra, want, samples, fstep in (
+            ("(y) cppn", [], attn, 50, 1),
+            ("(z) cppn --gen siren", ["--gen", "siren"], attn, 50, 1),
+            ("(aa) cppn --pallas -tf --fstep 2",
+             ["--pallas", "-tf", "--fstep", "2"], cut, 47, 2)):
+        out = os.path.join(OUT_DIR, "cppn", label[1:label.index(")")])
+        res = _run_main(label, cppn, text + ["--out_dir", out] + extra, want,
+                        samples)
+        n = steps // fstep
+        base = res.out_base
+        files = sorted(os.listdir(base))
+        check(files == sorted("%04d.%s" % (i, e) for i in range(n)
+                              for e in ("jpg", "npy")),
+              f"{label}: frame directory {files}")
+        name = os.path.basename(base)
+        beside = set(os.listdir(os.path.dirname(base)))
+        need = {name + x for x in (".npy", "-td.glsl", ".tfx", ".txt",
+                                   "-bookofshaders.glsl", "-shadertoy.glsl",
+                                   f"-{steps}.jpg")}
+        check(need <= beside and res.video is not None
+              and os.path.getsize(res.video) > 0,
+              f"{label}: {sorted(beside)}, video {res.video}")
+        check(all(bool(torch.isfinite(p).all()) for p in res.params),
+              f"{label}: params not finite")
+        del res
+        torch.cuda.empty_cache()
+    cfg = V.VQGAN_CONFIGS["imagenet_f16_16384"]
+    params = V.vqgan_init(torch.Generator().manual_seed(12), cfg)
+    ckpt = os.path.join(tmp_dir(), "vqgan_f16.pt")
+    torch.save(taming_state_dict(params), ckpt)
+    for label, extra, want in (
+            ("(ab) clip_vqgan imagenet_f16_16384 --vqgan_weights",
+             ["--vqgan_weights", ckpt], attn),
+            ("(ac) clip_vqgan --vqgan gumbel_f8_8192 -s 640-512 --pallas",
+             ["--vqgan", "gumbel_f8_8192", "-s", "640-512", "--pallas"],
+             cut)):
+        out = os.path.join(OUT_DIR, "vqgan", label[1:label.index(")")])
+        res = _run_main(label, clip_vqgan,
+                        text + ["--out_dir", out, "-nv"] + extra, want, 190)
+        run_dir = os.path.join(out, res.out_name)
+        frames = [f for f in os.listdir(run_dir) if f.endswith(".jpg")]
+        check(len(frames) == steps
+              and os.path.isfile(os.path.join(run_dir, "config.txt"))
+              and res.video is not None and os.path.getsize(res.video) > 0,
+              f"{label}: {len(frames)} frames, video {res.video}")
+        h, w = (480, 640) if "f16" in label else (512, 640)
+        f = res.par.cfg.f
+        check(tuple(res.params.shape) == (1, 256, h // f, w // f)
+              and bool(torch.isfinite(res.params).all()),
+              f"{label}: latent {tuple(res.params.shape)}")
+        if "--vqgan_weights" in extra:
+            check(torch.equal(res.par.decoder_params["up"][4]["attns"][2]
+                              ["proj"]["w"].cpu(),
+                              params["up"][4]["attns"][2]["proj"]["w"]),
+                  f"{label}: the checkpoint did not load as written")
+        del res
+        torch.cuda.empty_cache()
+    os.remove(ckpt)
+
+
 def phase_main_switches(report, steps: int):
     """The switches' paths at full width without --pallas (the windowed
     forward replaces the dense one only there), each with its exact launch
@@ -2370,6 +2682,157 @@ def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
             sync_term_ms(su)
         if su.par.__class__.__name__ == "DWTParameterizer":
             decode_ms(su)
+        del su, runs, got
+        torch.cuda.empty_cache()
+
+
+def _coord_eager(su, steps, opt_step, with_params, start):
+    """The steps one by one (`build_train_step`, step_i the global step),
+    the render and, with `with_params`, a copy of the params after each
+    group's first step, the loss read after each step."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.step import build_render, build_train_step
+    su.gen.set_state(start)
+    step = build_train_step(su.par, su.sampler, su.clip_cfg, su.settings,
+                            su.optimizer)
+    render = build_render(su.par)
+    p, st, prev = _fresh(su)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, frames, snaps, secs = [], [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        p, st, prev, loss = step(p, st, prev, *su.consts(0), su.draw(su.gen),
+                                 i)
+        losses.append(loss.item())
+        if i % opt_step == 0:
+            frames.append(render(p).cpu())
+            if with_params:
+                snaps.append([x.detach().clone().cpu() for x in p])
+        secs.append(time.perf_counter() - t0)
+    out = _leaves(p, st, prev)
+    out.update(losses=torch.tensor(losses), frames=torch.stack(frames))
+    for k in range(len(snaps[0]) if snaps else 0):
+        out[f"snap{k}"] = torch.stack([sn[k] for sn in snaps])
+    return out, {"secs": secs, "peak": torch.cuda.max_memory_allocated(),
+                 "launches": dict(kernels.LAUNCHES)}
+
+
+def _coord_replayed(su, steps, opt_step, nf, with_params, step_index, start):
+    """The same steps through `build_train_loop_frames` (`with_params`:
+    the snapshots gathered with the frames), `nf` groups a dispatch, the
+    dispatches after the first under sync debug mode "error"."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.step import build_train_loop_frames
+    su.gen.set_state(start)
+    loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
+                                   su.settings, su.optimizer, opt_step, nf,
+                                   step_index=step_index,
+                                   with_params=with_params)
+    p, st, prev = _fresh(su)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, frames, snaps, walls = [], [], [], []
+    for c in range(steps // opt_step // nf):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if c else 0)
+        try:
+            p, st, prev, f, *sn, dl = loop(p, st, prev, *su.loop_args(),
+                                           lambda g: su.draw(su.gen), c * nf)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses += dl.tolist()
+        walls.append(time.perf_counter() - t0)
+        frames.append(f.cpu())
+        snaps += [[x.cpu() for x in sn[0]]] if sn else []
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    out = {k: v.clone() for k, v in _leaves(p, st, prev).items()}
+    out.update(losses=torch.tensor(losses), frames=torch.cat(frames))
+    for k in range(len(snaps[0]) if snaps else 0):
+        out[f"snap{k}"] = torch.cat([sn[k] for sn in snaps])
+    (group,) = loop.groups.values()
+    ms = cuda_ms(group.graph.graph.replay, iters=10, warmup=2) / opt_step
+    return out, {"walls": walls, "peak": peak, "launches": launches,
+                 "first": group.first_seconds, "step_ms": ms}
+
+
+# (label, CLI module name, flags, opt_step, with_params, step_index)
+COORD_LOOP_PATHS = (
+    ("cppn, --fstep 2, snapshots", "cppn",
+     ["--fstep", "2"], 2, True, "step"),
+    ("clip_vqgan imagenet_f16_16384", "clip_vqgan", ["-nv"], 1, False,
+     "frame"),
+)
+
+
+def phase_loop_coord(steps: int = 16, nf: int = 2, paths=COORD_LOOP_PATHS):
+    """cppn (a 10-layer CPPN at 512x512, `--fstep 2`, the per-group params
+    snapshots) and clip_vqgan (the f16 decoder at 640x480, 190 cutouts)
+    at full width, random weights from a seed, through each CLI's
+    `setup`: twice the eager steps, then the same steps from the same
+    draws through the frame loop (the first group eager and captured,
+    every later one replayed); params, optimizer state, prev_enc, losses,
+    frames and snapshots must equal the eager run's bit for bit (or, where
+    the two eager runs part, within twice their spread), the launches
+    (counted per replay) those of the eager steps.  Reports steps/s eager
+    and replayed, the group's device ms a step by replay, busy share and
+    peak memory."""
+    import importlib
+    import torch
+    name = torch.cuda.get_device_name(0)
+    for label, mod, extra, n, with_params, step_index in paths:
+        cli = importlib.import_module(f"aphantasia_torch.cli.{mod}")
+        a = cli.get_args(["-t", "a lighthouse on a cliff at dawn",
+                          "--steps", str(steps), "--seed", "1", "--out_dir",
+                          os.path.join(OUT_DIR, "loop_coord")] + extra)
+        su = cli.setup(a)
+        start = su.gen.get_state()
+        runs = [_coord_eager(su, steps, n, with_params, start)
+                for _ in range(2)]
+        got, rep = _coord_replayed(su, steps, n, nf, with_params, step_index,
+                                   start)
+        (want, eager), (again, _) = runs
+        check(eager["launches"] == rep["launches"]
+              and eager["launches"].get("attn_bwd") == 12 * steps,
+              f"loop {label}: launches eager {eager['launches']}, replayed "
+              f"{rep['launches']}")
+        check(got.keys() == want.keys(), f"loop {label}: {sorted(got)} != "
+              f"{sorted(want)}")
+        worst = {}
+        for k, ref in want.items():
+            check(got[k].shape == ref.shape, f"loop {label}: {k} shape")
+            worst[k] = ((got[k].double() - ref.double()).abs().max().item(),
+                        (again[k].double() - ref.double()).abs().max().item())
+        check(all(e == 0 if sp == 0 else e <= 2 * sp
+                  for e, sp in worst.values()),
+              f"loop {label}: the replay differs from the eager run: "
+              + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
+                          for k, (e, sp) in worst.items()))
+        exact = all(e == 0 for e, _ in worst.values())
+        steady = sorted(eager["secs"][1:])
+        eager_sps = 1.0 / steady[len(steady) // 2]
+        check(len(rep["walls"]) > 1, f"loop {label}: one dispatch only")
+        replay_sps = (steps - nf * n) / sum(rep["walls"][1:])
+        busy = rep["step_ms"] * replay_sps / 1000
+        print(f"[loop] {label}: {steps} steps, {su.sampler.count} cutouts, "
+              f"opt_step {n}, {nf} groups a dispatch on {name}: eager "
+              f"{eager_sps:.3f} steps/s, replayed {replay_sps:.3f} steps/s; "
+              f"first dispatch {rep['walls'][0]:.3f} s (eager group and "
+              f"capture {rep['first']:.3f} s); device ms a step by replay "
+              f"{rep['step_ms']:.3f}, busy share {busy:.3f}; peak memory "
+              f"eager {eager['peak'] / 2**20:.0f} MiB, replayed "
+              f"{rep['peak'] / 2**20:.0f} MiB; launches {rep['launches']}; "
+              f"{len([k for k in got if k.startswith('snap')])} snapshot "
+              f"leaves of {got['frames'].shape[0]} groups; "
+              + ("bit for bit" if exact else "max |replayed - eager| "
+                 "(eager spread): " + ", ".join(
+                     f"{k} {e:.3g} ({sp:.3g})"
+                     for k, (e, sp) in worst.items())))
         del su, runs, got
         torch.cuda.empty_cache()
 
@@ -2807,8 +3270,10 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
     and moved to `device`, the gradient back the same way, so both
     devices' cuts see the same frame bits.  `kind`: "fft" (the spectrum),
     "terms" (the spectrum with --aest 2 and --sync 0.5: a random head and
-    random VGG16 weights, a 48x32 target, total_steps 4) or "dwt" (a coif2
-    pyramid of 6 levels).  `resnet`: a tiny ModifiedResNet tower in place
+    random VGG16 weights, a 48x32 target, total_steps 4), "dwt" (a coif2
+    pyramid of 6 levels), "cppn" (4 layers of 24, unbias), "siren" (3
+    layers of 64, w0 30) or "vqgan" (a float32 decoder of width 32, levels
+    (1, 2), its attentions, z 8).  `resnet`: a tiny ModifiedResNet tower in place
     of the ViT (width 8, stages (1, 2, 1, 1), its pool 256 wide in 4 heads
     over a 2x2 map).  `consts` are the step's (clip, aest, lpips_bundle,
     prompts)."""
@@ -2840,6 +3305,19 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
     if kind == "dwt":
         par = DWTParameterizer((64, 96), "coif2", 0.3, 1.8)
         p0 = [x.to(device) for x in par.init(g)]
+    elif kind in ("cppn", "siren"):
+        from aphantasia_torch.params.cppn import CPPNParameterizer
+        from aphantasia_torch.params.siren import SIRENParameterizer
+        par = (CPPNParameterizer((64, 96), 24, 4) if kind == "cppn"
+               else SIRENParameterizer((64, 96), 64, 3))
+        p0 = [x.to(device) for x in par.init(g)]
+    elif kind == "vqgan":
+        from aphantasia_torch.models import vqgan as V
+        cfg_v = V.VQGANConfig("small", z_channels=8, ch=32, ch_mult=(1, 2),
+                              num_res_blocks=1, attn_resolutions=(16,))
+        par = V.VQGANParameterizer((64, 96), cfg_v, _tree_to(
+            V.vqgan_init(g, cfg_v), device), torch.float32)
+        p0 = par.init(g).to(device)
     else:
         p0 = par.init(g, sd=0.07).to(device)
     prompts = ((torch.randn((2, 64), generator=g).to(device),
@@ -2858,7 +3336,7 @@ def _parity_setup(device, use_pallas, transform, persp="affine", count=6,
                             noise=0.1, sharp=0.2, expand=0.5,
                             clip_dtype=torch.float32, **extra)
     opt = build_optimizer("adam_custom", PARITY_LR, 2)
-    shape = None if kind == "dwt" else tuple(p0.shape)
+    shape = tuple(p0.shape) if kind in ("fft", "terms") else None
     return dict(clip=clip, p0=p0, prompts=prompts, opt=opt, cfg=cfg, g=g,
                 par=par, sampler=sampler, settings=settings,
                 consts=(clip, aest, bundle, prompts),
@@ -2963,6 +3441,10 @@ def phase_parity():
     _parity_one_step(False, "none", "affine", tol=(1e-4, 5e-3), resnet=True)
     _parity_illustra()
     _parity_frames()
+    # the coordinate nets' and the VQGAN decoder's steps (float32 products
+    # and cuDNN convolutions on the card)
+    for kind in ("cppn", "siren", "vqgan"):
+        _parity_one_step(False, "none", "affine", tol=(1e-4, 1e-3), kind=kind)
 
 
 def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
@@ -2982,10 +3464,11 @@ def _parity_one_step(use_pallas, transform, persp, cuda_env=None,
         with env_set(env):
             c = _parity_setup(dev, use_pallas, transform, persp, count,
                               kind=kind, resnet=resnet)
-            p0 = c["p0"] if kind == "dwt" else [c["p0"]]
+            listed = isinstance(c["p0"], list)
+            p0 = c["p0"] if listed else [c["p0"]]
             xs = [x.clone().requires_grad_(True) for x in p0]
             d = to_device(c["draw"](torch.Generator().manual_seed(2)), dev)
-            loss, _ = c["loss"](xs if kind == "dwt" else xs[0],
+            loss, _ = c["loss"](xs if listed else xs[0],
                                 *c["consts"][:3], c["prompts"],
                                 torch.zeros((count, 64), device=dev), d, 0)
             gr = torch.autograd.grad(loss, xs)
@@ -3194,7 +3677,7 @@ def main(argv=None) -> int:
             {"kernels": lambda: phase_kernels(report),
              "main": lambda: phase_main(report, args.steps),
              "loop": lambda: (phase_loop(), phase_loop_illustra(),
-                              phase_loop_illustrip()),
+                              phase_loop_illustrip(), phase_loop_coord()),
              "parity": phase_parity,
              "cudnn": phase_cudnn,
              "profile": lambda: phase_profile(

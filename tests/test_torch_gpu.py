@@ -144,6 +144,10 @@ def _cutout_taps(cuda, h, w, s, m, align="uniform", edge=False,
                  id="720-1920-24-224"),
     pytest.param(720, 1280, 95, 224, "overscan", False, False,
                  id="illustrip-720-1280-95-224-overscan"),
+    pytest.param(512, 512, 47, 224, "overscan", False, False,
+                 id="cppn-512-512-47-224-overscan"),
+    pytest.param(512, 640, 190, 224, "uniform", False, False,
+                 id="vqgan-512-640-190-224"),
     pytest.param(300, 300, 8, 224, "uniform", False, True,
                  id="whole-frame")])
 def test_cutout_kernel_matches_plain(cuda, monkeypatch, h, w, s, m, align,
@@ -824,6 +828,40 @@ def test_illustrip_frames_replay_equal_eager(cuda, path):
         cs.phase_loop_illustrip(frames=4, paths=[cs.TRIP_LOOP_PATHS[path]])
     except cs.SmokeFailure as e:
         pytest.fail(str(e))
+
+
+@pytest.mark.parametrize("path", range(2))
+def test_coord_and_vqgan_loops_replay_equal_eager(cuda, path):
+    """chip_smoke.py's loop on cppn (`--fstep 2`, the per-group params
+    snapshots) or clip_vqgan (the f16 decoder at 640x480) at full width,
+    8 steps, 2 groups a dispatch: the replayed frame loop against two
+    eager runs, params, optimizer state, prev_enc, losses, frames and
+    snapshots bit for bit (or within twice the eager runs' spread)."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cs.phase_loop_coord(steps=8, nf=2, paths=[cs.COORD_LOOP_PATHS[path]])
+    except cs.SmokeFailure as e:
+        pytest.fail(str(e))
+
+
+@pytest.mark.parametrize("name,h,w", [("imagenet_f16_16384", 480, 640),
+                                      ("gumbel_f8_8192", 512, 640)])
+def test_vqgan_bf16_decode_within_the_jax_bound(cuda, name, h, w):
+    """The bf16 VQGAN decode (the card's "auto") against the float32 one
+    at a CLI's full size, random weights: mean |diff| / std < 0.05 and
+    correlation > 0.995, the JAX package's bound (tests/test_vqgan.py);
+    both dtypes' decode and latent gradient replay from a CUDA graph."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        r = cs.check_vqgan_decode(name, h, w)
+    except cs.SmokeFailure as e:
+        pytest.fail(str(e))
+    assert r["err"] < 0.05 and r["corr"] > 0.995
+    assert all(r[k] > 0 for k in ("fwd_bf16", "step_bf16", "fwd_f32",
+                                  "step_f32"))
 
 
 def test_frame_writer_pulls_a_chunk_from_the_card(cuda, tmp_path):

@@ -183,8 +183,6 @@ def test_loop_refuses_what_is_not_ported():
     c = _setup(KW)
     opt = to.build_optimizer("adam_custom", LR)
     args = (c["tpar"], c["tsam"], c["tcfg"], c["tset"], opt, 2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.build_train_loop_frames(*args, with_params=True)
     with pytest.raises(ValueError, match="step_index"):
         tstep.build_train_loop_frames(*args, step_index="local")
 
