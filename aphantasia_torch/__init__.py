@@ -17,8 +17,10 @@ params    FFT spectrum parameterizer and color head
 ops       cutout sampler, cutout and attention kernels, augmentations,
           losses, optimizers
 models    the CLIP ViT towers and the tokenizer
-cli       clip_fft
+cli       clip_fft, illustra, interpol, illustrip, depth, cppn, clip_vqgan
 io        .pt snapshots, frames and video
+parallel  the data and model mesh axes, fleets and the DCN data axis on
+          torch.distributed
 """
 
 __version__ = "0.1.0"

@@ -20,14 +20,19 @@ term and its tone map), --aest (the LAION head), --dualmod N (ViT-B/16
 every N-th step) and --clip_weights (an OpenAI, open_clip or HuggingFace
 checkpoint) run as in the JAX CLI; every weight without a checkpoint is
 random-init, loudly.  Every model of the list runs: the ViTs and the
-ModifiedResNets (RN50 to RN50x16; no aesthetic head, as in JAX).  Still
-raising: --spatial, --mesh and --fleet (ROADMAP.md A.10).
+ModifiedResNets (RN50 to RN50x16; no aesthetic head, as in JAX).
+--mesh N|NxM|dcn runs the step over a data axis (and a model axis) of
+ranks that `common.run_cli` starts, rank 0 writing the outputs; --fleet
+runs the whole job on each host, as in JAX.  Still raising: --spatial
+(ROADMAP.md A.10b).
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m ViT-L/14
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m RN50x4
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dwt
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dualmod 4
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --mesh 2x2 \
+        --device cpu
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" \
         -i photo.jpg --sync 0.4
     APHANTASIA_WIN_CUTOUT=1 APHANTASIA_PALLAS_LN=1 \
@@ -50,11 +55,11 @@ import torch
 from aphantasia_torch.cli.common import (
     ClipWrapper, RunSetup, Tower, add_parallel_flags, apply_sample_budget,
     card_settings, check_ported, dispatch_seconds, dualmod_steps,
-    maybe_translate, parse_size, resolve_dtype, resolve_persp)
+    frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
+    run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
-from aphantasia_torch.io.media import (AsyncFrameWriter, frames_to_video,
-                                       img_list, img_read)
+from aphantasia_torch.io.media import frames_to_video, img_list, img_read
 from aphantasia_torch.models.lpips import lpips_get
 from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
 from aphantasia_torch.ops.optim import build_optimizer
@@ -62,6 +67,7 @@ from aphantasia_torch.ops.resize import resize_bicubic
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.dwt import DWTParameterizer, resume_dwt
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
+from aphantasia_torch.parallel.mesh import mesh_primary
 from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
@@ -200,6 +206,7 @@ def setup(a) -> RunSetup:
         clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
                                  generator=seeded(a.seed, "cpu")))
         print(' dual model every %d step' % a.dualmod)
+    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
     extra = (a.in_txt2 is not None) + (a.in_txt0 is not None)
     a.samples = apply_sample_budget(
         a.samples, a.model, a.dualmod, a.enforce, a.sync, a.transform, extra)
@@ -269,16 +276,22 @@ def setup(a) -> RunSetup:
     out_name += ('-%s' % a.model.replace('/', '').replace('-', '')
                  if a.dualmod is None else '-dm%d' % a.dualmod)
     tempdir = os.path.join(a.out_dir, out_name)
-    os.makedirs(tempdir, exist_ok=True)
-    save_cfg(a, tempdir, 'config.txt')
+    if mesh_primary():
+        os.makedirs(tempdir, exist_ok=True)
+        save_cfg(a, tempdir, 'config.txt')
     return RunSetup(par, sampler, towers, lpips_bundle, a.dualmod, settings,
-                    optimizer, draw, gen, gen_params, out_name, tempdir)
+                    optimizer, draw, gen, gen_params, out_name, tempdir, mesh)
 
 
 def run(a, on_step=None) -> RunResult:
     """The whole run; `on_step(i)`, if given, is called after step i (on
     the chunked path after the step's dispatch; a profiler's schedule
-    hangs on it)."""
+    hangs on it).  Under --mesh every rank runs it and this returns rank
+    0's result (with the loop only when rank 0 ran in this process)."""
+    return run_cli(a, _run, on_step)
+
+
+def _run(a, on_step=None) -> RunResult:
     su = setup(a)
     gen_params, out_name, tempdir = su.gen_params, su.out_name, su.tempdir
     step_args = (su.par, su.sampler, su.clip_cfg, su.settings, su.optimizer)
@@ -301,12 +314,13 @@ def run(a, on_step=None) -> RunResult:
     chunked = (a.opt_step > 0 and a.steps % a.opt_step == 0
                and a.steps >= a.opt_step)
     loop = None
-    with trace(a.profile), AsyncFrameWriter() as writer:
+    with trace(a.profile), frame_writer() as writer:
         if chunked:
             n_frames = a.steps // a.opt_step
             nf = frames_per_dispatch(tuple(a.size), n_frames)
             loop = build_train_loop_frames(*step_args, a.opt_step, nf,
-                                           contrast=a.contrast, dual=su.dual)
+                                           contrast=a.contrast, dual=su.dual,
+                                           mesh=su.mesh)
             for c in range(n_frames // nf):
                 t0 = time.perf_counter()
                 gen_params, opt_state, prev_enc, frames, dl = loop(
@@ -326,7 +340,7 @@ def run(a, on_step=None) -> RunResult:
         else:
             cfgs = [t.cfg for t in su.towers]
             steps = [build_train_step(su.par, su.sampler, cfg, su.settings,
-                                      su.optimizer) for cfg in cfgs]
+                                      su.optimizer, su.mesh) for cfg in cfgs]
             dm_nums = (dualmod_steps(a.steps, a.dualmod) if a.dualmod
                        else set())
             render = build_render(su.par)
@@ -347,16 +361,19 @@ def run(a, on_step=None) -> RunResult:
                 if on_step is not None:
                     on_step(i)
 
-    # ---- assembly ---------------------------------------------------------
-    video = frames_to_video(tempdir, os.path.join(a.out_dir, f'{out_name}.mp4'))
-    frames = img_list(tempdir)
-    if frames:
-        shutil.copy(frames[-1],
-                    os.path.join(a.out_dir, '%s-%d.jpg' % (out_name, a.steps)))
-    if a.save_pt:
-        # params LIST, as the reference saves it
-        save_pt('%s.pt' % os.path.join(a.out_dir, out_name),
-                list(gen_params) if a.dwt else [gen_params])
+    # ---- assembly (rank 0 of a mesh) ----------------------------------------
+    video = None
+    if mesh_primary():
+        video = frames_to_video(tempdir,
+                                os.path.join(a.out_dir, f'{out_name}.mp4'))
+        frames = img_list(tempdir)
+        if frames:
+            shutil.copy(frames[-1], os.path.join(
+                a.out_dir, '%s-%d.jpg' % (out_name, a.steps)))
+        if a.save_pt:
+            # params LIST, as the reference saves it
+            save_pt('%s.pt' % os.path.join(a.out_dir, out_name),
+                    list(gen_params) if a.dwt else [gen_params])
     return RunResult(gen_params, losses, seconds, a.samples, out_name, video,
                      loop)
 

@@ -16,8 +16,9 @@ optimizer `adam_custom`.  The decode runs in bf16 on the card
 Every step is a frame: `frames_per_dispatch` one-step groups a dispatch
 through `build_train_loop_frames`, on the card one captured graph
 replayed.  Runs on the CUDA device unless `--device cpu` is given;
-without a GPU it raises.  Still raising: --mesh and --fleet (ROADMAP.md
-A.10).
+without a GPU it raises.  --mesh N|NxM|dcn runs the steps over mesh
+ranks (`common.run_cli`), rank 0 writing; --fleet runs the whole job on
+each host, as in JAX.
 
     python -m aphantasia_torch.cli.clip_vqgan -t "a lighthouse"
     python -m aphantasia_torch.cli.clip_vqgan -t "a lighthouse" \\
@@ -37,15 +38,16 @@ import torch
 from aphantasia_torch.cli.common import (
     ClipWrapper, RunSetup, Tower, add_parallel_flags, apply_sample_budget,
     build_prompt_groups, card_settings, check_ported, dispatch_seconds,
-    maybe_translate, parse_size, resolve_dtype, resolve_persp)
+    frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
+    run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import load_pt, save_pt
-from aphantasia_torch.io.media import (AsyncFrameWriter, frames_to_video,
-                                       img_list, img_read)
+from aphantasia_torch.io.media import frames_to_video, img_list, img_read
 from aphantasia_torch.models.vqgan import (VQGAN_CONFIGS, VQGANParameterizer,
                                            convert_taming, vqgan_init)
 from aphantasia_torch.ops.optim import build_optimizer
 from aphantasia_torch.ops.sampler import CutoutSampler
+from aphantasia_torch.parallel.mesh import mesh_primary
 from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn,
@@ -129,6 +131,7 @@ def setup(a) -> RunSetup:
 
     clip1 = ClipWrapper(a.model, device, a.clip_weights,
                         generator=torch.Generator().manual_seed(a.seed))
+    mesh = setup_mesh(getattr(a, 'mesh', None), (clip1,), a.verbose)
     a.samples = apply_sample_budget(
         a.samples, a.model, None, 0, 0, a.transform,
         (a.in_txt2 is not None) + (a.in_txt0 is not None))
@@ -166,17 +169,23 @@ def setup(a) -> RunSetup:
                             persp=resolve_persp(a.persp), clip_dtype=dtype)
     out_name = ('-'.join(out_name) or 'vqgan') + '-vq'
     tempdir = os.path.join(a.out_dir, out_name)
-    os.makedirs(tempdir, exist_ok=True)
-    save_cfg(a, tempdir, 'config.txt')
+    if mesh_primary():
+        os.makedirs(tempdir, exist_ok=True)
+        save_cfg(a, tempdir, 'config.txt')
     tower = Tower(clip1.cfg, clip1.vision(dtype), None,
                   build_prompt_groups(groups))
     return RunSetup(par, sampler, [tower], None, None, settings,
                     build_optimizer('adam_custom', a.lrate),
                     build_draw_fn(sampler, settings, None), gen, gen_params,
-                    out_name, tempdir)
+                    out_name, tempdir, mesh)
 
 
 def run(a) -> RunResult:
+    """The whole run (under --mesh, rank 0's result)."""
+    return run_cli(a, _run)
+
+
+def _run(a) -> RunResult:
     su = setup(a)
     gen_params, out_name, tempdir = su.gen_params, su.out_name, su.tempdir
     opt_state = su.optimizer.init(gen_params)
@@ -186,9 +195,10 @@ def run(a) -> RunResult:
     # every step renders a frame: one-step groups, nf a dispatch
     nf = frames_per_dispatch(tuple(a.size), a.steps)
     loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
-                                   su.settings, su.optimizer, 1, nf)
+                                   su.settings, su.optimizer, 1, nf,
+                                   mesh=su.mesh)
     losses, seconds = [], []
-    with trace(a.profile), AsyncFrameWriter() as writer:
+    with trace(a.profile), frame_writer() as writer:
         for c in range(a.steps // nf):
             t0 = time.perf_counter()
             gen_params, opt_state, prev_enc, frames, dl = loop(
@@ -202,14 +212,16 @@ def run(a) -> RunResult:
             for _ in range(nf if pbar is not None else 0):
                 pbar.upd()
 
-    video = frames_to_video(tempdir,
-                            os.path.join(a.out_dir, out_name + '.mp4'))
-    frames = img_list(tempdir)
-    if frames:
-        shutil.copy(frames[-1],
-                    os.path.join(a.out_dir, '%s-%d.jpg' % (out_name, a.steps)))
-    if a.save_pt:
-        save_pt('%s.pt' % os.path.join(a.out_dir, out_name), gen_params)
+    video = None
+    if mesh_primary():
+        video = frames_to_video(tempdir,
+                                os.path.join(a.out_dir, out_name + '.mp4'))
+        frames = img_list(tempdir)
+        if frames:
+            shutil.copy(frames[-1], os.path.join(
+                a.out_dir, '%s-%d.jpg' % (out_name, a.steps)))
+        if a.save_pt:
+            save_pt('%s.pt' % os.path.join(a.out_dir, out_name), gen_params)
     return RunResult(gen_params, losses, seconds, a.samples, out_name, video,
                      loop, su.par)
 

@@ -1,8 +1,10 @@
 """Shared CLI plumbing (counterpart of aphantasia_tpu.cli.common): prompt
-encoding, the sample-budget cascade, precision and device selection, and
-the spectrum crossfade of illustra and interpol."""
+encoding, the sample-budget cascade, precision and device selection, the
+--fleet and --mesh launch, and the spectrum crossfade of illustra and
+interpol."""
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 
@@ -122,6 +124,7 @@ class RunSetup:
     gen_params: object            # the start params (a tensor or a list)
     out_name: str
     tempdir: str                  # the run directory (frames, config.txt)
+    mesh: object = None           # this rank's parallel.mesh.Mesh, or None
 
     @property
     def clip_cfg(self):
@@ -207,12 +210,23 @@ def dualmod_steps(steps: int, dualmod: int) -> set:
     return set(list(range(steps))[dualmod::dualmod])
 
 
+FLEET_HELP = ("multi-host fleet coordinates 'RANK/WORLD[@COORDINATOR:PORT]' "
+              "(or the APHANTASIA_FLEET variable); with a coordinator, a "
+              "gloo group over it coordinates the hosts. Scene-level "
+              "fan-out: illustra shards scenes, interpol snapshot pairs; "
+              "the other CLIs run their whole job on each host")
+
+
 def add_parallel_flags(parser):
-    """The JAX CLIs' shared flags.  --pallas (the CUDA cutout kernel),
-    --persp and --profile are ported; the others are accepted so that
-    they can raise a clear error."""
+    """The JAX CLIs' shared flags: --mesh, --persp, --profile, --pallas
+    (the CUDA cutout kernel), --fleet, and the port's --device."""
     parser.add_argument('--mesh', default=None,
-                        help='not ported: multi-device meshes (ROADMAP.md)')
+                        help="'N' (a data axis of N ranks), 'NxM' (data x "
+                             "model, the CLIP blocks tensor-parallel over "
+                             "M) or 'dcn' (the data axis over every rank of "
+                             "every host of a --fleet with a coordinator); "
+                             "one rank per GPU over NCCL, or with --device "
+                             "cpu CPU processes over gloo")
     parser.add_argument('--persp', default=None,
                         choices=['affine', 'mixed', 'exact'],
                         help="fast-pipeline perspective: 'affine' (default; "
@@ -227,24 +241,139 @@ def add_parallel_flags(parser):
                              'loop into this directory')
     parser.add_argument('--pallas', action='store_true',
                         help='Use the hand-written CUDA cutout kernel')
-    parser.add_argument('--fleet', default=None,
-                        help='not ported: multi-host fleets (ROADMAP.md)')
+    parser.add_argument('--fleet', default=None, help=FLEET_HELP)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default; raises without a GPU) or 'cpu'")
     return parser
 
 
 def check_ported(a) -> None:
-    """Raise for every flag given whose feature the port does not have
-    yet: --spatial, --mesh and --fleet (those a CLI has)."""
-    unported = [name for name, on in (
-        ('--spatial', getattr(a, 'spatial', 0) > 1),
-        ('--mesh', getattr(a, 'mesh', None) not in (None, '0', '1')),
-        ('--fleet', getattr(a, 'fleet', None))) if on]
-    if unported:
+    """Raise for --spatial, whose sharded canvases the port does not have
+    yet."""
+    if getattr(a, 'spatial', 0) > 1:
         raise NotImplementedError(
-            f"not ported to aphantasia_torch yet: {', '.join(unported)}; "
-            "see ROADMAP.md A.10")
+            "not ported to aphantasia_torch yet: --spatial; see ROADMAP.md "
+            "A.10b")
+
+
+def _mesh_dims(spec):
+    """(kind, ranks): ('dcn', None), or ('grid', (data, model)); None for
+    the dense path ('1', '0' or no spec)."""
+    if not spec or str(spec) in ("0", "1"):
+        return None
+    s = str(spec).lower()
+    try:
+        if s == "dcn":
+            return "dcn", None
+        dp, tp = (int(v) for v in s.split("x")) if "x" in s else (int(s), 1)
+        if dp < 1 or tp < 1:
+            raise ValueError("axis sizes must be positive")
+    except ValueError as e:
+        raise SystemExit(
+            f"--mesh expects 'N' (data-parallel), 'NxM' (data x model) or "
+            f"'dcn' (multi-host data axis), got {spec!r}: {e}") from None
+    return "grid", (dp, tp)
+
+
+def mesh_plan(spec, device):
+    """How the ranks of a --mesh spec start (`parallel.mesh.Plan`), or
+    None for the dense path.  'N' and 'NxM' put every rank on this host;
+    on the card that needs as many GPUs, else it raises."""
+    from aphantasia_torch.parallel.dcn import plan_dcn
+    from aphantasia_torch.parallel.mesh import Plan, free_port, local_devices
+    dims = _mesh_dims(spec)
+    if dims is None:
+        return None
+    kind = torch.device(device).type
+    if dims[0] == "dcn":
+        return plan_dcn(None, kind)
+    n = dims[1][0] * dims[1][1]
+    have = local_devices(kind) if kind == "cuda" else n
+    if n > have:
+        raise SystemExit(f"--mesh {spec} needs {n} devices, have {have}")
+    return Plan(n, f"127.0.0.1:{free_port()}", kind)
+
+
+def run_cli(a, body, *args):
+    """body(a, *args) under the run's --fleet and --mesh: the fleet's
+    coordinates first (`init_fleet`), then with a mesh its ranks
+    (`parallel.mesh.launch`: one rank runs here, more are spawned, one
+    per GPU or CPU process); returns rank 0's result.  Every rank runs
+    the whole CLI; rank 0 writes the files and prints."""
+    from aphantasia_torch.parallel.mesh import launch
+    from aphantasia_torch.parallel.multihost import init_fleet
+    check_ported(a)
+    init_fleet(getattr(a, 'fleet', None))
+    plan = mesh_plan(getattr(a, 'mesh', None), a.device)
+    if plan is None:
+        return body(a, *args)
+    if plan.world > 1 and any(x is not None for x in args):
+        raise ValueError("a callback does not cross to spawned mesh ranks")
+    return launch(_cli_rank, (body, a) + args, plan)
+
+
+def _cli_rank(body, a, *args):
+    """One mesh rank of a CLI: its own GPU, and rank 0's result."""
+    from aphantasia_torch.parallel.mesh import mesh_primary
+    if torch.device(a.device).type == "cuda":
+        a = argparse.Namespace(**vars(a))
+        a.device = f"cuda:{torch.cuda.current_device()}"
+    res = body(a, *args)
+    return res if mesh_primary() else None
+
+
+def setup_mesh(spec, clip_wrappers=(), verbose=True):
+    """The mesh of this rank from a --mesh spec (None for the dense path),
+    on the group its launch made; with a model axis every ClipWrapper's
+    params are replaced by this rank's tensor-parallel shard.  The port's
+    attention kernel stays on under a mesh (each rank runs its own
+    program); the JAX package turns its fused attention off."""
+    from aphantasia_torch.parallel.dcn import make_mesh_dcn
+    from aphantasia_torch.parallel.mesh import (make_mesh, make_mesh_2d,
+                                                shard_clip_params)
+    dims = _mesh_dims(spec)
+    if dims is None:
+        return None
+    if dims[0] == "dcn":
+        mesh = make_mesh_dcn()
+    elif str(spec).lower().count("x"):
+        mesh = make_mesh_2d(*dims[1])
+    else:
+        mesh = make_mesh(dims[1][0])
+    if mesh.shape.get("model", 1) > 1:
+        for w in clip_wrappers:
+            if w is not None:
+                w.params = shard_clip_params(w.params, mesh, w.cfg)
+    if verbose:
+        print(f" mesh: {dict(mesh.shape)}")
+    return mesh
+
+
+class NullWriter:
+    """The frame writer of a mesh rank that writes nothing (rank 0
+    writes)."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def save(self, *args, **kwargs):
+        pass
+
+    def save_batch(self, *args, **kwargs):
+        pass
+
+    def flush(self):
+        pass
+
+
+def frame_writer():
+    """The run's frame writer: an AsyncFrameWriter on rank 0 of a mesh (or
+    without one), a NullWriter on the other ranks."""
+    from aphantasia_torch.parallel.mesh import mesh_primary
+    return AsyncFrameWriter() if mesh_primary() else NullWriter()
 
 
 def resolve_persp(flag) -> str:
@@ -286,16 +415,18 @@ def read_pt(path, device) -> torch.Tensor:
 
 
 def crossfade(par, contrast, ptfiles, vsteps: int, tempdir: str, device,
-              verbose: bool = True) -> int:
+              verbose: bool = True, pairs=None) -> int:
     """`vsteps` frames from each snapshot towards the next (the last
     towards the first), `%05d.jpg` in `tempdir`, `frames_per_dispatch`
-    frames a batched render; returns the frames written."""
+    frames a batched render; returns the frames written.  `pairs` (a
+    fleet's share) limits it to the transitions from those snapshots."""
     rloop = build_shift_render_loop(par, contrast)
     nf = frames_per_dispatch(tuple(par.size), vsteps)
-    pbar = ProgressBar(vsteps * len(ptfiles)) if verbose else None
+    pairs = range(len(ptfiles)) if pairs is None else pairs
+    pbar = ProgressBar(vsteps * len(pairs)) if verbose else None
     written = 0
     with AsyncFrameWriter() as fw:
-        for px in range(len(ptfiles)):
+        for px in pairs:
             p1 = read_pt(ptfiles[px], device)
             diff = read_pt(ptfiles[(px + 1) % len(ptfiles)], device) - p1
             for c in range(0, vsteps, nf):

@@ -20,7 +20,8 @@ and `with_params`: each frame group's params at its render point come back
 with its frame; on the card one captured graph a tower pattern, the
 snapshots read once a dispatch); otherwise the per-step loop.  Runs on the
 CUDA device unless `--device cpu` is given; without a GPU it raises.
-Still raising: --mesh and --fleet (ROADMAP.md A.10).
+--mesh N|NxM|dcn runs the steps over mesh ranks (`common.run_cli`), rank
+0 writing; --fleet runs the whole job on each host, as in JAX.
 
     python -m aphantasia_torch.cli.cppn -t "a lighthouse"
     python -m aphantasia_torch.cli.cppn -t "a lighthouse" --gen siren
@@ -39,10 +40,11 @@ import torch
 from aphantasia_torch.cli.common import (
     ClipWrapper, RunSetup, Tower, add_parallel_flags, build_prompt_groups,
     card_settings, check_ported, dispatch_seconds, dualmod_steps,
-    maybe_translate, parse_size, resolve_dtype, resolve_persp)
+    frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
+    run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
-from aphantasia_torch.io.media import (AsyncFrameWriter, basename, checkout,
-                                       frames_to_video, img_list, img_read)
+from aphantasia_torch.io.media import (basename, checkout, frames_to_video,
+                                       img_list, img_read)
 from aphantasia_torch.models.clip.model import XMEM
 from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
 from aphantasia_torch.ops.optim import build_optimizer
@@ -51,6 +53,7 @@ from aphantasia_torch.params import cppn as cppn_mod
 from aphantasia_torch.params import siren as siren_mod
 from aphantasia_torch.params.cppn import CPPNParameterizer, export_npy
 from aphantasia_torch.params.siren import SIRENParameterizer
+from aphantasia_torch.parallel.mesh import mesh_primary
 from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.shader_expo import export_all
@@ -203,6 +206,7 @@ def setup(a):
                                  generator=seeded(a.seed, "cpu")))
         a.samples = int(a.samples * 0.69)
         print(' dual model every %d step' % a.dualmod)
+    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
     a.samples = max(a.samples, 1)
     aests = [None] * len(clips)
     if a.aest != 0 and aesthetic_dims(a.model):
@@ -254,7 +258,8 @@ def setup(a):
         sfx += '-ae%.2g' % a.aest
     out_name = '-'.join(out_name) + sfx
     tempdir = os.path.join(a.out_dir, 'cppn', out_name)
-    os.makedirs(tempdir, exist_ok=True)
+    if mesh_primary():
+        os.makedirs(tempdir, exist_ok=True)
 
     # ---- step functions ---------------------------------------------------
     sampler = CutoutSampler(tuple(a.size), a.samples, a.modsize, a.align,
@@ -268,10 +273,15 @@ def setup(a):
     return RunSetup(par, sampler, towers, None, a.dualmod, settings,
                     build_optimizer('adam', a.lrate),
                     build_draw_fn(sampler, settings, None), gen, gen_params,
-                    out_name, tempdir)
+                    out_name, tempdir, mesh)
 
 
 def run(a) -> RunResult | None:
+    """The whole run (under --mesh, rank 0's result)."""
+    return run_cli(a, _run)
+
+
+def _run(a) -> RunResult | None:
     su = setup(a)
     if su is None:
         return None
@@ -283,13 +293,15 @@ def run(a) -> RunResult | None:
     pbar = ProgressBar(a.steps)
     losses, seconds, loop = [], [], None
     chunked = a.fstep > 0 and a.steps % a.fstep == 0 and a.steps >= a.fstep
-    with trace(a.profile), AsyncFrameWriter() as writer:
+    primary = mesh_primary()
+    with trace(a.profile), frame_writer() as writer:
         if chunked:
             n_frames = a.steps // a.fstep
             nf = frames_per_dispatch(tuple(a.size), n_frames)
             loop = build_train_loop_frames(
                 su.par, su.sampler, su.clip_cfg, su.settings, su.optimizer,
-                a.fstep, nf, step_index='step', with_params=True, dual=su.dual)
+                a.fstep, nf, step_index='step', with_params=True, dual=su.dual,
+                mesh=su.mesh)
             for c in range(n_frames // nf):
                 t0 = time.perf_counter()
                 (gen_params, opt_state, prev_enc, frames, snaps,
@@ -299,7 +311,7 @@ def run(a) -> RunResult | None:
                           for j in range(nf)]
                 writer.save_batch([f + '.jpg' for f in fnames], frames)
                 snaps = [s.cpu() for s in snaps]       # the dispatch's pull
-                for j, fname in enumerate(fnames):
+                for j, fname in enumerate(fnames if primary else ()):
                     export_npy([s[j] for s in snaps], fname)
                 losses += dl.tolist()
                 seconds += dispatch_seconds(time.perf_counter() - t0,
@@ -308,7 +320,8 @@ def run(a) -> RunResult | None:
                     pbar.upd()
         else:
             steps = [build_train_step(su.par, su.sampler, t.cfg, su.settings,
-                                      su.optimizer) for t in su.towers]
+                                      su.optimizer, su.mesh)
+                     for t in su.towers]
             dm_nums = dualmod_steps(a.steps, a.dualmod) if a.dualmod else set()
             render = build_render(su.par)
             for i in range(a.steps):
@@ -323,16 +336,19 @@ def run(a) -> RunResult | None:
                     fname = os.path.join(tempdir, '%04d' % (i // a.fstep))
                     writer.save(fname + '.jpg',
                                 render(gen_params).cpu().numpy())
-                    export_npy(gen_params, fname)
+                    if primary:
+                        export_npy(gen_params, fname)
                 pbar.upd()
 
-    # ---- the net, its shaders and the video -------------------------------
-    export_npy(gen_params, out_base)
-    export_all(shader_layers(a, gen_params), out_base, a.size, a.decim)
-    video = frames_to_video(tempdir, out_base + '.avi')
-    frames = img_list(tempdir)
-    if frames:
-        shutil.copy(frames[-1], out_base + '-%d.jpg' % a.steps)
+    # ---- the net, its shaders and the video (rank 0 of a mesh) ------------
+    video = None
+    if primary:
+        export_npy(gen_params, out_base)
+        export_all(shader_layers(a, gen_params), out_base, a.size, a.decim)
+        video = frames_to_video(tempdir, out_base + '.avi')
+        frames = img_list(tempdir)
+        if frames:
+            shutil.copy(frames[-1], out_base + '-%d.jpg' % a.steps)
     return RunResult(gen_params, losses, seconds, a.samples, out_base, video,
                      loop)
 

@@ -21,8 +21,12 @@ start spectrum, the carried optimizer state, their prompt embeddings and
 a zeroed `prev_enc` into the graph's buffers.  Otherwise it runs the
 per-step loop.  Each scene draws from its own generator, seeded from
 (--seed, the scene's number), so its random stream does not depend on
-the chunking.  Still raising: --spatial, --mesh and --fleet (ROADMAP.md
-A.10).
+the chunking.  --mesh N|NxM|dcn runs the steps over mesh ranks
+(`common.run_cli`), rank 0 writing.  --fleet R/W (or APHANTASIA_FLEET)
+renders scenes R, R+W, ... on this host, each fresh (keep-chaining is
+sequential), and rank 0 assembles the piece once every scene's snapshot
+is in the shared out_dir, waiting up to APHANTASIA_FLEET_WAIT seconds.
+Still raising: --spatial (ROADMAP.md A.10b).
 
     python -m aphantasia_torch.cli.illustra -t scenes.txt --pallas
     python -m aphantasia_torch.cli.illustra -t scenes.txt -m RN50x64
@@ -41,17 +45,19 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, add_parallel_flags, card_settings, check_ported, crossfade,
-    dispatch_seconds, dualmod_steps, maybe_translate, parse_size,
-    resolve_dtype, resolve_persp)
+    dispatch_seconds, dualmod_steps, frame_writer, maybe_translate,
+    parse_size, resolve_dtype, resolve_persp, run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
-from aphantasia_torch.io.media import (AsyncFrameWriter, basename, file_list,
+from aphantasia_torch.io.media import (basename, file_list,
                                        frames_to_video, img_list, img_read)
 from aphantasia_torch.models.clip.model import XMEM
 from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
 from aphantasia_torch.ops.optim import build_optimizer
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
+from aphantasia_torch.parallel.mesh import mesh_primary
+from aphantasia_torch.parallel.multihost import fleet_info, shard_scenes
 from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
@@ -162,11 +168,11 @@ class SceneLoop:
     its own); the per-step loop runs `build_train_step` step by step."""
 
     def __init__(self, par, sampler, cfgs, settings, optimizer, steps: int,
-                 save_step: int, contrast: float, dm_every=None):
+                 save_step: int, contrast: float, dm_every=None, mesh=None):
         self.par, self.sampler, self.cfgs = par, sampler, tuple(cfgs)
         self.settings, self.optimizer = settings, optimizer
         self.steps, self.save_step, self.contrast = steps, save_step, contrast
-        self.dm_every = dm_every
+        self.dm_every, self.mesh = dm_every, mesh
         self.chunked = save_step > 0 and steps % save_step == 0 \
             and steps >= save_step
         self.loops: dict = {}
@@ -174,7 +180,8 @@ class SceneLoop:
             self.nf = frames_per_dispatch(tuple(par.size), steps // save_step)
         else:
             self.step_fns = [build_train_step(par, sampler, cfg, settings,
-                                              optimizer) for cfg in self.cfgs]
+                                              optimizer, mesh)
+                             for cfg in self.cfgs]
             self.render = build_render(par)
             self.dm_nums = dualmod_steps(steps, dm_every) if dm_every else set()
 
@@ -188,7 +195,8 @@ class SceneLoop:
             self.loops[key] = build_train_loop_frames(
                 self.par, self.sampler, self.cfgs[0], self.settings,
                 self.optimizer, self.save_step, self.nf,
-                contrast=self.contrast, step_index='step', dual=dual)
+                contrast=self.contrast, step_index='step', dual=dual,
+                mesh=self.mesh)
         return self.loops[key]
 
     def scene(self, gen_params, opt_state, consts, draws, save_frames=None,
@@ -312,6 +320,23 @@ class IllustraResult:
     scene_loop: SceneLoop
 
 
+def _fleet_scenes_in(workdir: str, count: int, rank: int) -> bool:
+    """On fleet rank 0: whether every scene's snapshot is in `workdir`,
+    polled for up to APHANTASIA_FLEET_WAIT seconds (other ranks: False)."""
+    if rank != 0:
+        return False
+    deadline = time.monotonic() + float(
+        os.environ.get('APHANTASIA_FLEET_WAIT', '0'))
+    while len(file_list(workdir, 'pt')) < count:
+        if time.monotonic() >= deadline:
+            print(' fleet: %d/%d scene snapshots present: rerun on one host '
+                  '(or run interpol on %s) to assemble the piece'
+                  % (len(file_list(workdir, 'pt')), count, workdir))
+            return False
+        time.sleep(2.0)
+    return True
+
+
 def main(argv=None):
     run(get_args(argv))
 
@@ -333,6 +358,7 @@ def setup(a) -> IllustraSetup:
         clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
                                  generator=seeded(a.seed)))
         print(' dual model every %d step' % a.dualmod)
+    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
     a.samples = sample_budget(a.samples, a.model, a.dualmod, a.transform,
                               a.enforce)
     aests = [None] * len(clips)
@@ -382,7 +408,7 @@ def setup(a) -> IllustraSetup:
     h, w = a.size
     scenes = SceneLoop(par, sampler, [c.cfg for c in clips], settings,
                        optimizer, a.steps, a.save_step, a.contrast,
-                       a.dualmod)
+                       a.dualmod, mesh)
     return IllustraSetup(
         a, device, scenes, build_draw_fn(sampler, settings,
                                          (1, 3, h, w // 2 + 1, 2)),
@@ -390,15 +416,29 @@ def setup(a) -> IllustraSetup:
 
 
 def run(a) -> IllustraResult:
+    """The whole run (under --mesh, rank 0's result)."""
+    return run_cli(a, _run)
+
+
+def _run(a) -> IllustraResult:
     su = setup(a)
     scenes, workdir = su.scenes, a.out_dir
-    os.makedirs(workdir, exist_ok=True)
+    primary = mesh_primary()
+    if primary:
+        os.makedirs(workdir, exist_ok=True)
     gen_params = opt_state = None
     res = IllustraResult([], None, [], [], a.samples, 0, None, scenes)
-    with trace(a.profile), AsyncFrameWriter() as writer:
+    # the fleet renders its scenes round robin, each fresh
+    rank, world = fleet_info()
+    fleet = world > 1
+    scene_ids = shard_scenes(su.count) if fleet else list(range(su.count))
+    if fleet:
+        print(' fleet %d/%d: scenes %s of %d' % (rank, world, scene_ids,
+                                               su.count))
+    with trace(a.profile), frame_writer() as writer:
         try:
-            for num in range(su.count):
-                if num == 0 or a.separate:
+            for num in scene_ids:
+                if num == scene_ids[0] or a.separate or fleet:
                     gen_params = su.start(num)
                     opt_state = scenes.optimizer.init(gen_params)
                 else:
@@ -409,9 +449,10 @@ def run(a) -> IllustraResult:
                 if a.verbose:
                     print(out_name)
                 tempdir = os.path.join(workdir, out_name)
-                os.makedirs(tempdir, exist_ok=True)
-                if num == 0:
-                    save_cfg(a, workdir, out_name + '.txt')
+                if primary:
+                    os.makedirs(tempdir, exist_ok=True)
+                    if num == scene_ids[0] and rank == 0:
+                        save_cfg(a, workdir, out_name + '.txt')
 
                 pbar = (ProgressBar(a.steps // a.save_step) if a.verbose
                         else None)
@@ -425,17 +466,17 @@ def run(a) -> IllustraResult:
                     pbar.upd if pbar is not None else None)
 
                 writer.flush()
-                frames = img_list(tempdir)
-                if frames:
-                    shutil.copy(frames[-1], os.path.join(
-                        workdir, '%s-%d.jpg' % (out_name, a.steps)))
-                frames_to_video(tempdir, os.path.join(workdir,
-                                                      out_name + '.mp4'),
-                                fps=a.fps)
-                if a.save_pt:
-                    # a bare tensor, as the reference saves it
-                    save_pt('%s.pt' % os.path.join(workdir, out_name),
-                            gen_params)
+                if primary:
+                    frames = img_list(tempdir)
+                    if frames:
+                        shutil.copy(frames[-1], os.path.join(
+                            workdir, '%s-%d.jpg' % (out_name, a.steps)))
+                    frames_to_video(tempdir, os.path.join(
+                        workdir, out_name + '.mp4'), fps=a.fps)
+                    if a.save_pt:
+                        # a bare tensor, as the reference saves it
+                        save_pt('%s.pt' % os.path.join(workdir, out_name),
+                                gen_params)
                 res.out_names.append(out_name)
                 res.losses.append(losses)
                 res.step_seconds.append(secs)
@@ -443,7 +484,10 @@ def run(a) -> IllustraResult:
         except KeyboardInterrupt:
             print(' interrupted: assembling the finished scenes')
 
-    # ---- the crossfade ----------------------------------------------------
+    # ---- the crossfade (rank 0 of the fleet, once every scene is in) ------
+    if not primary or (fleet and not a.separate
+                       and not _fleet_scenes_in(workdir, su.count, rank)):
+        return res
     if not a.separate:
         vsteps = (a.lsteps if a.length is None
                   else int(a.length * a.fps / su.count))

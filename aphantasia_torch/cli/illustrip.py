@@ -20,8 +20,10 @@ first frame eagerly and is captured into a CUDA graph; later frames copy
 their motion scalars, step index, draws, prompt weights and depth map
 into its buffers and replay.  The DA-V2 forward is a graph of its own.
 The host does not wait for a frame: the frame is pulled into pinned
-memory behind the replay, and the writer's threads encode it.  Still
-raising: --spatial, --mesh and --fleet (ROADMAP.md A.10).
+memory behind the replay, and the writer's threads encode it.  --mesh
+N|NxM|dcn runs the frames' steps over mesh ranks (`common.run_cli`), rank
+0 writing; --fleet runs the whole job on each host, as in JAX.  Still
+raising: --spatial (ROADMAP.md A.10b).
 
     python -m aphantasia_torch.cli.illustrip -t scenes.txt
     python -m aphantasia_torch.cli.illustrip -t scenes.txt --gen FFT --smooth
@@ -42,16 +44,18 @@ import torch
 from aphantasia_torch.cli.common import (
     ClipWrapper, add_parallel_flags, apply_sample_budget,
     build_prompt_groups, card_settings, check_ported, dualmod_steps,
-    maybe_translate, parse_size, resolve_dtype, resolve_persp)
+    frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
+    run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
-from aphantasia_torch.io.media import (AsyncFrameWriter, basename, file_list,
-                                       frames_to_video, img_read)
+from aphantasia_torch.io.media import (basename, file_list, frames_to_video,
+                                       img_read)
 from aphantasia_torch.motion.anima import motion_schedule
 from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
 from aphantasia_torch.ops.optim import build_optimizer
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
 from aphantasia_torch.params.pixel import PixelParameterizer, resume_pixel
+from aphantasia_torch.parallel.mesh import mesh_primary
 from aphantasia_torch.profiling import trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_depth_helpers,
@@ -202,6 +206,7 @@ class IllustripSetup:
     workdir: str
     tempdir: str
     workname: str
+    mesh: object = None           # this rank's parallel.mesh.Mesh, or None
 
     def frame_steps(self) -> list:
         """One frame step per tower."""
@@ -209,8 +214,8 @@ class IllustripSetup:
         return [build_frame_step(
             self.par, self.sampler, cfg, self.settings, self.optimizer,
             a.gen, tuple(a.size), a.opt_step, a.smooth, a.contrast,
-            deptha=self.deptha, depth=a.depth, colors=a.colors)
-            for cfg, _, _ in self.towers]
+            deptha=self.deptha, depth=a.depth, colors=a.colors,
+            mesh=self.mesh) for cfg, _, _ in self.towers]
 
     def depth_helpers(self):
         """`build_depth_helpers`' pair, or None without the depth warp."""
@@ -310,6 +315,7 @@ def setup(a) -> IllustripSetup:
         clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
                                  generator=seeded(a.seed)))
         print(' dual model every %d step' % a.dualmod)
+    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
     aests = [None] * len(clips)
     if a.aest != 0 and aesthetic_dims(a.model):
         aests = [aesthetic_get(seeded(7 + i, device), c.name, a.aest_weights)
@@ -383,7 +389,8 @@ def setup(a) -> IllustripSetup:
         deptha = InferDepthAny(a.depth_model, params=params_d, dtype=dtype,
                                device=device)
         if a.depth_dir is not None:
-            os.makedirs(a.depth_dir, exist_ok=True)
+            if mesh_primary():
+                os.makedirs(a.depth_dir, exist_ok=True)
             print(' depth dir:', a.depth_dir)
 
     glob_steps = count * a.steps
@@ -400,11 +407,12 @@ def setup(a) -> IllustripSetup:
     if 'RN' in a.model.upper():
         workdir += '-%s' % a.model
     tempdir = os.path.join(workdir, 'ttt')
-    os.makedirs(tempdir, exist_ok=True)
-    save_cfg(a, workdir)
-    if a.in_txt is not None and os.path.isfile(a.in_txt):
-        shutil.copy(a.in_txt, os.path.join(workdir,
-                                           os.path.basename(a.in_txt)))
+    if mesh_primary():
+        os.makedirs(tempdir, exist_ok=True)
+        save_cfg(a, workdir)
+        if a.in_txt is not None and os.path.isfile(a.in_txt):
+            shutil.copy(a.in_txt, os.path.join(workdir,
+                                               os.path.basename(a.in_txt)))
     schedule = (motion_schedule(glob_steps, a.fstep, a.gen, a.scale, a.shift,
                                 a.angle, a.shear, seed=a.seed)
                 if a.anima else None)
@@ -426,10 +434,15 @@ def setup(a) -> IllustripSetup:
     towers = [(c.cfg, c.vision(dtype), ae) for c, ae in zip(clips, aests)]
     return IllustripSetup(a, device, par, sampler, settings, optimizer, draw,
                           gen, params, towers, encs, texts, styles, count,
-                          schedule, deptha, workdir, tempdir, workname)
+                          schedule, deptha, workdir, tempdir, workname, mesh)
 
 
 def run(a) -> IllustripResult:
+    """The whole run (under --mesh, rank 0's result)."""
+    return run_cli(a, _run)
+
+
+def _run(a) -> IllustripResult:
     su = setup(a)
     fss = su.frame_steps()
     helpers = su.depth_helpers()
@@ -450,7 +463,7 @@ def run(a) -> IllustripResult:
         return n + int(helpers is not None
                        and helpers.infer.first_seconds is not None)
 
-    with trace(a.profile), AsyncFrameWriter() as writer:
+    with trace(a.profile), frame_writer() as writer:
         try:
             for num in range(su.count):
                 sched = su.scene(num)
@@ -511,8 +524,9 @@ def run(a) -> IllustripResult:
     res.end = time.perf_counter()
     res.losses = [l.tolist() for l in res.losses]
     res.params = params
-    res.video = frames_to_video(su.tempdir, os.path.join(
-        su.workdir, su.workname + '.mp4'), pattern='%06d.jpg')
+    if mesh_primary():
+        res.video = frames_to_video(su.tempdir, os.path.join(
+            su.workdir, su.workname + '.mp4'), pattern='%06d.jpg')
     return res
 
 

@@ -11,6 +11,7 @@ import io
 import os
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 
@@ -84,10 +85,16 @@ def encode_image_bytes(img, ext: str) -> bytes:
 
 def img_save(path, img):
     """Save an HWC image (float in [0,1] or uint8) in the format its
-    extension names, matched case-insensitively."""
+    extension names, matched case-insensitively.  The file appears under
+    its name only when it is whole (written aside, then renamed): a fleet's
+    rank 0 assembles the frames that other hosts write once it sees their
+    names."""
     ext = os.path.splitext(str(path))[1] or ".jpg"
-    with open(path, "wb") as f:
-        f.write(encode_image_bytes(to_uint8(img), ext))
+    data = encode_image_bytes(to_uint8(img), ext)
+    part = f"{path}.{os.getpid()}.{threading.get_ident()}.part"
+    with open(part, "wb") as f:
+        f.write(data)
+    os.replace(part, path)
 
 
 def checkout(img, fname=None):

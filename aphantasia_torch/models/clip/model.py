@@ -26,6 +26,16 @@ float32 at each call, as JAX's `_bn` does, so `cast_weights` leaves them
 float32.  The attention pool queries with one token (the mean), so it
 runs as a plain softmax over that token's score row: no atomics in its
 backward, and a CUDA-graph replay repeats the eager step bit for bit.
+
+Under a model axis (parallel/mesh.py) the transformer blocks of both
+towers hold a rank's tensor-parallel shard (`shard_clip_params`): a group
+of the attention heads (q, k and v each cut by heads, out_w by the same
+heads' rows) and a slice of the MLP (fc_w by columns, proj_w by rows).
+A block sees it from its weights' shapes: it enters each sharded product
+through `copy_to_model` (the input's gradient summed over the model axis)
+and leaves it through `reduce_from_model` (the partial products summed),
+then adds the whole bias.  The attention kernel runs on the rank's heads.
+The ResNet trunk and its attention pool stay whole.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ class CLIPConfig:
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
+    vision_heads_override: int = 0  # tiny test configurations
 
     @property
     def is_vit(self) -> bool:
@@ -61,6 +72,8 @@ class CLIPConfig:
 
     @property
     def vision_heads(self) -> int:
+        if self.vision_heads_override:
+            return self.vision_heads_override
         return (self.vision_width // 64 if self.is_vit
                 else self.vision_width * 32 // 64)
 
@@ -119,35 +132,66 @@ def _linear(x, w, b):
     return x @ w.to(x.dtype) + b.to(x.dtype)
 
 
-def mha(x, p, n_heads, causal=False):
+def model_split(p) -> int:
+    """The model-axis size a block's weights are sharded over: 1 for a
+    whole block, k when its in_w holds 3D/k of the 3D columns."""
+    d = p["attn"]["out_w"].shape[1]
+    return 3 * d // p["attn"]["in_w"].shape[1]
+
+
+def _enter(x, k: int):
+    """A sharded product's input (`copy_to_model`), or x when whole."""
+    if k == 1:
+        return x
+    from aphantasia_torch.parallel.mesh import copy_to_model
+    return copy_to_model(x)
+
+
+def _leave(y, b):
+    """A row-parallel product's partial outputs summed over the model axis
+    (`reduce_from_model`), then its whole bias."""
+    from aphantasia_torch.parallel.mesh import reduce_from_model
+    return reduce_from_model(y) + b.to(y.dtype)
+
+
+def mha(x, p, n_heads, causal=False, k=1):
     """Multi-head self-attention over [B, T, D] with the merged-qkv
-    layout (the text tower; `causal` is its only mask)."""
-    qkv = _linear(x, p["in_w"], p["in_b"])                    # [B,T,3D]
-    return _linear(attention_core(qkv, n_heads, causal), p["out_w"],
-                   p["out_b"])
+    layout (the text tower; `causal` is its only mask).  `k` > 1: the
+    weights hold this rank's n_heads / k heads of a model axis of k."""
+    qkv = _linear(_enter(x, k), p["in_w"], p["in_b"])         # [B,T,3D/k]
+    o = attention_core(qkv, n_heads // k, causal)
+    if k == 1:
+        return _linear(o, p["out_w"], p["out_b"])
+    return _leave(o @ p["out_w"].to(o.dtype), p["out_b"])
 
 
-def mha_flat(x, p, n_heads, t):
+def mha_flat(x, p, n_heads, t, k=1):
     """mha over the flat sample-major stream [b*t, d]: the projections run
     on the flat rows; only the kernel sees the sample structure."""
-    qkv = _linear(x, p["in_w"], p["in_b"])                    # [b*t,3D]
-    return _linear(attention_core_flat(qkv, n_heads, t), p["out_w"],
-                   p["out_b"])
+    qkv = _linear(_enter(x, k), p["in_w"], p["in_b"])         # [b*t,3D/k]
+    o = attention_core_flat(qkv, n_heads // k, t)
+    if k == 1:
+        return _linear(o, p["out_w"], p["out_b"])
+    return _leave(o @ p["out_w"].to(o.dtype), p["out_b"])
 
 
-def _mlp(x, p):
-    h = quick_gelu(_linear(x, p["fc_w"], p["fc_b"]))
-    return _linear(h, p["proj_w"], p["proj_b"])
+def _mlp(x, p, k=1):
+    h = quick_gelu(_linear(_enter(x, k), p["fc_w"], p["fc_b"]))
+    if k == 1:
+        return _linear(h, p["proj_w"], p["proj_b"])
+    return _leave(h @ p["proj_w"].to(h.dtype), p["proj_b"])
 
 
 def resblock_flat(x, p, n_heads, t):
-    x = x + mha_flat(layer_norm(x, p["ln_1"]), p["attn"], n_heads, t)
-    return x + _mlp(layer_norm(x, p["ln_2"]), p["mlp"])
+    k = model_split(p)
+    x = x + mha_flat(layer_norm(x, p["ln_1"]), p["attn"], n_heads, t, k)
+    return x + _mlp(layer_norm(x, p["ln_2"]), p["mlp"], k)
 
 
 def resblock(x, p, n_heads, causal=False):
-    x = x + mha(layer_norm(x, p["ln_1"]), p["attn"], n_heads, causal)
-    return x + _mlp(layer_norm(x, p["ln_2"]), p["mlp"])
+    k = model_split(p)
+    x = x + mha(layer_norm(x, p["ln_1"]), p["attn"], n_heads, causal, k)
+    return x + _mlp(layer_norm(x, p["ln_2"]), p["mlp"], k)
 
 
 def transformer_flat(x, blocks, n_heads, t):
@@ -158,6 +202,10 @@ def transformer_flat(x, blocks, n_heads, t):
     two fused half-block kernels of ops/block.py."""
     fused = (os.environ.get("APHANTASIA_FUSED_BLOCK") == "1"
              and block.flat_geometry(t, x.dtype) is not None)
+    if fused and blocks and model_split(blocks[0]) > 1:
+        raise NotImplementedError(
+            "APHANTASIA_FUSED_BLOCK=1 runs whole blocks (csrc/block.cu fuses "
+            "the whole products); it does not take a model axis")
     for p in blocks:
         x = (block.resblock_flat_fused if fused else resblock_flat)(
             x, p, n_heads, t)

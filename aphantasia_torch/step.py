@@ -1,6 +1,6 @@
-"""The training step (counterpart of aphantasia_tpu.parallel.step, single
-device): decode -> cutouts -> augment -> CLIP -> loss -> backward ->
-optimizer update.
+"""The training step (counterpart of aphantasia_tpu.parallel.step): decode
+-> cutouts -> augment -> CLIP -> loss -> backward -> optimizer update, on
+one device or over a mesh's data axis (`mesh=`, below).
 
 Each step is a *draw* (`build_draw_fn`: the spectrum noise, the cutout
 boxes and the augmentation parameters, from a torch.Generator) and an
@@ -55,6 +55,17 @@ the host picks the graph: a frame group's *pattern* (the tower of each of
 its `opt_step` steps) depends on its first global step, each pattern that
 occurs is captured once after its own eager first run, and every group
 replays the graph of its pattern.  All patterns share the run's buffers.
+
+`mesh=` (a `parallel.mesh.Mesh`) runs the step over a data axis: every
+rank draws the whole batch, as one rank would, and takes its own rows of
+the boxes and augmentation draws; it cuts, augments and encodes them, and
+the encodings are gathered whole on every rank (`gather_rows`), so each
+computes the same loss with `prev_enc` whole.  The image-side terms
+(sync, sharpness, the RGB anchors) are computed whole on every rank and
+count their gradient once (`replicated`), and the generator's gradients
+are summed over the data axis (`reduce_grads`).  On the card the
+collectives run in the eager first group, which starts NCCL's
+communicator, and are captured with the rest.
 """
 from __future__ import annotations
 
@@ -72,6 +83,8 @@ from aphantasia_torch.ops.losses import aesthetic_apply, derivat, sim_func
 from aphantasia_torch.ops.optim import leaves
 from aphantasia_torch.ops.resize import resize_bicubic
 from aphantasia_torch.ops.sampler import Boxes
+from aphantasia_torch.parallel.mesh import (gather_rows, reduce_grads,
+                                            replicated, shard_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,25 +168,36 @@ def build_draw_fn(sampler, settings: StepSettings, param_shape):
     return draw
 
 
-def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
+def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings,
+                  mesh=None):
     """Returns loss_fn(gen_params, clip_params, aest_params, lpips_bundle,
     prompts, prev_enc, draws, step_i) -> (loss, out_enc detached), in the
     JAX loss's argument order.  `aest_params` is the aesthetic head or
     None; `lpips_bundle` is (lpips_params, half-size target image) or
     None; `prompts` a sequence of (embs [K,D], wts [K], coeff) groups;
-    `step_i` an int or a 0-d int32 tensor on the params' device."""
+    `step_i` an int or a 0-d int32 tensor on the params' device.  With
+    `mesh` the cutouts split over its data axis (module docstring)."""
     transform = get_transform(settings.transform, settings.persp)
     dt = settings.clip_dtype
+    n = sampler.count
+    local = sampler
+    if mesh is not None:
+        rows = mesh.rows(n)
+        local = dataclasses.replace(sampler, count=rows.stop - rows.start)
 
     def encode_cuts(clip_params, cut_draws: CutDraws, img):
-        cuts = sampler.cut(img, cut_draws.boxes, compute_dtype=dt)
+        if mesh is not None:
+            cut_draws = shard_batch(cut_draws, mesh, n)
+        cuts = local.cut(img, cut_draws.boxes, compute_dtype=dt)
         cuts = transform.apply(cut_draws.aug, cuts.to(dt))
-        return encode_image(clip_params, clip_cfg, cuts, dtype=dt).float()
+        enc = encode_image(clip_params, clip_cfg, cuts, dtype=dt).float()
+        return enc if mesh is None else gather_rows(enc, mesh, n)
 
     def loss_fn(gen_params, clip_params, aest_params, lpips_bundle, prompts,
                 prev_enc, draws: StepDraws, step_i):
         img = parameterizer.image(gen_params, shift=draws.shift)
         out_enc = encode_cuts(clip_params, draws.cuts, img)
+        img_r = replicated(img, mesh)     # the image-side terms' input
         loss = torch.zeros((), device=img.device)
         if settings.aest != 0 and aest_params is not None:
             loss = loss - 0.001 * settings.aest * torch.mean(
@@ -192,15 +216,15 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
             total = torch.full((), settings.total_steps, dtype=torch.int32,
                                device=img.device)
             prog = (total - si).float() / total.float()
-            half = resize_bicubic(img, img_in.shape[-2:])
+            half = resize_bicubic(img_r, img_in.shape[-2:])
             loss = loss + prog * settings.sync * torch.mean(
                 lpips_apply(lpips_params, half, img_in, normalize=True))
         if settings.sharp != 0:
-            loss = loss - settings.sharp * derivat(img,
+            loss = loss - settings.sharp * derivat(img_r,
                                                    mode=settings.sharp_mode)
         if settings.rgb_anchors:
-            loss = loss + torch.mean(torch.abs(img.mean(dim=(2, 3)) - 0.45))
-            loss = loss + torch.mean(torch.abs(img.std(dim=(2, 3)) - 0.17))
+            loss = loss + torch.mean(torch.abs(img_r.mean(dim=(2, 3)) - 0.45))
+            loss = loss + torch.mean(torch.abs(img_r.std(dim=(2, 3)) - 0.17))
         if settings.enforce != 0:
             enc2 = encode_cuts(clip_params, draws.cuts2, img)
             loss = loss - settings.enforce * sim_func(out_enc, enc2,
@@ -215,12 +239,13 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings):
 
 
 def build_train_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
-                     optimizer):
+                     optimizer, mesh=None):
     """Returns train_step(gen_params, opt_state, prev_enc, clip_params,
     aest_params, lpips_bundle, prompts, draws, step_i) -> (gen_params,
     opt_state, prev_enc, loss).  `gen_params` and `opt_state` are updated
-    in place and returned."""
-    loss_fn = build_loss_fn(parameterizer, sampler, clip_cfg, settings)
+    in place and returned.  With `mesh` the gradients are summed over its
+    data axis before the update."""
+    loss_fn = build_loss_fn(parameterizer, sampler, clip_cfg, settings, mesh)
 
     def train_step(gen_params, opt_state, prev_enc, clip_params, aest_params,
                    lpips_bundle, prompts, draws: StepDraws, step_i):
@@ -233,6 +258,8 @@ def build_train_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
         grads = torch.autograd.grad(loss, ps)
         for p in ps:
             p.requires_grad_(False)
+        if mesh is not None:
+            reduce_grads(grads, mesh)
         with torch.no_grad():
             optimizer.step(gen_params, grads, opt_state)
         return gen_params, opt_state, out_enc, loss.detach()
@@ -487,7 +514,7 @@ class FrameLoop:
 
 
 def build_train_loop(parameterizer, sampler, clip_cfg, settings: StepSettings,
-                     optimizer, n_inner: int) -> TrainLoop:
+                     optimizer, n_inner: int, mesh=None) -> TrainLoop:
     """`n_inner` training steps per call (the JAX package's scanned loop).
 
     Returns loop(gen_params, opt_state, prev_enc, clip_params, aest_params,
@@ -497,14 +524,15 @@ def build_train_loop(parameterizer, sampler, clip_cfg, settings: StepSettings,
     step_i = step0 + i.  The returned state is the loop's own buffers,
     updated in place by the next call (the JAX loop donates them)."""
     return TrainLoop(build_train_step(parameterizer, sampler, clip_cfg,
-                                      settings, optimizer), n_inner)
+                                      settings, optimizer, mesh), n_inner)
 
 
 def build_train_loop_frames(parameterizer, sampler, clip_cfg,
                             settings: StepSettings, optimizer, opt_step: int,
                             n_frames: int, contrast: float = 1.0,
                             step_index: str = "frame",
-                            with_params: bool = False, dual=None) -> FrameLoop:
+                            with_params: bool = False, dual=None,
+                            mesh=None) -> FrameLoop:
     """`n_frames` frame groups per call for the image CLIs.
 
     Each group reproduces the reference cadence: one train step, a uint8
@@ -539,7 +567,7 @@ def build_train_loop_frames(parameterizer, sampler, clip_cfg,
                          f"not {step_index!r}")
     cfgs = (clip_cfg,) if dual is None else (clip_cfg, dual[0])
     steps = [build_train_step(parameterizer, sampler, cfg, settings,
-                              optimizer) for cfg in cfgs]
+                              optimizer, mesh) for cfg in cfgs]
     return FrameLoop(steps, build_render(parameterizer), opt_step, n_frames,
                      contrast, step_index, tuple(parameterizer.size) + (3,),
                      dm_every=None if dual is None else dual[1],
@@ -619,7 +647,8 @@ class FrameStep:
 
     def __init__(self, parameterizer, sampler, clip_cfg, settings, optimizer,
                  gen: str, size, opt_steps: int, smooth: bool,
-                 contrast: float, deptha, depth: float, colors: float):
+                 contrast: float, deptha, depth: float, colors: float,
+                 mesh=None):
         self.par, self.optimizer = parameterizer, optimizer
         self.gen, self.size = gen, tuple(size)
         self.opt_steps, self.smooth, self.contrast = opt_steps, smooth, contrast
@@ -627,7 +656,7 @@ class FrameStep:
         # the JAX gate: zero or negative strength disables the warp
         self.with_depth = deptha is not None and depth > 0.0
         self.train_step = build_train_step(parameterizer, sampler, clip_cfg,
-                                           settings, optimizer)
+                                           settings, optimizer, mesh)
         self.render = build_render(parameterizer)
         self.groups: dict = {}
 
@@ -697,7 +726,7 @@ class FrameStep:
 def build_frame_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
                      optimizer, gen: str, size, opt_steps: int, smooth: bool,
                      contrast: float = 1.0, deptha=None, depth: float = 0.0,
-                     colors: float = 1.0) -> FrameStep:
+                     colors: float = 1.0, mesh=None) -> FrameStep:
     """One illustrip video frame a call (JAX `build_frame_step`).
 
     Returns frame_fn(params_tmp, opt_state, prev_enc, clip_params,
@@ -720,7 +749,7 @@ def build_frame_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
     eagerly and is captured, later frames replay (module docstring)."""
     return FrameStep(parameterizer, sampler, clip_cfg, settings, optimizer,
                      gen, size, opt_steps, smooth, contrast, deptha, depth,
-                     colors)
+                     colors, mesh)
 
 
 def _depth_preview(img_raw, size, colors):

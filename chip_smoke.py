@@ -96,6 +96,24 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            replayed on the card), two illustrip frames of RGB and of
            FFT (the second replayed on the card), and one step each of a
            CPPN, a SIREN and a float32 VQGAN decoder.
+  mesh     the parallel paths one card can run (ROADMAP.md A.10a): (ad)
+           `clip_fft` at its default width (ViT-B/32, 1280x720, 190
+           cutouts, the chunked graph path, 8 steps) with `--fleet
+           0/1@127.0.0.1:PORT --mesh dcn`, a data axis of one rank in an
+           NCCL group, against the same run without `--mesh` (in turns:
+           dense, mesh, mesh, dense): losses, frame files and the final
+           `.pt` bit for bit, the axis' gather and gradient sum launched
+           inside the captured group (their counts a step in the graph),
+           steps/s of the four runs; then
+           that mesh's eager steps twice and replayed, bit for bit;
+           (ae) `illustra` as a fleet of two processes sharing the card
+           (`--fleet 0/2@...` and `1/2@...`, three scenes of 8 steps,
+           APHANTASIA_FLEET_WAIT set): scenes [0, 2] and [1], rank 0
+           assembles the piece, each scene's `.pt` equal to a one-process
+           `--separate` run's; (af) `interpol` on (ae)'s snapshots as two
+           processes without a coordinator (one from `--fleet 1/2`, one
+           from APHANTASIA_FLEET=0/2), the frames equal to one process's
+           byte for byte.  Every child is stopped when the phase ends.
   cudnn    (only when asked for) the (j) loop path with cuDNN's
            nondeterministic algorithms allowed: device ms and bits.
   profile  (only when asked for) torch.profiler over steady replayed steps
@@ -2520,7 +2538,7 @@ def _loop_eager(su, a, start):
     from aphantasia_torch.step import build_render, build_train_step
     su.gen.set_state(start)
     steps = [build_train_step(su.par, su.sampler, t.cfg, su.settings,
-                              su.optimizer) for t in su.towers]
+                              su.optimizer, su.mesh) for t in su.towers]
     render = build_render(su.par)
     p, st, prev = _fresh(su)
     torch.cuda.synchronize()
@@ -2557,7 +2575,8 @@ def _loop_replayed(su, a, start, nf):
     su.gen.set_state(start)
     loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
                                    su.settings, su.optimizer, a.opt_step, nf,
-                                   contrast=a.contrast, dual=su.dual)
+                                   contrast=a.contrast, dual=su.dual,
+                                   mesh=su.mesh)
     p, st, prev = _fresh(su)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3640,9 +3659,234 @@ def _parity_frames():
               f"illustrip {gen}: card vs CPU params differ")
 
 
+# ---------------------------------------------------------------- mesh
+
+def _children(cmds, env=None, timeout=600):
+    """Run the commands (argv after the interpreter, extra environment)
+    at once, each a child process, and return their (output, process);
+    every child still running at the end is killed."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
+    procs = []
+    try:
+        for cmd, extra in cmds:
+            procs.append(subprocess.Popen(
+                [sys.executable] + cmd, cwd=ROOT, env=dict(env, **extra),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        return [(p.communicate(timeout=timeout)[0], p) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _files(d, exts=(".jpg", ".pt")) -> dict:
+    """Every file under `d` with one of `exts` by its relative path ->
+    bytes."""
+    out = {}
+    for dp, _, fs in os.walk(d):
+        for f in fs:
+            if not f.endswith(exts):
+                continue
+            path = os.path.join(dp, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, d)] = fh.read()
+    return out
+
+
+def _mesh_data_axis(steps: int):
+    """(ad): the data axis at one rank, through a real NCCL group."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import clip_fft
+    from aphantasia_torch.io.checkpoint import load_pt
+    from aphantasia_torch.parallel.mesh import Plan, free_port, launch
+    from aphantasia_torch.parallel import multihost
+    name = torch.cuda.get_device_name(0)
+    base = ["-t", "a lighthouse on a cliff at dawn", "--steps", str(steps),
+            "-nv", "--seed", "1", "--save_pt"]
+    mesh = ["--fleet", f"0/1@127.0.0.1:{free_port()}", "--mesh", "dcn"]
+    runs, sps = {}, {"dense": [], "mesh": []}
+    # in turns, dense, mesh, mesh, dense: the first runs of a process are
+    # slower, whatever they run
+    for i, label in enumerate(("dense", "mesh", "mesh", "dense")):
+        extra = mesh if label == "mesh" else []
+        multihost._reset_for_tests()
+        out = os.path.join(OUT_DIR, "mesh", f"{label}{i}")
+        shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = clip_fft.run(clip_fft.get_args(base + ["--out_dir", out]
+                                             + extra))
+        torch.cuda.synchronize()
+        sps[label].append(_steady_sps(res.step_seconds))
+        if label not in runs:
+            runs[label] = (res, dict(kernels.LAUNCHES), out)
+        del res
+    multihost._reset_for_tests()
+    (dense, dl, dout), (meshed, ml, mout) = runs["dense"], runs["mesh"]
+    check(meshed.samples == dense.samples == 190,
+          f"(ad): cutouts {meshed.samples}, {dense.samples}")
+    check(meshed.losses == dense.losses and all(
+        math.isfinite(x) for x in dense.losses),
+          f"(ad): losses differ: {meshed.losses} vs {dense.losses}")
+    df, mf = _files(dout), _files(mout)
+    check(len(df) == steps + 2 and sorted(df) == sorted(mf)
+          and all(df[k] == mf[k] for k in df),
+          f"(ad): the frames and snapshots differ: "
+          f"{[k for k in df if df[k] != mf.get(k)]}")
+    pt = os.path.join(mout, meshed.out_name + ".pt")
+    check(torch.equal(torch.as_tensor(load_pt(pt)[0]), meshed.params.cpu()),
+          "(ad): the .pt is not the final params")
+    coll = {"all_gather": steps, "all_reduce": steps}
+    check(ml == dict(dl, **coll), f"(ad): launches {ml}, dense {dl}")
+    groups = list(meshed.loop.groups.values())
+    captured = {k: groups[0].graph.counts[k] for k in coll}
+    check(len(groups) == 1 and captured == {"all_gather": 1,
+                                            "all_reduce": 1},
+          f"(ad): collectives in the captured group {captured}")
+    print(f"[mesh] (ad) clip_fft --fleet 0/1@... --mesh dcn (one NCCL rank) "
+          f"on {name}: {steps} steps, {meshed.samples} cutouts; losses, "
+          f"{len(mf)} frame and snapshot files equal the dense run's byte "
+          f"for byte; collectives {coll} ({captured} a replay of the captured "
+          f"group); steady steps/s in turns dense {sps['dense'][0]:.3f}, mesh "
+          f"{sps['mesh'][0]:.3f}, mesh {sps['mesh'][1]:.3f}, dense "
+          f"{sps['dense'][1]:.3f}")
+    del runs, dense, meshed
+    torch.cuda.empty_cache()
+
+    def replay_vs_eager():
+        a = clip_fft.get_args(base + ["--out_dir",
+                                      os.path.join(OUT_DIR, "mesh", "loop"),
+                                      "--mesh", "dcn"])
+        su = clip_fft.setup(a)
+        start = su.gen.get_state()
+        return ([_loop_eager(su, a, start) for _ in range(2)],
+                _loop_replayed(su, a, start, 2))
+    multihost._reset_for_tests()
+    runs, (got, rep) = launch(replay_vs_eager, (), Plan(
+        1, f"127.0.0.1:{free_port()}", "cuda"))
+    (want, eager), (again, _) = runs
+    per_step = {"attn_fwd": 12, "attn_bwd": 12, **{k: 1 for k in coll}}
+    want_launches = {k: v * steps for k, v in per_step.items()}
+    check(eager["launches"] == want_launches == rep["launches"],
+          f"(ad) loop: launches eager {eager['launches']}, replayed "
+          f"{rep['launches']}, expected {want_launches}")
+    off = [k for k in want if not (torch.equal(got[k], want[k])
+                                   and torch.equal(again[k], want[k]))]
+    check(not off, f"(ad) loop: the replay or the second eager run differs "
+          f"in {off}")
+    n_rep, rep_ms, rep_wall = rep["replay"]
+    print(f"[mesh] (ad) loop: {steps} steps of the one-rank NCCL mesh on "
+          f"{name}: eager {_steady_sps(eager['secs']):.3f} steps/s, replayed "
+          f"{n_rep / rep_wall:.3f} steps/s, group device ms "
+          f"{rep['step_ms']:.3f} a step; launches a step {per_step}; replayed "
+          f"bit for bit")
+    del runs, got
+    torch.cuda.empty_cache()
+
+
+def _mesh_illustra_fleet(steps: int) -> str:
+    """(ae): illustra as a fleet of two processes on the one card; returns
+    the directory of its snapshots."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import illustra
+    from aphantasia_torch.io.checkpoint import load_pt
+    from aphantasia_torch.parallel.mesh import free_port
+    from aphantasia_torch.parallel import multihost
+    out, ref = (os.path.join(OUT_DIR, "mesh", d) for d in ("fleet", "one"))
+    for d in (out, ref):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["-t", scenes_file(3), "--steps", str(steps), "-nv", "--seed",
+            "1", "--save_pt"]
+    port = free_port()
+    t0 = time.perf_counter()
+    done = _children([(["-m", "aphantasia_torch.cli.illustra"] + argv
+                       + ["--out_dir", out, "--fleet",
+                          f"{r}/2@127.0.0.1:{port}"], {})
+                      for r in range(2)],
+                     env={"APHANTASIA_FLEET_WAIT": "600"})
+    wall = time.perf_counter() - t0
+    for r, (text, p) in enumerate(done):
+        check(p.returncode == 0, f"(ae) fleet rank {r} failed:\n"
+              f"{text[-3000:]}")
+    shares = [re.search(r"fleet (\d)/2: scenes (\[[\d, ]*\]) of 3", t)
+              for t, _ in done]
+    check([m and (m.group(1), m.group(2)) for m in shares]
+          == [("0", "[0, 2]"), ("1", "[1]")],
+          f"(ae): the ranks' scenes {[m and m.group(0) for m in shares]}")
+    finals = [f for f in os.listdir(os.path.join(out, "_final"))
+              if f.endswith(".jpg")]
+    videos = [f for f in os.listdir(out) if f.startswith("scenes3.")]
+    check(len(finals) == 75 and videos,
+          f"(ae): rank 0 assembled {len(finals)} crossfade frames, video "
+          f"{videos}")
+    multihost._reset_for_tests()
+    kernels.reset_launches()
+    one = illustra.run(illustra.get_args(argv + ["--out_dir", ref,
+                                                 "--separate"]))
+    torch.cuda.synchronize()
+    want = {"attn_fwd": 36 + 36 * steps, "attn_bwd": 36 * steps}
+    check(len(one.out_names) == 3 and dict(kernels.LAUNCHES) == want,
+          f"(ae): {one.out_names}, launches {dict(kernels.LAUNCHES)}, "
+          f"expected {want}")
+    for n in one.out_names:
+        a = torch.as_tensor(load_pt(os.path.join(out, n + ".pt")))
+        b = torch.as_tensor(load_pt(os.path.join(ref, n + ".pt")))
+        check(torch.equal(a, b), f"(ae): scene {n} differs from the "
+              f"one-process run, max {float((a - b).abs().max()):.3g}")
+    print(f"[mesh] (ae) illustra fleet of 2 processes on "
+          f"{torch.cuda.get_device_name(0)}: scenes [0, 2] and [1] of 3, "
+          f"{steps} steps each, {len(finals)} crossfade frames assembled by "
+          f"rank 0, wall {wall:.1f} s; every scene's .pt equals the "
+          f"one-process --separate run's bit for bit (its launches {want})")
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_interpol_fleet(pts: str):
+    """(af): interpol as two processes without a coordinator."""
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import interpol
+    from aphantasia_torch.parallel import multihost
+    out, ref = (os.path.join(OUT_DIR, "mesh", d) for d in ("pts2", "pts1"))
+    for d in (out, ref):
+        shutil.rmtree(d, ignore_errors=True)
+    args = ["-m", "aphantasia_torch.cli.interpol", "-i", pts, "-s", "4",
+            "-o", out]
+    t0 = time.perf_counter()
+    done = _children([(args + ["--fleet", "1/2"], {}),
+                      (args, {"APHANTASIA_FLEET": "0/2"})],
+                     env={"APHANTASIA_FLEET_WAIT": "300"})
+    wall = time.perf_counter() - t0
+    for r, (text, p) in enumerate(done):
+        check(p.returncode == 0, f"(af) interpol process {r} failed:\n"
+              f"{text[-3000:]}")
+    multihost._reset_for_tests()
+    kernels.reset_launches()
+    interpol.main(["-i", pts, "-s", "4", "-o", ref, "-v", ""])
+    check(not any(kernels.LAUNCHES.values()),
+          f"(af): launches {dict(kernels.LAUNCHES)}")
+    got, want = _files(os.path.join(out, "a")), _files(os.path.join(ref, "a"))
+    check(len(want) == 12 and got == want,
+          f"(af): {len(got)} fleet frames, {len(want)} one-process frames, "
+          f"differing {[k for k in want if got.get(k) != want[k]]}")
+    print(f"[mesh] (af) interpol fleet of 2 processes (one from --fleet 1/2, "
+          f"one from APHANTASIA_FLEET=0/2) on 3 snapshots: {len(got)} frames "
+          f"equal to one process's byte for byte, wall {wall:.1f} s")
+
+
+def phase_mesh(steps: int = 8):
+    """(ad), (ae) and (af): see the module docstring."""
+    _mesh_data_axis(steps)
+    _mesh_interpol_fleet(_mesh_illustra_fleet(steps))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,main,loop,parity")
+    ap.add_argument("--phases", default="kernels,main,loop,parity,mesh")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--profile-paths", default="",
                     help="comma-separated label prefixes of the paths the "
@@ -3679,6 +3923,7 @@ def main(argv=None) -> int:
              "loop": lambda: (phase_loop(), phase_loop_illustra(),
                               phase_loop_illustrip(), phase_loop_coord()),
              "parity": phase_parity,
+             "mesh": lambda: phase_mesh(args.steps),
              "cudnn": phase_cudnn,
              "profile": lambda: phase_profile(
                  [p for p in args.profile_paths.split(",") if p])}[ph]()

@@ -1,7 +1,7 @@
 """The port's clip_fft CLI on the CPU (`--device cpu`) at a tiny size, its
-outputs, every augmentation option, --dwt, --sync, --aest, --dualmod and
---clip_weights, the flags it does not port yet, and the package's
-isolation from JAX and from aphantasia_tpu."""
+outputs, every augmentation option, --dwt, --sync, --aest, --dualmod,
+--clip_weights, --mesh and --fleet, the flag it does not port yet, and
+the package's isolation from JAX and from aphantasia_tpu."""
 import os
 import re
 import subprocess
@@ -69,16 +69,39 @@ def test_clip_fft_resume_from_pt(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--spatial", "2"], ["--mesh", "2"], ["--fleet", "0/2"],
     ["-m", "RN50x64"]])
-def test_unported_flags_raise(tmp_path, flags):
-    """--spatial, --mesh and --fleet raise naming ROADMAP.md; RN50x64,
-    which JAX clip_fft does not offer (illustra does), is refused by
-    argparse, as in JAX."""
+def test_unported_flags_raise(tmp_path, monkeypatch, flags):
+    """--spatial raises naming ROADMAP.md A.10b; RN50x64, which JAX
+    clip_fft does not offer (illustra does), is refused by argparse, as in
+    JAX.  --mesh and --fleet, which raised until they were ported, pass
+    the CLI's launch (`common.run_cli`): --mesh 2 plans two gloo ranks on
+    this host (the runs themselves are held to the dense run in
+    tests/test_torch_mesh.py::test_clip_fft_mesh_matches_dense); --fleet
+    0/2 without a coordinator runs the whole job once, in this process,
+    with the fleet's coordinates."""
+    from aphantasia_torch.cli.common import mesh_plan, run_cli
+    from aphantasia_torch.parallel import multihost
     if flags[0] == "-m":
         with pytest.raises(SystemExit):
             _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
+    if flags[0] == "--spatial":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
+            _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
+        return
+    a = clip_fft.get_args(["-t", "x", "--out_dir", str(tmp_path)] + TINY
+                          + flags)
+    if flags[0] == "--mesh":
+        plan = mesh_plan(a.mesh, a.device)
+        assert (plan.n_local, plan.world, plan.device) == (2, 2, "cpu")
+        assert plan.addr.startswith("127.0.0.1:")
+        return
+    monkeypatch.setattr(multihost, "_FLEET", None)
+    monkeypatch.setattr(multihost, "_COORD", None)
+    monkeypatch.delenv("APHANTASIA_FLEET", raising=False)
+    calls = []
+    assert run_cli(a, lambda b: calls.append(multihost.fleet_info())
+                   or "done") == "done"
+    assert calls == [(0, 2)]
 
 
 # ViT-B/32's geometry (224 px, 32 px patches) cut to one block of width

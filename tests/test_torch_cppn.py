@@ -378,8 +378,30 @@ def test_export_writes_shaders_and_image(tmp_path):
         assert im.size == (24, 24)
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--fleet", "0/2"]])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tcli.run(tcli.get_args(["-t", "x", "--out_dir", str(tmp_path)]
-                               + TINY + flags))
+def _no_fleet(monkeypatch):
+    """No fleet resolved and no APHANTASIA_FLEET, undone after the test."""
+    from aphantasia_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "_FLEET", None)
+    monkeypatch.setattr(multihost, "_COORD", None)
+    monkeypatch.delenv("APHANTASIA_FLEET", raising=False)
+    return multihost
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "dcn"], ["--fleet", "0/2"]])
+def test_unported_flags_raise(tmp_path, monkeypatch, tiny_towers, flags):
+    """--mesh and --fleet, which raised until they were ported, run:
+    --mesh dcn (a data mesh of one rank in this process, its collectives
+    included) gives the dense run's losses and params bit for bit;
+    --fleet 0/2 runs the whole job on this host."""
+    mh = _no_fleet(monkeypatch)
+    tiny = TINY + ["--steps", "2"]
+    res = tcli.run(tcli.get_args(["-t", "x", "--out_dir", str(tmp_path / "m")]
+                                 + tiny + flags))
+    if flags[0] == "--fleet":
+        assert mh.fleet_info() == (0, 2) and all(np.isfinite(res.losses))
+        return
+    dense = tcli.run(tcli.get_args(["-t", "x", "--out_dir",
+                                    str(tmp_path / "d")] + tiny))
+    assert res.losses == dense.losses
+    for a, b in zip(res.params, dense.params, strict=True):
+        assert torch.equal(a, b)

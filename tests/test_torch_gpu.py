@@ -942,3 +942,14 @@ def test_dwt_decode_replays_equal_eager(cuda):
     eager, replayed = _captured(decode)
     assert eager[0].shape == (1, 3, 720, 1280)
     assert all(torch.equal(a, b) for a, b in zip(eager, replayed))
+
+
+def test_mesh_wider_than_the_host_raises(cuda, tmp_path):
+    """--mesh asks one GPU per rank on this host: a mesh of more ranks
+    than the host has GPUs raises before any rank starts."""
+    from aphantasia_torch.cli import clip_fft
+    n = torch.cuda.device_count() + 1
+    for spec in (str(n), f"{n}x1"):
+        with pytest.raises(SystemExit, match=f"needs {n} devices"):
+            clip_fft.run(clip_fft.get_args(["-t", "x", "--out_dir",
+                                            str(tmp_path), "--mesh", spec]))

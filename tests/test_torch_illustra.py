@@ -304,18 +304,47 @@ def test_interpol_on_jax_snapshots(tmp_path):
     assert video is not None and os.path.basename(video).startswith("pt-pts.")
 
 
+def _no_fleet(monkeypatch):
+    """No fleet resolved and no APHANTASIA_FLEET, undone after the test."""
+    from aphantasia_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "_FLEET", None)
+    monkeypatch.setattr(multihost, "_COORD", None)
+    monkeypatch.delenv("APHANTASIA_FLEET", raising=False)
+    return multihost
+
+
 @pytest.mark.parametrize("cli,flags", [
-    ("illustra", ["--spatial", "2"]), ("illustra", ["--mesh", "2"]),
+    ("illustra", ["--spatial", "2"]), ("illustra", ["--mesh", "dcn"]),
     ("illustra", ["--fleet", "0/2"]), ("interpol", ["--fleet", "0/2"])])
-def test_unported_flags_raise(tmp_path, cli, flags):
-    if cli == "illustra":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+def test_unported_flags_raise(tmp_path, monkeypatch, tiny_towers, cli, flags):
+    """--spatial raises naming ROADMAP.md A.10b.  --mesh and --fleet, which
+    raised until they were ported, run: illustra --mesh dcn (a data mesh
+    of one rank in this process, its collectives included) gives the
+    dense run's losses and spectrum bit for bit; illustra --fleet 0/2
+    renders scene 1 of 1 and assembles; interpol --fleet 0/2 gets past the
+    fleet to the empty snapshot directory."""
+    if flags[0] == "--spatial":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
             illustra.run(illustra.get_args(["-t", "x", "--out_dir",
                                             str(tmp_path)] + TINY + flags))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+        return
+    mh = _no_fleet(monkeypatch)
+    if cli == "interpol":
+        with pytest.raises(FileNotFoundError, match="no .pt snapshots"):
             interpol.main(["-i", str(tmp_path), "-o", str(tmp_path),
                            "--device", "cpu"] + flags)
+        assert mh.fleet_info() == (0, 2)
+        return
+    argv = ["-t", "x", "--aest", "0", "--lsteps", "2"] + TINY
+    res = illustra.run(illustra.get_args(
+        argv + ["--out_dir", str(tmp_path / "m")] + flags))
+    if flags[0] == "--fleet":
+        assert mh.fleet_info() == (0, 2) and res.final_frames == 2
+        return
+    dense = illustra.run(illustra.get_args(
+        argv + ["--out_dir", str(tmp_path / "d")]))
+    assert res.losses == dense.losses
+    assert torch.equal(res.params, dense.params)
 
 
 def test_entry_points_raise_without_gpu(tmp_path, monkeypatch):

@@ -410,12 +410,38 @@ def test_illustrip_prompt_flags_cpu(tmp_path, tiny_towers):
     assert res.frames == 6 and all(np.isfinite(x).all() for x in res.losses)
 
 
-@pytest.mark.parametrize("flags", [["--spatial", "2"], ["--mesh", "2"],
+def _no_fleet(monkeypatch):
+    """No fleet resolved and no APHANTASIA_FLEET, undone after the test."""
+    from aphantasia_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "_FLEET", None)
+    monkeypatch.setattr(multihost, "_COORD", None)
+    monkeypatch.delenv("APHANTASIA_FLEET", raising=False)
+    return multihost
+
+
+@pytest.mark.parametrize("flags", [["--spatial", "2"], ["--mesh", "dcn"],
                                    ["--fleet", "0/2"]])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        illustrip.run(illustrip.get_args(
-            ["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags))
+def test_unported_flags_raise(tmp_path, monkeypatch, tiny_towers, flags):
+    """--spatial raises naming ROADMAP.md A.10b.  --mesh and --fleet, which
+    raised until they were ported, run: --mesh dcn (a data mesh of one
+    rank in this process, its collectives included) gives the dense run's
+    losses and last frame state bit for bit; --fleet 0/2 runs the whole
+    job on this host."""
+    if flags[0] == "--spatial":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
+            illustrip.run(illustrip.get_args(
+                ["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags))
+        return
+    mh = _no_fleet(monkeypatch)
+    res = illustrip.run(illustrip.get_args(
+        ["-t", "x", "--out_dir", str(tmp_path / "m")] + TINY + flags))
+    if flags[0] == "--fleet":
+        assert mh.fleet_info() == (0, 2) and res.frames == 3
+        return
+    dense = illustrip.run(illustrip.get_args(
+        ["-t", "x", "--out_dir", str(tmp_path / "d")] + TINY))
+    assert res.losses == dense.losses
+    assert torch.equal(res.params, dense.params)
 
 
 def test_entry_point_raises_without_gpu(tmp_path, monkeypatch):

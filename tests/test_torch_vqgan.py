@@ -360,8 +360,29 @@ def test_cli_image_prompt_resume_and_weights(tmp_path, tiny):
     assert torch.equal(res2.loop.bufs.params, res2.params)
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--fleet", "0/2"]])
-def test_unported_flags_raise(tmp_path, tiny, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tcli.run(tcli.get_args(["-t", "x", "--out_dir", str(tmp_path),
-                                "--device", "cpu", "--steps", "1"] + flags))
+def _no_fleet(monkeypatch):
+    """No fleet resolved and no APHANTASIA_FLEET, undone after the test."""
+    from aphantasia_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "_FLEET", None)
+    monkeypatch.setattr(multihost, "_COORD", None)
+    monkeypatch.delenv("APHANTASIA_FLEET", raising=False)
+    return multihost
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "dcn"], ["--fleet", "0/2"]])
+def test_unported_flags_raise(tmp_path, monkeypatch, tiny, flags):
+    """--mesh and --fleet, which raised until they were ported, run:
+    --mesh dcn (a data mesh of one rank in this process, its collectives
+    included) gives the dense run's losses and latent bit for bit;
+    --fleet 0/2 runs the whole job on this host."""
+    mh = _no_fleet(monkeypatch)
+    base = ["-t", "x", "--device", "cpu", "--steps", "1", "--samples", "2",
+            "--size", "48-32", "-nv"]
+    res = tcli.run(tcli.get_args(base + ["--out_dir", str(tmp_path / "m")]
+                                 + flags))
+    if flags[0] == "--fleet":
+        assert mh.fleet_info() == (0, 2) and all(np.isfinite(res.losses))
+        return
+    dense = tcli.run(tcli.get_args(base + ["--out_dir", str(tmp_path / "d")]))
+    assert res.losses == dense.losses
+    assert torch.equal(res.params, dense.params)
