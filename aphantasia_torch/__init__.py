@@ -19,8 +19,8 @@ ops       cutout sampler, cutout and attention kernels, augmentations,
 models    the CLIP ViT towers and the tokenizer
 cli       clip_fft, illustra, interpol, illustrip, depth, cppn, clip_vqgan
 io        .pt snapshots, frames and video
-parallel  the data and model mesh axes, fleets and the DCN data axis on
-          torch.distributed
+parallel  the data, model and spatial mesh axes (the sharded canvases),
+          fleets and the DCN data axis on torch.distributed
 """
 
 __version__ = "0.1.0"

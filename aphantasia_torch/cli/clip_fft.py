@@ -23,8 +23,13 @@ random-init, loudly.  Every model of the list runs: the ViTs and the
 ModifiedResNets (RN50 to RN50x16; no aesthetic head, as in JAX).
 --mesh N|NxM|dcn runs the step over a data axis (and a model axis) of
 ranks that `common.run_cli` starts, rank 0 writing the outputs; --fleet
-runs the whole job on each host, as in JAX.  Still raising: --spatial
-(ROADMAP.md A.10b).
+runs the whole job on each host, as in JAX.  --spatial N (N > 1) shards
+the canvas over N ranks a data rank (`parallel/spatial.py`: the spectrum's
+columns, or with --dwt the finest pyramid levels' rows), composing with
+--mesh N|NxM as the JAX CLI does (the cutout count rounded up to the data
+axis; 'dcn' raises); every rank's chunked or per-step loop runs the
+sharded step, and the `.pt` is gathered and saved unpadded, in the
+reference layout.
 
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --pallas
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" -m ViT-L/14
@@ -33,6 +38,8 @@ runs the whole job on each host, as in JAX.  Still raising: --spatial
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --dualmod 4
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --mesh 2x2 \
         --device cpu
+    python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" --spatial 2 \
+        --mesh 2 --device cpu
     python -m aphantasia_torch.cli.clip_fft -t "a lighthouse" \
         -i photo.jpg --sync 0.4
     APHANTASIA_WIN_CUTOUT=1 APHANTASIA_PALLAS_LN=1 \
@@ -54,9 +61,9 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, RunSetup, Tower, add_parallel_flags, apply_sample_budget,
-    card_settings, check_ported, dispatch_seconds, dualmod_steps,
-    frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
-    run_cli, setup_mesh)
+    card_settings, dispatch_seconds, dualmod_steps, frame_writer,
+    maybe_translate, parse_size, resolve_dtype, resolve_persp, round_samples,
+    run_cli, setup_mesh, setup_spatial, spatial_canvas, spatial_count)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import frames_to_video, img_list, img_read
@@ -129,7 +136,8 @@ def get_args(argv=None):
     parser.add_argument('--precision', default='auto', choices=['auto', 'bf16', 'fp32'])
     parser.add_argument('--seed', default=0, type=int)
     parser.add_argument('--spatial', default=0, type=int,
-                        help='not ported: spatially sharded canvases')
+                        help='Shard the canvas spatially over N ranks '
+                             '(4K+ canvases; FFT, or --dwt)')
     add_parallel_flags(parser)
     a = parser.parse_args(argv)
     if a.dualmod is not None and a.dualmod < 1:
@@ -148,6 +156,7 @@ def get_args(argv=None):
 @dataclasses.dataclass
 class RunResult:
     params: object                # final params: spectrum, or DWT list
+    #                               (under --spatial gathered, unpadded)
     losses: list                  # one float per step
     # host wall time per step, synchronized: on the chunked path each step
     # of a dispatch gets its wall over its steps, and each tower pattern's
@@ -163,11 +172,14 @@ def main(argv=None):
     run(get_args(argv))
 
 
-def setup(a) -> RunSetup:
+def setup(a, spatial=None) -> RunSetup:
     """The run's parameterizer, towers, prompts and step pieces, and its
     output directory with config.txt (`a` is updated as the JAX CLI
-    updates it: size, modsize, samples)."""
-    check_ported(a)
+    updates it: size, modsize, samples).  Under a spatial axis
+    (`common.spatial_count`: --spatial above 1, or `spatial` given) the
+    parameterizer is the sharded canvas, the params this rank's shard and
+    `draw` draws the padded spectrum's noise."""
+    spatial = spatial_count(a, spatial)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
     card_settings(device)
@@ -206,7 +218,9 @@ def setup(a) -> RunSetup:
         clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
                                  generator=seeded(a.seed, "cpu")))
         print(' dual model every %d step' % a.dualmod)
-    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
+    mesh = (setup_spatial(spatial, getattr(a, 'mesh', None), clips, a.verbose)
+            if spatial else setup_mesh(getattr(a, 'mesh', None), clips,
+                                       a.verbose))
     extra = (a.in_txt2 is not None) + (a.in_txt0 is not None)
     a.samples = apply_sample_budget(
         a.samples, a.model, a.dualmod, a.enforce, a.sync, a.transform, extra)
@@ -258,6 +272,13 @@ def setup(a) -> RunSetup:
         print(' samples:', a.samples)
 
     # ---- step functions ---------------------------------------------------
+    draw_shape = None if a.dwt else tuple(gen_params.shape)
+    if spatial:
+        a.samples = round_samples(a.samples, mesh, a.verbose)
+        par = spatial_canvas('dwt' if a.dwt else 'fft', a.size, mesh,
+                             a.decay, a.colors, a.wave)
+        gen_params = par.shard(gen_params)
+        draw_shape = par.draw_shape
     sampler = CutoutSampler(tuple(a.size), a.samples, a.modsize, a.align,
                             a.macro, use_pallas=a.pallas)
     optimizer = build_optimizer(a.optimizer, a.lrate, a.steps, a.prog)
@@ -266,8 +287,7 @@ def setup(a) -> RunSetup:
         aest=a.aest, enforce=a.enforce, expand=a.expand, noise=a.noise,
         sync=a.sync, total_steps=max(a.steps // a.opt_step, 1),
         transform=a.transform, persp=resolve_persp(a.persp), clip_dtype=dtype)
-    draw = build_draw_fn(sampler, settings,
-                         None if a.dwt else tuple(gen_params.shape))
+    draw = build_draw_fn(sampler, settings, draw_shape)
     towers = [Tower(c.cfg, c.vision(dtype), ae, g)
               for c, ae, g in zip(clips, aests, groups)]
 
@@ -291,10 +311,15 @@ def run(a, on_step=None) -> RunResult:
     return run_cli(a, _run, on_step)
 
 
-def _run(a, on_step=None) -> RunResult:
-    su = setup(a)
+def _run(a, on_step=None, spatial=None) -> RunResult:
+    """The run on this rank; `spatial` as `setup` takes it."""
+    from aphantasia_torch.parallel.spatial import (
+        SpatialCanvas, build_spatial_render, build_spatial_train_loop_frames,
+        build_spatial_train_step)
+    su = setup(a, spatial)
     gen_params, out_name, tempdir = su.gen_params, su.out_name, su.tempdir
     step_args = (su.par, su.sampler, su.clip_cfg, su.settings, su.optimizer)
+    sharded = isinstance(su.par, SpatialCanvas)
 
     # ---- training loop ----------------------------------------------------
     opt_state = su.optimizer.init(gen_params)
@@ -318,9 +343,14 @@ def _run(a, on_step=None) -> RunResult:
         if chunked:
             n_frames = a.steps // a.opt_step
             nf = frames_per_dispatch(tuple(a.size), n_frames)
-            loop = build_train_loop_frames(*step_args, a.opt_step, nf,
-                                           contrast=a.contrast, dual=su.dual,
-                                           mesh=su.mesh)
+            if sharded:
+                loop = build_spatial_train_loop_frames(
+                    *step_args, a.opt_step, nf, contrast=a.contrast,
+                    dual=su.dual)
+            else:
+                loop = build_train_loop_frames(
+                    *step_args, a.opt_step, nf, contrast=a.contrast,
+                    dual=su.dual, mesh=su.mesh)
             for c in range(n_frames // nf):
                 t0 = time.perf_counter()
                 gen_params, opt_state, prev_enc, frames, dl = loop(
@@ -339,11 +369,18 @@ def _run(a, on_step=None) -> RunResult:
                         on_step(i)
         else:
             cfgs = [t.cfg for t in su.towers]
-            steps = [build_train_step(su.par, su.sampler, cfg, su.settings,
-                                      su.optimizer, su.mesh) for cfg in cfgs]
+            if sharded:
+                steps = [build_spatial_train_step(
+                    su.par, su.sampler, cfg, su.settings, su.optimizer)
+                    for cfg in cfgs]
+                render = build_spatial_render(su.par)
+            else:
+                steps = [build_train_step(su.par, su.sampler, cfg,
+                                          su.settings, su.optimizer, su.mesh)
+                         for cfg in cfgs]
+                render = build_render(su.par)
             dm_nums = (dualmod_steps(a.steps, a.dualmod) if a.dualmod
                        else set())
-            render = build_render(su.par)
             for i in range(a.steps):
                 t0 = time.perf_counter()
                 tower = int(i in dm_nums)
@@ -362,6 +399,9 @@ def _run(a, on_step=None) -> RunResult:
                     on_step(i)
 
     # ---- assembly (rank 0 of a mesh) ----------------------------------------
+    if sharded:
+        # every rank gathers; the canonical layout, pads dropped
+        gen_params = su.par.full(gen_params)
     video = None
     if mesh_primary():
         video = frames_to_video(tempdir,

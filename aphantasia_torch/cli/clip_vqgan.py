@@ -37,7 +37,7 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, RunSetup, Tower, add_parallel_flags, apply_sample_budget,
-    build_prompt_groups, card_settings, check_ported, dispatch_seconds,
+    build_prompt_groups, card_settings, dispatch_seconds,
     frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
     run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
@@ -112,7 +112,6 @@ def setup(a) -> RunSetup:
     """The run's decoder, tower, prompts, start latent and step pieces and
     its run directory with config.txt, as a `RunSetup` (`a` is updated as
     the JAX CLI updates it: size, samples)."""
-    check_ported(a)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
     card_settings(device)

@@ -247,15 +247,6 @@ def add_parallel_flags(parser):
     return parser
 
 
-def check_ported(a) -> None:
-    """Raise for --spatial, whose sharded canvases the port does not have
-    yet."""
-    if getattr(a, 'spatial', 0) > 1:
-        raise NotImplementedError(
-            "not ported to aphantasia_torch yet: --spatial; see ROADMAP.md "
-            "A.10b")
-
-
 def _mesh_dims(spec):
     """(kind, ranks): ('dcn', None), or ('grid', (data, model)); None for
     the dense path ('1', '0' or no spec)."""
@@ -275,36 +266,43 @@ def _mesh_dims(spec):
     return "grid", (dp, tp)
 
 
-def mesh_plan(spec, device):
-    """How the ranks of a --mesh spec start (`parallel.mesh.Plan`), or
-    None for the dense path.  'N' and 'NxM' put every rank on this host;
-    on the card that needs as many GPUs, else it raises."""
+def mesh_plan(spec, device, spatial: int = 0):
+    """How the ranks of a --mesh spec and a --spatial count start
+    (`parallel.mesh.Plan`), or None for the dense path (no spec and
+    --spatial 0 or 1).  'N' and 'NxM' put every rank on this host, times
+    the spatial count; on the card that needs as many GPUs, else it
+    raises.  --spatial with 'dcn' raises, as in JAX."""
     from aphantasia_torch.parallel.dcn import plan_dcn
     from aphantasia_torch.parallel.mesh import Plan, free_port, local_devices
     dims = _mesh_dims(spec)
-    if dims is None:
+    spatial = spatial if spatial and spatial > 1 else 1
+    if dims is None and spatial == 1:
         return None
     kind = torch.device(device).type
-    if dims[0] == "dcn":
+    if dims is not None and dims[0] == "dcn":
+        if spatial > 1:
+            raise ValueError("--spatial composes with --mesh N or NxM, not "
+                             "with 'dcn' (as in the JAX package)")
         return plan_dcn(None, kind)
-    n = dims[1][0] * dims[1][1]
+    n = spatial * (1 if dims is None else dims[1][0] * dims[1][1])
     have = local_devices(kind) if kind == "cuda" else n
     if n > have:
-        raise SystemExit(f"--mesh {spec} needs {n} devices, have {have}")
+        raise SystemExit(f"--mesh {spec} --spatial {spatial} needs {n} "
+                         f"devices, have {have}")
     return Plan(n, f"127.0.0.1:{free_port()}", kind)
 
 
 def run_cli(a, body, *args):
-    """body(a, *args) under the run's --fleet and --mesh: the fleet's
-    coordinates first (`init_fleet`), then with a mesh its ranks
+    """body(a, *args) under the run's --fleet, --mesh and --spatial: the
+    fleet's coordinates first (`init_fleet`), then with a mesh its ranks
     (`parallel.mesh.launch`: one rank runs here, more are spawned, one
     per GPU or CPU process); returns rank 0's result.  Every rank runs
     the whole CLI; rank 0 writes the files and prints."""
     from aphantasia_torch.parallel.mesh import launch
     from aphantasia_torch.parallel.multihost import init_fleet
-    check_ported(a)
     init_fleet(getattr(a, 'fleet', None))
-    plan = mesh_plan(getattr(a, 'mesh', None), a.device)
+    plan = mesh_plan(getattr(a, 'mesh', None), a.device,
+                     getattr(a, 'spatial', 0))
     if plan is None:
         return body(a, *args)
     if plan.world > 1 and any(x is not None for x in args):
@@ -347,6 +345,56 @@ def setup_mesh(spec, clip_wrappers=(), verbose=True):
     if verbose:
         print(f" mesh: {dict(mesh.shape)}")
     return mesh
+
+
+def spatial_count(a, spatial=None):
+    """The run's spatial axis: `spatial` when given (one rank on the card
+    is `spatial=1`), else --spatial when above 1; None for the dense
+    path."""
+    if spatial:
+        return spatial
+    return a.spatial if getattr(a, 'spatial', 0) > 1 else None
+
+
+def setup_spatial(spatial: int, spec, clip_wrappers=(), verbose=True):
+    """The ('data'[, 'model'], 'spatial') mesh of this rank from --spatial
+    and --mesh (`parallel.mesh.make_mesh_spatial`), on the group its
+    launch made; with a model axis every ClipWrapper's params are
+    replaced by this rank's tensor-parallel shard, as `setup_mesh`
+    does."""
+    from aphantasia_torch.parallel.mesh import (make_mesh_spatial,
+                                                shard_clip_params)
+    mesh = make_mesh_spatial(spatial, spec)
+    if mesh.size("model") > 1:
+        for w in clip_wrappers:
+            if w is not None:
+                w.params = shard_clip_params(w.params, mesh, w.cfg)
+    if verbose:
+        print(f" spatial mesh: {dict(mesh.shape)}")
+    return mesh
+
+
+def round_samples(samples: int, mesh, verbose=True) -> int:
+    """The cutout count rounded up to a multiple of the data axis, as the
+    JAX CLIs round it under --spatial."""
+    dp = mesh.size("data")
+    if samples % dp:
+        samples += dp - samples % dp
+        if verbose:
+            print(f' samples rounded up to {samples} (data mesh {dp})')
+    return samples
+
+
+def spatial_canvas(kind: str, size, mesh, decay=1.5, colors=1.8,
+                   wave='coif2', fixcontrast=False):
+    """The sharded parameterizer of a run: 'fft', 'dwt' or 'rgb'."""
+    from aphantasia_torch.parallel.spatial import SpatialFFT, SpatialRGB
+    from aphantasia_torch.parallel.spatial_dwt import SpatialDWT
+    if kind == 'dwt':
+        return SpatialDWT(tuple(size), wave, 0.3, colors, mesh)
+    if kind == 'rgb':
+        return SpatialRGB(tuple(size), colors, mesh, fixcontrast)
+    return SpatialFFT(tuple(size), decay, colors, mesh)
 
 
 class NullWriter:

@@ -39,7 +39,7 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, RunSetup, Tower, add_parallel_flags, build_prompt_groups,
-    card_settings, check_ported, dispatch_seconds, dualmod_steps,
+    card_settings, dispatch_seconds, dualmod_steps,
     frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
     run_cli, setup_mesh)
 from aphantasia_torch.device import resolve_device
@@ -169,7 +169,6 @@ def setup(a):
     directory, as a `RunSetup` (`a` is updated as the JAX CLI updates it:
     the architecture from --resume, modsize, samples); with --export the
     shaders and the image of the snapshot, and None."""
-    check_ported(a)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
     card_settings(device)

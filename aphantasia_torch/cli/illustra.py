@@ -26,7 +26,10 @@ the chunking.  --mesh N|NxM|dcn runs the steps over mesh ranks
 renders scenes R, R+W, ... on this host, each fresh (keep-chaining is
 sequential), and rank 0 assembles the piece once every scene's snapshot
 is in the shared out_dir, waiting up to APHANTASIA_FLEET_WAIT seconds.
-Still raising: --spatial (ROADMAP.md A.10b).
+--spatial N (N > 1) trains every scene on the spectrum sharded over N
+ranks a data rank (`parallel/spatial.py`), with --mesh N|NxM as in JAX:
+the keep-chaining rescale takes the range over every rank, and each
+scene's `.pt` is gathered and saved unpadded, in the reference layout.
 
     python -m aphantasia_torch.cli.illustra -t scenes.txt --pallas
     python -m aphantasia_torch.cli.illustra -t scenes.txt -m RN50x64
@@ -44,9 +47,10 @@ import numpy as np
 import torch
 
 from aphantasia_torch.cli.common import (
-    ClipWrapper, add_parallel_flags, card_settings, check_ported, crossfade,
+    ClipWrapper, add_parallel_flags, card_settings, crossfade,
     dispatch_seconds, dualmod_steps, frame_writer, maybe_translate,
-    parse_size, resolve_dtype, resolve_persp, run_cli, setup_mesh)
+    parse_size, resolve_dtype, resolve_persp, round_samples, run_cli,
+    setup_mesh, setup_spatial, spatial_canvas, spatial_count)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
 from aphantasia_torch.io.media import (basename, file_list,
@@ -114,7 +118,7 @@ def get_args(argv=None):
     parser.add_argument('--precision', default='auto', choices=['auto', 'bf16', 'fp32'])
     parser.add_argument('--seed', default=0, type=int)
     parser.add_argument('--spatial', default=0, type=int,
-                        help='not ported: spatially sharded canvases')
+                        help='Shard the FFT canvas spatially over N ranks')
     add_parallel_flags(parser)
     a = parser.parse_args(argv)
     if a.dualmod is not None and a.dualmod < 1:
@@ -147,9 +151,13 @@ def sample_budget(samples: int, model: str, dualmod=None,
     return max(int(bx * samples), 1)
 
 
-def keep_chain(params: torch.Tensor, keep: float) -> torch.Tensor:
+def keep_chain(params: torch.Tensor, keep: float, spar=None) -> torch.Tensor:
     """The next scene's start: the last spectrum times keep / (max - min)
-    (JAX cli/illustra.py:297-298)."""
+    (JAX cli/illustra.py:297-298); on a sharded canvas `spar` the range
+    over every rank."""
+    if spar is not None:
+        from aphantasia_torch.parallel.spatial import global_range
+        return keep * params / global_range(params, spar)
     return keep * params / (params.max() - params.min())
 
 
@@ -176,8 +184,14 @@ class SceneLoop:
         self.chunked = save_step > 0 and steps % save_step == 0 \
             and steps >= save_step
         self.loops: dict = {}
+        from aphantasia_torch.parallel import spatial
+        self.spar = par if isinstance(par, spatial.SpatialCanvas) else None
         if self.chunked:
             self.nf = frames_per_dispatch(tuple(par.size), steps // save_step)
+        elif self.spar is not None:
+            self.step_fns = [spatial.build_spatial_train_step(
+                par, sampler, cfg, settings, optimizer) for cfg in self.cfgs]
+            self.render = spatial.build_spatial_render(par)
         else:
             self.step_fns = [build_train_step(par, sampler, cfg, settings,
                                               optimizer, mesh)
@@ -192,11 +206,18 @@ class SceneLoop:
         if key not in self.loops:
             dual = (None if self.dm_every is None
                     else (self.cfgs[1], self.dm_every))
-            self.loops[key] = build_train_loop_frames(
-                self.par, self.sampler, self.cfgs[0], self.settings,
-                self.optimizer, self.save_step, self.nf,
-                contrast=self.contrast, step_index='step', dual=dual,
-                mesh=self.mesh)
+            args = (self.par, self.sampler, self.cfgs[0], self.settings,
+                    self.optimizer, self.save_step, self.nf)
+            if self.spar is not None:
+                from aphantasia_torch.parallel.spatial import (
+                    build_spatial_train_loop_frames)
+                self.loops[key] = build_spatial_train_loop_frames(
+                    *args, contrast=self.contrast, step_index='step',
+                    dual=dual)
+            else:
+                self.loops[key] = build_train_loop_frames(
+                    *args, contrast=self.contrast, step_index='step',
+                    dual=dual, mesh=self.mesh)
         return self.loops[key]
 
     def scene(self, gen_params, opt_state, consts, draws, save_frames=None,
@@ -282,12 +303,15 @@ class IllustraSetup:
 
     def start(self, num: int) -> torch.Tensor:
         """Scene `num`'s fresh spectrum (--resume, else a random init from
-        the scene's own generator)."""
+        the scene's own generator); on a sharded canvas this rank's
+        shard."""
         a = self.a
         p, _ = resume_fft(a.resume, [1, 3, *a.size], a.decay, sd=0.08,
                           generator=scene_generator(a.seed, num, 1,
                                                     self.device))
-        return p.to(device=self.device, dtype=torch.float32).contiguous()
+        p = p.to(device=self.device, dtype=torch.float32).contiguous()
+        spar = self.scenes.spar
+        return p if spar is None else spar.shard(p)
 
     def out_name(self, num: int) -> str:
         a = self.a
@@ -341,8 +365,10 @@ def main(argv=None):
     run(get_args(argv))
 
 
-def setup(a) -> IllustraSetup:
-    check_ported(a)
+def setup(a, spatial=None) -> IllustraSetup:
+    """The run's pieces; under a spatial axis (`common.spatial_count`)
+    the scenes train the sharded spectrum."""
+    spatial = spatial_count(a, spatial)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
     card_settings(device)
@@ -358,7 +384,9 @@ def setup(a) -> IllustraSetup:
         clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
                                  generator=seeded(a.seed)))
         print(' dual model every %d step' % a.dualmod)
-    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
+    mesh = (setup_spatial(spatial, getattr(a, 'mesh', None), clips, a.verbose)
+            if spatial else setup_mesh(getattr(a, 'mesh', None), clips,
+                                       a.verbose))
     a.samples = sample_budget(a.samples, a.model, a.dualmod, a.transform,
                               a.enforce)
     aests = [None] * len(clips)
@@ -394,7 +422,13 @@ def setup(a) -> IllustraSetup:
         print(' samples:', a.samples)
 
     # ---- step functions ---------------------------------------------------
+    h, w = a.size
     par = FFTParameterizer(tuple(a.size), a.decay, a.colors)
+    draw_shape = (1, 3, h, w // 2 + 1, 2)
+    if spatial:
+        a.samples = round_samples(a.samples, mesh, a.verbose)
+        par = spatial_canvas('fft', a.size, mesh, a.decay, a.colors)
+        draw_shape = par.draw_shape
     sampler = CutoutSampler(tuple(a.size), a.samples, a.modsize, a.align,
                             a.macro, use_pallas=a.pallas)
     optimizer = build_optimizer(
@@ -405,13 +439,11 @@ def setup(a) -> IllustraSetup:
         enforce=a.enforce, expand=0.0, noise=a.noise, noise_centered=True,
         total_steps=max(a.steps // a.save_step, 1), transform=a.transform,
         persp=resolve_persp(a.persp), clip_dtype=dtype)
-    h, w = a.size
     scenes = SceneLoop(par, sampler, [c.cfg for c in clips], settings,
                        optimizer, a.steps, a.save_step, a.contrast,
                        a.dualmod, mesh)
     return IllustraSetup(
-        a, device, scenes, build_draw_fn(sampler, settings,
-                                         (1, 3, h, w // 2 + 1, 2)),
+        a, device, scenes, build_draw_fn(sampler, settings, draw_shape),
         [c.vision(dtype) for c in clips], aests, encs, texts, styles)
 
 
@@ -420,9 +452,11 @@ def run(a) -> IllustraResult:
     return run_cli(a, _run)
 
 
-def _run(a) -> IllustraResult:
-    su = setup(a)
+def _run(a, spatial=None) -> IllustraResult:
+    """The run on this rank; `spatial` as `setup` takes it."""
+    su = setup(a, spatial)
     scenes, workdir = su.scenes, a.out_dir
+    spar = scenes.spar
     primary = mesh_primary()
     if primary:
         os.makedirs(workdir, exist_ok=True)
@@ -444,7 +478,7 @@ def _run(a) -> IllustraResult:
                 else:
                     # the last scene's spectrum rescaled, its optimizer
                     # state carried over
-                    gen_params = keep_chain(gen_params, a.keep)
+                    gen_params = keep_chain(gen_params, a.keep, spar)
                 out_name = su.out_name(num)
                 if a.verbose:
                     print(out_name)
@@ -466,6 +500,8 @@ def _run(a) -> IllustraResult:
                     pbar.upd if pbar is not None else None)
 
                 writer.flush()
+                # on a sharded canvas every rank gathers the spectrum
+                final = gen_params if spar is None else spar.full(gen_params)
                 if primary:
                     frames = img_list(tempdir)
                     if frames:
@@ -476,11 +512,11 @@ def _run(a) -> IllustraResult:
                     if a.save_pt:
                         # a bare tensor, as the reference saves it
                         save_pt('%s.pt' % os.path.join(workdir, out_name),
-                                gen_params)
+                                final)
                 res.out_names.append(out_name)
                 res.losses.append(losses)
                 res.step_seconds.append(secs)
-                res.params = gen_params
+                res.params = final
         except KeyboardInterrupt:
             print(' interrupted: assembling the finished scenes')
 
@@ -495,7 +531,8 @@ def _run(a) -> IllustraResult:
         os.makedirs(tempdir, exist_ok=True)
         if a.verbose:
             print(' rendering complete piece')
-        res.final_frames = crossfade(scenes.par, a.contrast,
+        res.final_frames = crossfade(FFTParameterizer(tuple(a.size), a.decay,
+                                                      a.colors), a.contrast,
                                      file_list(workdir, 'pt'), vsteps,
                                      tempdir, su.device, a.verbose)
         name = basename(a.in_txt) if a.in_txt else 'final'

@@ -22,8 +22,12 @@ into its buffers and replay.  The DA-V2 forward is a graph of its own.
 The host does not wait for a frame: the frame is pulled into pinned
 memory behind the replay, and the writer's threads encode it.  --mesh
 N|NxM|dcn runs the frames' steps over mesh ranks (`common.run_cli`), rank
-0 writing; --fleet runs the whole job on each host, as in JAX.  Still
-raising: --spatial (ROADMAP.md A.10b).
+0 writing; --fleet runs the whole job on each host, as in JAX.
+--spatial N (N > 1) shards the frame state over N ranks a data rank
+(`parallel/spatial.py`: `SpatialRGB`'s rows or `SpatialFFT`'s spectrum
+columns by --gen), with --mesh N|NxM as in JAX: each frame gathers the
+frame once for its motion (and depth) warp, trains the sharded state and
+renders the gathered frame.
 
     python -m aphantasia_torch.cli.illustrip -t scenes.txt
     python -m aphantasia_torch.cli.illustrip -t scenes.txt --gen FFT --smooth
@@ -43,9 +47,9 @@ import torch
 
 from aphantasia_torch.cli.common import (
     ClipWrapper, add_parallel_flags, apply_sample_budget,
-    build_prompt_groups, card_settings, check_ported, dualmod_steps,
-    frame_writer, maybe_translate, parse_size, resolve_dtype, resolve_persp,
-    run_cli, setup_mesh)
+    build_prompt_groups, card_settings, dualmod_steps, frame_writer,
+    maybe_translate, parse_size, resolve_dtype, resolve_persp, round_samples,
+    run_cli, setup_mesh, setup_spatial, spatial_canvas, spatial_count)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.media import (basename, file_list, frames_to_video,
                                        img_read)
@@ -138,7 +142,7 @@ def get_args(argv=None):
     parser.add_argument('--precision', default='auto', choices=['auto', 'bf16', 'fp32'])
     parser.add_argument('--seed', default=0, type=int)
     parser.add_argument('--spatial', default=0, type=int,
-                        help='not ported: spatially sharded canvases')
+                        help='Shard the frame state spatially over N ranks')
     add_parallel_flags(parser)
     a = parser.parse_args(argv)
     if a.dualmod is not None and a.dualmod < 1:
@@ -207,10 +211,18 @@ class IllustripSetup:
     tempdir: str
     workname: str
     mesh: object = None           # this rank's parallel.mesh.Mesh, or None
+    spar: object = None           # the sharded canvas under --spatial
 
     def frame_steps(self) -> list:
         """One frame step per tower."""
         a = self.a
+        if self.spar is not None:
+            from aphantasia_torch.parallel.spatial import (
+                build_spatial_frame_step)
+            return [build_spatial_frame_step(
+                self.spar, self.sampler, cfg, self.settings, self.optimizer,
+                a.opt_step, a.smooth, a.contrast, deptha=self.deptha,
+                depth=a.depth) for cfg, _, _ in self.towers]
         return [build_frame_step(
             self.par, self.sampler, cfg, self.settings, self.optimizer,
             a.gen, tuple(a.size), a.opt_step, a.smooth, a.contrast,
@@ -221,6 +233,10 @@ class IllustripSetup:
         """`build_depth_helpers`' pair, or None without the depth warp."""
         if self.deptha is None or self.a.depth <= 0:
             return None
+        if self.spar is not None:
+            from aphantasia_torch.parallel.spatial import (
+                build_spatial_depth_helpers)
+            return build_spatial_depth_helpers(self.spar, self.deptha)
         return build_depth_helpers(self.a.gen, tuple(self.a.size),
                                    self.deptha, self.a.colors)
 
@@ -296,8 +312,10 @@ def _seeded(*seed, device="cpu") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def setup(a) -> IllustripSetup:
-    check_ported(a)
+def setup(a, spatial=None) -> IllustripSetup:
+    """The run's pieces; under a spatial axis (`common.spatial_count`)
+    the frame state is this rank's shard of the sharded canvas."""
+    spatial = spatial_count(a, spatial)
     device = resolve_device(a.device)
     dtype = resolve_dtype(a.precision, device)
     card_settings(device)
@@ -315,7 +333,9 @@ def setup(a) -> IllustripSetup:
         clips.append(ClipWrapper('ViT-B/16', device, a.clip_weights,
                                  generator=seeded(a.seed)))
         print(' dual model every %d step' % a.dualmod)
-    mesh = setup_mesh(getattr(a, 'mesh', None), clips, a.verbose)
+    mesh = (setup_spatial(spatial, getattr(a, 'mesh', None), clips, a.verbose)
+            if spatial else setup_mesh(getattr(a, 'mesh', None), clips,
+                                       a.verbose))
     aests = [None] * len(clips)
     if a.aest != 0 and aesthetic_dims(a.model):
         aests = [aesthetic_get(seeded(7 + i, device), c.name, a.aest_weights)
@@ -421,6 +441,14 @@ def setup(a) -> IllustripSetup:
     par = (PixelParameterizer(tuple(a.size), a.colors, a.fixcontrast)
            if a.gen == 'RGB'
            else FFTParameterizer(tuple(a.size), 1.0, a.colors))
+    spar = None
+    draw_shape = tuple(params.shape)
+    if spatial:
+        a.samples = round_samples(a.samples, mesh, a.verbose)
+        spar = spatial_canvas(a.gen.lower(), a.size, mesh, 1.0, a.colors,
+                              fixcontrast=a.fixcontrast)
+        params = spar.shard(params)
+        draw_shape = spar.draw_shape
     sampler = CutoutSampler(tuple(a.size), a.samples, a.modsize, a.align,
                             a.macro, use_pallas=a.pallas)
     settings = StepSettings(
@@ -430,11 +458,12 @@ def setup(a) -> IllustripSetup:
         total_steps=a.steps, rgb_anchors=(a.gen == 'RGB'),
         transform=a.transform, persp=resolve_persp(a.persp), clip_dtype=dtype)
     optimizer = build_optimizer(a.optimizer, a.lrate)
-    draw = build_draw_fn(sampler, settings, tuple(params.shape))
+    draw = build_draw_fn(sampler, settings, draw_shape)
     towers = [(c.cfg, c.vision(dtype), ae) for c, ae in zip(clips, aests)]
     return IllustripSetup(a, device, par, sampler, settings, optimizer, draw,
                           gen, params, towers, encs, texts, styles, count,
-                          schedule, deptha, workdir, tempdir, workname, mesh)
+                          schedule, deptha, workdir, tempdir, workname, mesh,
+                          spar)
 
 
 def run(a) -> IllustripResult:
@@ -442,8 +471,9 @@ def run(a) -> IllustripResult:
     return run_cli(a, _run)
 
 
-def _run(a) -> IllustripResult:
-    su = setup(a)
+def _run(a, spatial=None) -> IllustripResult:
+    """The run on this rank; `spatial` as `setup` takes it."""
+    su = setup(a, spatial)
     fss = su.frame_steps()
     helpers = su.depth_helpers()
     h, w = a.size
@@ -523,7 +553,8 @@ def _run(a) -> IllustripResult:
         torch.cuda.synchronize(su.device)
     res.end = time.perf_counter()
     res.losses = [l.tolist() for l in res.losses]
-    res.params = params
+    # on a sharded canvas every rank gathers the canonical state
+    res.params = params if su.spar is None else su.spar.full(params)
     if mesh_primary():
         res.video = frames_to_video(su.tempdir, os.path.join(
             su.workdir, su.workname + '.mp4'), pattern='%06d.jpg')

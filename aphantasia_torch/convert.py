@@ -2,7 +2,8 @@
 port's tensors: the CLIP parameter tree of `clip_init`, FFT spectrum and
 DWT pyramid params, the CPPN and SIREN layers, the aesthetic head, the
 LPIPS weights, the VQGAN decoder of `vqgan_init` / `convert_taming`, optax
-Adam/AMSGrad states and the Depth-Anything-V2 tree of `dav2_init`.  The
+Adam/AMSGrad states and the Depth-Anything-V2 tree of `dav2_init`, and a
+rank's shard of a sharded canvas (`spatial_shard_from_numpy`).  The
 only place where layouts change: the port keeps the JAX layouts (linear
 weights [in, out], merged qkv, [1,3,H,W//2+1,2] spectra, the pyramid
 list), so those conversions are device/dtype moves of the same arrays;
@@ -136,3 +137,21 @@ def opt_state_from_optax(state, device="cpu") -> OptState:
             except ValueError:
                 continue
     raise ValueError("no Adam/AMSGrad state found in the optax state")
+
+
+def spatial_shard_from_numpy(spar, params, opt_state=None, device="cpu"):
+    """A rank's part of canonical (unpadded) params in the JAX layout (a
+    spectrum, RGB pixels or the DWT pyramid, as numpy) and of an optax
+    state over them, for the sharded canvas `spar`
+    (parallel/spatial.py, parallel/spatial_dwt.py), padded as
+    `spar.shard` pads: (params, OptState or None)."""
+    def shard(tree):
+        if isinstance(tree, (list, tuple)):
+            return spar.shard([_tensor(p, device).float() for p in tree])
+        return spar.shard(_tensor(tree, device).float())
+    state = None
+    if opt_state is not None:
+        full = opt_state_from_optax(opt_state, device)
+        state = OptState(full.count, shard(full.mu), shard(full.nu),
+                         None if full.nu_max is None else shard(full.nu_max))
+    return shard(params), state

@@ -71,14 +71,16 @@ class _Contract(torch.autograd.Function):
     d_tmp) rounded to the compute dtype `dt` and the second summed and
     returned in float32, as the JAX einsums ask.  The contraction order
     keeps the materialized [S,C,M,*] intermediate at min(H, W): W is
-    contracted first when H < W (the 1280x720 case), H first otherwise.
+    contracted first when H < W (the 1280x720 case), H first otherwise,
+    unless `w_first` says which (the spatial cut contracts W first).
     wy/wx are constants of the random draw and get no gradient."""
 
     @staticmethod
-    def forward(ctx, img, wy, wx, dt):
+    def forward(ctx, img, wy, wx, dt, w_first=None):
         ctx.save_for_backward(wy, wx)
         ctx.dt = dt
-        ctx.w_first = img.shape[1] < img.shape[2]
+        ctx.w_first = (img.shape[1] < img.shape[2] if w_first is None
+                       else w_first)
         x = img.to(dt)
         s, m, _ = wy.shape
         c = x.shape[0]
@@ -95,11 +97,11 @@ class _Contract(torch.autograd.Function):
     def backward(ctx, g):
         wy, wx = ctx.saved_tensors
         return (_contract_bwd(g, wy, wx, ctx.dt, ctx.w_first),
-                None, None, None)
+                None, None, None, None)
 
 
-def _contract(img, wy, wx, dt):
-    return _Contract.apply(img, wy, wx, dt)
+def _contract(img, wy, wx, dt, w_first=None):
+    return _Contract.apply(img, wy, wx, dt, w_first)
 
 
 class _WinCut(torch.autograd.Function):

@@ -21,8 +21,12 @@ Surfaces
   [mode] [--device cpu|cuda]`: one host of the witness.  It joins the
   fleet (COORD 'none' for WORLD 1), runs one deterministic tiny train
   step over the global data axis on NLOCAL ranks, and writes a JSON
-  record with the loss and digest.  Mode 'spatial' (the sharded canvas)
-  is not ported yet (ROADMAP.md A.10b).
+  record with the loss and digest.  Mode 'spatial' runs one sharded-canvas
+  step (parallel/spatial.py) over a ('data', 'spatial') mesh of the same
+  ranks (`make_mesh_dcn_spatial`): data = the hosts, spatial = a host's
+  ranks, so the FFT transpose stays within a host and the gradient sum
+  crosses hosts; one host splits its ranks into data 2, as the JAX
+  witness's one-process anchor does.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ import torch
 import torch.distributed as dist
 
 from aphantasia_torch.parallel import multihost
-from aphantasia_torch.parallel.mesh import (Plan, free_port, launch,
-                                            local_devices, make_mesh)
+from aphantasia_torch.parallel.mesh import (Plan, _grid_mesh, free_port,
+                                            launch, local_devices, make_mesh)
 
 
 def plan_dcn(n_local: int | None = None, device: str = "cuda") -> Plan:
@@ -66,6 +70,24 @@ def make_mesh_dcn():
     """The global 1-D data mesh of a rank of a `plan_dcn` launch (its
     group is the launch's, hosts outer)."""
     return make_mesh(axes=("data",))
+
+
+def make_mesh_dcn_spatial(data: int | None = None):
+    """The ('data', 'spatial') mesh of a rank of a `plan_dcn` launch: one
+    data row a host (hosts outer), its ranks the spatial axis.  With one
+    host, `data` splits its ranks into that many rows (the anchor of the
+    JAX witness); with several, `data` must be the host count."""
+    hosts = multihost.fleet_info()[1]
+    world = dist.get_world_size()
+    if hosts == 1 and data and data > 1:
+        rows = data
+    elif data and data != hosts:
+        raise ValueError(f"data={data} != hosts={hosts}")
+    else:
+        rows = hosts
+    if world % rows:
+        raise ValueError(f"{world} ranks do not split into {rows} data rows")
+    return _grid_mesh(rows, 1, ("data", "spatial"), world // rows)
 
 
 def _tiny():
@@ -126,8 +148,60 @@ def witness_step(mesh, inputs: dict | None = None):
     return float(loss), float(params.abs().sum())
 
 
+def witness_spatial_step(mesh, inputs: dict | None = None):
+    """One deterministic sharded-canvas train step over a ('data',
+    'spatial') mesh, as the JAX spatial witness runs it: the tiny CLIP, a
+    (16 S)x64 spectrum (`SpatialFFT`), max(2 D, 4) cutouts, the `fast`
+    pipeline, adam_custom at 0.05.  Returns (loss, digest), digest = sum
+    |params| over the whole spectrum after the update.  `inputs` as
+    `witness_step` takes them, "params" the canonical spectrum."""
+    from aphantasia_torch.convert import clip_params_from_numpy
+    from aphantasia_torch.models.clip.model import clip_init
+    from aphantasia_torch.ops.optim import build_optimizer
+    from aphantasia_torch.ops.sampler import CutoutSampler
+    from aphantasia_torch.parallel.spatial import (SpatialFFT,
+                                                   build_spatial_train_step)
+    from aphantasia_torch.step import StepSettings, build_draw_fn, to_device
+    cfg = _tiny()
+    dev = mesh.device
+    size = (16 * mesh.size("spatial"), 64)
+    samples = max(2 * mesh.size("data"), 4)
+    spar = SpatialFFT(size, 1.5, 1.8, mesh)
+    sampler = CutoutSampler(size, samples, cfg.image_resolution,
+                            align="uniform", macro=0.4)
+    settings = StepSettings(sim="mix", transform="fast", total_steps=10)
+    optimizer = build_optimizer("adam_custom", 0.05)
+    step = build_spatial_train_step(spar, sampler, cfg, settings, optimizer)
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    if inputs is None:
+        clip = clip_init(seeded(0), cfg)
+        params = spar.init(seeded(1), sd=0.01)
+        embs = torch.randn((1, cfg.embed_dim), generator=seeded(2),
+                           device=dev)
+        draws = build_draw_fn(sampler, settings, spar.draw_shape)(seeded(3))
+    else:
+        clip = clip_params_from_numpy(inputs["clip"], dev)
+        params = spar.shard(torch.as_tensor(inputs["params"]).to(dev))
+        embs = torch.as_tensor(inputs["embs"])
+        draws = inputs["draws"]
+    prompts = ((embs.to(dev), torch.ones((1,), device=dev), -1.0),)
+    prev = torch.zeros((samples, cfg.embed_dim), device=dev)
+    params, _, _, loss = step(params, optimizer.init(params), prev, clip,
+                              None, None, prompts, to_device(draws, dev), 0)
+    digest = params.abs().sum().reshape(1)
+    dist.all_reduce(digest, group=mesh.spatial_group)
+    return float(loss), float(digest[0])
+
+
 def _witness_rank():
     return witness_step(make_mesh_dcn())
+
+
+def _witness_spatial_rank(world: int):
+    return witness_spatial_step(
+        make_mesh_dcn_spatial(2 if world == 1 else None))
 
 
 def main(argv=None):
@@ -141,20 +215,22 @@ def main(argv=None):
     rank, world, coord, n_local, out_path = (
         int(argv[0]), int(argv[1]), argv[2], int(argv[3]), argv[4])
     mode = argv[5] if len(argv) > 5 else "data"
-    if mode == "spatial":
-        raise NotImplementedError(
-            "the spatial witness (a data x spatial mesh) is not ported to "
-            "aphantasia_torch yet; see ROADMAP.md A.10b")
-    if mode != "data":
+    if mode not in ("data", "spatial"):
         raise ValueError(f"unknown witness mode {mode!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu")
     spec = f"{rank}/{world}" + (f"@{coord}" if world > 1 else "")
     multihost.init_fleet(spec)
     plan = plan_dcn(n_local, device)
-    loss, digest = launch(_witness_rank, (), plan)
+    if mode == "spatial":
+        rows = 2 if world == 1 else world
+        shape = {"data": rows, "spatial": plan.world // rows}
+        loss, digest = launch(_witness_spatial_rank, (world,), plan)
+    else:
+        shape = {"data": plan.world}
+        loss, digest = launch(_witness_rank, (), plan)
     rec = {"rank": rank, "world": world, "n_devices": plan.world,
-           "n_local": plan.n_local, "mesh": {"data": plan.world},
+           "n_local": plan.n_local, "mesh": shape,
            "loss": loss, "digest": digest}
     with open(out_path, "w") as f:
         json.dump(rec, f)

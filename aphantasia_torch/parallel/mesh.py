@@ -5,8 +5,9 @@ The JAX package has one process drive every device and lets XLA insert
 the collectives.  The port runs one process per rank: rank r works on
 `cuda:<local rank>` over NCCL, or with `--device cpu` on the CPU over
 gloo (the backend follows from the device), and the collectives are
-written out here.  Ranks lie on a (data, model) grid with the model axis
-innermost: global rank r = d * model + m.
+written out here.  Ranks lie on a (data, model, spatial) grid with the
+spatial axis innermost, then the model axis: global rank r = (d * model
++ m) * spatial + s (spatial = 1 without `--spatial`).
 
 * The data axis splits a step's cutouts: each rank cuts, augments and
   encodes its own rows (`Mesh.rows`; shard sizes differ by one when the
@@ -19,6 +20,9 @@ innermost: global rank r = d * model + m.
   (`shard_clip_params`): each rank holds a group of heads of the
   attention and a slice of the MLP, and the blocks all-reduce over the
   model axis (`copy_to_model`, `reduce_from_model`; models/clip/model.py).
+* The spatial axis (`make_mesh_spatial`, `--spatial`) shards the canvas
+  itself: each rank holds a part of the params and decodes its rows of
+  the image (parallel/spatial.py, parallel/spatial_dwt.py).
 
 `launch` starts the ranks of a mesh: one process per local rank (start
 method spawn), each joining the mesh's group, the results sent back to
@@ -50,22 +54,32 @@ _MESH_RANK = None       # this process's global mesh rank, inside a mesh
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's view of a (data[, model]) mesh: the axis names, their
-    sizes, the rank's coordinates and device, and the group of its data
-    column (the ranks that share its model coordinate).  The group of its
-    model row (the ranks that share its data coordinate) is the process's
-    `_MODEL_GROUP`, which the sharded blocks read."""
+    """This rank's view of a (data[, model][, spatial]) mesh: the axis
+    names, their sizes, the rank's coordinates and device, the group of
+    its data column (the ranks that share its model and spatial
+    coordinates) and, with a spatial axis, the group of the ranks that
+    share its data and model coordinates.  The group of its model row
+    (the ranks that share its data and spatial coordinates) is the
+    process's `_MODEL_GROUP`, which the sharded blocks read.  An axis the
+    mesh lacks has size 1 and coordinate 0 (`size`, `coord`)."""
     axis_names: tuple
     shape: dict
     rank: int
     coords: dict
     device: torch.device
     data_group: Any
+    spatial_group: Any = None
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
 
     def sizes(self, n: int) -> list:
         """The rows of each data rank, `n` split as evenly as it goes (the
         first n % data ranks take one more)."""
-        k = self.shape["data"]
+        k = self.size("data")
         if n < k:
             raise ValueError(f"{n} samples cannot be split over a data axis "
                              f"of {k}")
@@ -74,7 +88,7 @@ class Mesh:
     def rows(self, n: int) -> slice:
         """This rank's rows of `n` samples."""
         sizes = self.sizes(n)
-        d = self.coords["data"]
+        d = self.coord("data")
         lo = sum(sizes[:d])
         return slice(lo, lo + sizes[d])
 
@@ -90,30 +104,46 @@ def _device() -> torch.device:
     return torch.device("cpu")
 
 
-def _grid_mesh(data: int, model: int, axes: tuple) -> Mesh:
+def _grid_mesh(data: int, model: int, axes: tuple, spatial: int = 1) -> Mesh:
     """The Mesh of this rank on the initialised default group, which must
-    hold data * model ranks.  Every rank creates every group, in one
-    order, as torch.distributed asks."""
+    hold data * model * spatial ranks; `axes` names the axes the mesh has
+    ("data", "model", "spatial" in that order, any of them absent).  Every
+    rank creates every group, in one order, as torch.distributed asks."""
     global _MODEL_GROUP
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"mesh {data}x{model} needs {data * model} "
+    sizes = {"data": data, "model": model, "spatial": spatial}
+    n = data * model * spatial
+    if world != n:
+        raise ValueError(f"mesh {({a: sizes[a] for a in axes})} needs {n} "
                          f"devices, have {world}")
     rank = dist.get_rank()
-    d, m = divmod(rank, model)
-    data_group = model_grp = None
+    dm, s = divmod(rank, spatial)
+    d, m = divmod(dm, model)
+
+    def r(dd, mm, ss):
+        return (dd * model + mm) * spatial + ss
+    data_group = model_grp = spatial_grp = None
     for mm in range(model):
-        g = dist.new_group([dd * model + mm for dd in range(data)])
-        if mm == m:
-            data_group = g
+        for ss in range(spatial):
+            g = dist.new_group([r(dd, mm, ss) for dd in range(data)])
+            if (mm, ss) == (m, s):
+                data_group = g
     for dd in range(data):
-        g = dist.new_group([dd * model + mm for mm in range(model)])
-        if dd == d:
-            model_grp = g
+        for ss in range(spatial):
+            g = dist.new_group([r(dd, mm, ss) for mm in range(model)])
+            if (dd, ss) == (d, s):
+                model_grp = g
+    if "spatial" in axes:
+        for dd in range(data):
+            for mm in range(model):
+                g = dist.new_group([r(dd, mm, ss) for ss in range(spatial)])
+                if (dd, mm) == (d, m):
+                    spatial_grp = g
     _MODEL_GROUP = model_grp if model > 1 else None
-    shape = {"data": data, "model": model} if len(axes) == 2 else {"data": data}
-    coords = {"data": d, "model": m} if len(axes) == 2 else {"data": d}
-    return Mesh(tuple(axes), shape, rank, coords, _device(), data_group)
+    coords = {"data": d, "model": m, "spatial": s}
+    return Mesh(tuple(axes), {a: sizes[a] for a in axes}, rank,
+                {a: coords[a] for a in axes}, _device(), data_group,
+                spatial_grp)
 
 
 def make_mesh(n_devices: int | None = None, axes=("data",)) -> Mesh:
@@ -133,6 +163,25 @@ def make_mesh(n_devices: int | None = None, axes=("data",)) -> Mesh:
 def make_mesh_2d(data: int, model: int) -> Mesh:
     """The explicit data x model mesh of an 'NxM' spec, model innermost."""
     return _grid_mesh(data, model, ("data", "model"))
+
+
+def make_mesh_spatial(spatial: int, mesh_spec=None) -> Mesh:
+    """The canvas axis composed with the cutout axes of a --mesh spec:
+    ('data'[, 'model'], 'spatial') with the spatial axis innermost, as
+    the JAX package lays it out ('N' a data axis, 'NxM' data x model; no
+    spec, '0' or '1' the spatial axis alone).  'dcn' raises, as int()
+    does on it in JAX."""
+    axes, dims = [], {"data": 1, "model": 1}
+    if mesh_spec and str(mesh_spec) not in ("0", "1"):
+        s = str(mesh_spec).lower()
+        if "x" in s:
+            dims["data"], dims["model"] = (int(v) for v in s.split("x"))
+            axes += ["data", "model"]
+        else:
+            dims["data"] = int(s)
+            axes += ["data"]
+    return _grid_mesh(dims["data"], dims["model"], tuple(axes) + ("spatial",),
+                      int(spatial))
 
 
 # ------------------------------------------------------------- collectives
@@ -191,17 +240,24 @@ def replicated(x, mesh: Mesh | None):
     so it passes on data rank 0 only, and the sum over the data axis
     (`reduce_grads`) counts it once.  The identity without a mesh or on
     data rank 0."""
-    if mesh is None or mesh.coords["data"] == 0:
+    if mesh is None or mesh.coord("data") == 0:
         return x
     return _CountOnce.apply(x, False)
 
 
 @torch.no_grad()
 def reduce_grads(grads, mesh: Mesh) -> None:
-    """Sum the generator's gradients over the data axis, in place."""
+    """Sum the generator's gradients over the data axis, in place.  A
+    gradient autograd leaves strided (the DWT pyramid's Yl, from the crop
+    of the coarsest synthesis) is summed in a contiguous copy: gloo sums
+    the storage in memory order, which a strided view does not share
+    element for element."""
     for g in grads:
-        dist.all_reduce(g, group=mesh.data_group)
+        buf = g if g.is_contiguous() else g.contiguous()
+        dist.all_reduce(buf, group=mesh.data_group)
         _count("all_reduce")
+        if buf is not g:
+            g.copy_(buf)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -278,7 +334,7 @@ def shard_clip_params(params: dict, mesh_or_coords, cfg) -> dict:
     `mesh_or_coords` is a Mesh or a (model rank, model size) pair.  Raises
     when the model size does not divide a tower's heads."""
     if isinstance(mesh_or_coords, Mesh):
-        m, k = mesh_or_coords.coords["model"], mesh_or_coords.shape["model"]
+        m, k = mesh_or_coords.coord("model"), mesh_or_coords.size("model")
     else:
         m, k = mesh_or_coords
     if k == 1:

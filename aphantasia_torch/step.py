@@ -648,16 +648,16 @@ class FrameStep:
     def __init__(self, parameterizer, sampler, clip_cfg, settings, optimizer,
                  gen: str, size, opt_steps: int, smooth: bool,
                  contrast: float, deptha, depth: float, colors: float,
-                 mesh=None):
+                 mesh=None, train_step=None, render=None):
         self.par, self.optimizer = parameterizer, optimizer
         self.gen, self.size = gen, tuple(size)
         self.opt_steps, self.smooth, self.contrast = opt_steps, smooth, contrast
         self.depth, self.colors = depth, colors
         # the JAX gate: zero or negative strength disables the warp
         self.with_depth = deptha is not None and depth > 0.0
-        self.train_step = build_train_step(parameterizer, sampler, clip_cfg,
-                                           settings, optimizer, mesh)
-        self.render = build_render(parameterizer)
+        self.train_step = train_step or build_train_step(
+            parameterizer, sampler, clip_cfg, settings, optimizer, mesh)
+        self.render = render or build_render(parameterizer)
         self.groups: dict = {}
 
     def decode_raw(self, params):
@@ -668,16 +668,22 @@ class FrameStep:
                 else params)
 
     def motion_warp(self, params, motion, depth_map=None):
-        """The frame's motion on the params: decode, the depth warp (with
-        depth), `frame_transform` and, for FFT, the spectrum again.
-        `motion` is the [5] float32 tensor (angle, shift x, shift y,
-        scale, shear); the warp origin dx = 100 sh0 / w, dy = 100 sh1 / h,
-        dz = 0.5 + 32 (scale - 1) is computed on its device."""
-        from aphantasia_torch.ops.warp import frame_transform
+        """The frame's motion on the params: decode, `warp_frame` and, for
+        FFT, the spectrum again."""
         from aphantasia_torch.params.fft import image_to_spectrum
+        img = self.warp_frame(self.decode_raw(params), motion, depth_map)
+        return (image_to_spectrum(img, self.size) if self.gen == "FFT"
+                else img)
+
+    def warp_frame(self, img, motion, depth_map=None):
+        """The frame's motion on its image [1,3,H,W]: the depth warp (with
+        depth), then `frame_transform`.  `motion` is the [5] float32
+        tensor (angle, shift x, shift y, scale, shear); the warp origin
+        dx = 100 sh0 / w, dy = 100 sh1 / h, dz = 0.5 + 32 (scale - 1) is
+        computed on its device."""
+        from aphantasia_torch.ops.warp import frame_transform
         h, w = self.size
         angle, sh0, sh1, scale, shear = motion.unbind(0)
-        img = self.decode_raw(params)
         if self.with_depth:
             from aphantasia_torch.motion.depthwarp import grid_warp
             # true divisions on every device (a CUDA tensor divided by a
@@ -687,8 +693,7 @@ class FrameStep:
             dz = 0.5 + 32.0 * (scale - 1.0)
             d = resize_bicubic(depth_map, (h, w))
             img = grid_warp(img, d[0], self.depth, (dx, dy), dz)
-        img = frame_transform(img, (h, w), angle, (sh0, sh1), scale, shear)
-        return image_to_spectrum(img, (h, w)) if self.gen == "FFT" else img
+        return frame_transform(img, (h, w), angle, (sh0, sh1), scale, shear)
 
     def preview(self, params):
         """The depth preview of the frame state (`_depth_preview`)."""

@@ -114,6 +114,25 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            processes without a coordinator (one from `--fleet 1/2`, one
            from APHANTASIA_FLEET=0/2), the frames equal to one process's
            byte for byte.  Every child is stopped when the phase ends.
+  spatial  the spatial canvases (ROADMAP.md A.10b) through the CLIs'
+           spatial set-up (`setup(a, spatial=1)`, `_run(a, spatial=1)`)
+           on a spatial axis of one NCCL rank (the card's one GPU), at
+           published widths: (ag) `clip_fft` at its defaults (ViT-B/32,
+           1280x720, 190 cutouts, the chunked path, 8 steps) and (ah) the
+           same with `--dwt` (coif2), each against the dense run: the
+           spatial decode and float32 cut from the same params and draws
+           (2e-4), each step's loss and gradient from the dense
+           trajectory's params in float32 without augmentations (1e-5,
+           1e-4; bf16 with `fast` printed), the eager steps twice and
+           replayed from CUDA graphs, bit for bit, the collectives a step
+           counted per replay, steady steps/s in turns and device ms a
+           step by replay; (ai) `illustrip --gen FFT --depth 1` and (aj)
+           `--gen RGB` at 95 cutouts (`--opt_step 2`): the first frame's
+           warp, depth preview, loss and gradient against the dense frame
+           step, eager frames twice against replayed ones, the collectives
+           a frame, frames/min of the CLI spatial and dense; (ak) one
+           frame group of `clip_fft --size 3840-2160`, spatial against
+           dense: device ms by replay and peak memory.
   cudnn    (only when asked for) the (j) loop path with cuDNN's
            nondeterministic algorithms allowed: device ms and bits.
   profile  (only when asked for) torch.profiler over steady replayed steps
@@ -2535,11 +2554,18 @@ def _loop_eager(su, a, start):
     loss read after each step, the frame after each render."""
     import torch
     from aphantasia_torch import kernels
+    from aphantasia_torch.parallel import spatial
     from aphantasia_torch.step import build_render, build_train_step
     su.gen.set_state(start)
-    steps = [build_train_step(su.par, su.sampler, t.cfg, su.settings,
-                              su.optimizer, su.mesh) for t in su.towers]
-    render = build_render(su.par)
+    if isinstance(su.par, spatial.SpatialCanvas):
+        steps = [spatial.build_spatial_train_step(
+            su.par, su.sampler, t.cfg, su.settings, su.optimizer)
+            for t in su.towers]
+        render = spatial.build_spatial_render(su.par)
+    else:
+        steps = [build_train_step(su.par, su.sampler, t.cfg, su.settings,
+                                  su.optimizer, su.mesh) for t in su.towers]
+        render = build_render(su.par)
     p, st, prev = _fresh(su)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2571,12 +2597,18 @@ def _loop_replayed(su, a, start, nf):
     groups of that pattern, over the steps."""
     import torch
     from aphantasia_torch import kernels
+    from aphantasia_torch.parallel import spatial
     from aphantasia_torch.step import build_train_loop_frames
     su.gen.set_state(start)
-    loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
-                                   su.settings, su.optimizer, a.opt_step, nf,
-                                   contrast=a.contrast, dual=su.dual,
-                                   mesh=su.mesh)
+    if isinstance(su.par, spatial.SpatialCanvas):
+        loop = spatial.build_spatial_train_loop_frames(
+            su.par, su.sampler, su.clip_cfg, su.settings, su.optimizer,
+            a.opt_step, nf, contrast=a.contrast, dual=su.dual)
+    else:
+        loop = build_train_loop_frames(su.par, su.sampler, su.clip_cfg,
+                                       su.settings, su.optimizer, a.opt_step,
+                                       nf, contrast=a.contrast, dual=su.dual,
+                                       mesh=su.mesh)
     p, st, prev = _fresh(su)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3884,9 +3916,376 @@ def phase_mesh(steps: int = 8):
     _mesh_interpol_fleet(_mesh_illustra_fleet(steps))
 
 
+# ---------------------------------------------------------------- spatial
+
+SP_KEYS = ("sp_all_reduce", "sp_all_to_all", "sp_all_gather", "sp_halo")
+# the spatial collectives a step launches at one rank (no halo: n = 1):
+# FFT: the decode's all-to-all and moments, the cuts' sum, the moments'
+# and the all-to-all's backward, and the render's decode and row gather;
+# DWT: the decode's moments, the cuts' sum, the moments' backward, the
+# whole leaves' gradient sum and the render's moments and row gather
+SP_STEP = {"fft": {"sp_all_reduce": 4, "sp_all_to_all": 3,
+                   "sp_all_gather": 1},
+           "dwt": {"sp_all_reduce": 5, "sp_all_gather": 1}}
+# an illustrip frame of opt_step 2: the warp's raw decode, row gather and
+# encode, two steps, the render, and with depth the preview's raw decode
+# and gather (RGB: no transform; the anchors' sums a step)
+SP_FRAME = {"FFT --depth 1": {"sp_all_to_all": 8, "sp_all_reduce": 7,
+                              "sp_all_gather": 3},
+            "RGB": {"sp_all_reduce": 9, "sp_all_gather": 2}}
+
+
+def _spatial_launch(fn, *args):
+    """fn(*args) on a spatial axis of one NCCL rank: an in-process group of
+    one rank on the card (NCCL refuses two ranks on one GPU)."""
+    from aphantasia_torch.parallel import multihost
+    from aphantasia_torch.parallel.mesh import Plan, free_port, launch
+    multihost._reset_for_tests()
+    return launch(fn, args, Plan(1, f"127.0.0.1:{free_port()}", "cuda"))
+
+
+def _sp_counts(launches, scale=1):
+    return {k: v // scale for k, v in launches.items() if k in SP_KEYS}
+
+
+def _loss_grad(loss_fn, params, consts, prev, draws, i, spar=None):
+    """(loss, gradient leaves) of loss_fn at `params`; with `spar` the
+    whole leaves' gradients summed over its group and the gradient
+    gathered to the canonical layout."""
+    import torch
+    from aphantasia_torch.ops.optim import leaves
+    ps = [x.detach().clone().requires_grad_(True) for x in leaves(params)]
+    loss, _ = loss_fn(ps if isinstance(params, list) else ps[0], *consts,
+                      prev, draws, i)
+    g = list(torch.autograd.grad(loss, ps))
+    loss = loss.detach()
+    if spar is not None:
+        spar.reduce_grads(g)
+        full = spar.full(g if isinstance(params, list) else g[0])
+        g = full if isinstance(full, list) else [full]
+    return float(loss), g
+
+
+def _grad_err(gs, gd) -> float:
+    """||gs - gd|| / ||gd|| over every leaf."""
+    num = sum(float((a.double() - b.double()).pow(2).sum())
+              for a, b in zip(gs, gd))
+    den = sum(float(b.double().pow(2).sum()) for b in gd)
+    return math.sqrt(num / den)
+
+
+# the spatial step at one rank differs from the dense step only in the
+# frame's float32 rounding (a one-pass variance, the pad-free ifft/irfft
+# split; 2e-7 of the frame).  Held in float32 without the augmentations
+# (`--precision fp32 -tf none`: the `fast` pipeline warps in bf16), the
+# loss and the gradient move by ~1e-7 and ~1e-6 of themselves (the CPU
+# rehearsal at a tiny size), and the bounds are ten times that and more.
+# In bf16 with the default `fast` pipeline a cut element whose float32
+# value moved may round to the other bf16 neighbour, 2^-8 away, and the
+# tower's bf16 backward spreads such flips: those numbers are printed,
+# not bounded.
+SP_LOSS_REL, SP_GRAD_REL = 1e-5, 1e-4
+
+
+def _spatial_checks(su_d, su_s, steps: int) -> dict:
+    """The decode and the float32 cut of the sharded canvas against the
+    dense ones from the same params and draws (2e-4), then each step's
+    loss and gradient from the dense trajectory's params (its own draws,
+    free running): the worst relative errors."""
+    import torch
+    from aphantasia_torch.ops.optim import leaves
+    from aphantasia_torch.parallel.spatial import build_spatial_loss_fn
+    from aphantasia_torch.step import build_loss_fn, build_train_step
+    spar, par = su_s.par, su_d.par
+    p0 = su_d.gen_params
+    s0 = su_s.gen_params
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(spar.full(s0)), leaves(p0)))
+    with torch.no_grad():
+        img = par.image(p0)
+        rgb = spar.rgb_rows(s0)
+        h = img.shape[2]
+        dec = (rgb[:, :, :h] - img).abs().max().item()
+        d = su_d.draw(su_d.gen)
+        wy, wx = su_s.sampler.weight_matrices(d.cuts.boxes)
+        cut_d = su_d.sampler.cut(img, d.cuts.boxes, compute_dtype=torch.float32)
+        cut_s = spar.cut(rgb, spar.pad_wy(wy), wx, torch.float32)
+        cut = ((cut_s - cut_d).abs().max() / cut_d.abs().max()).item()
+    lf_d = build_loss_fn(par, su_d.sampler, su_d.clip_cfg, su_d.settings)
+    lf_s = build_spatial_loss_fn(spar, su_s.sampler, su_s.clip_cfg,
+                                 su_s.settings)
+    step = build_train_step(par, su_d.sampler, su_d.clip_cfg, su_d.settings,
+                            su_d.optimizer)
+    p = [x.clone() for x in p0] if isinstance(p0, list) else p0.clone()
+    st = su_d.optimizer.init(p)
+    prev = torch.zeros((su_d.sampler.count, su_d.clip_cfg.embed_dim),
+                       device=su_d.gen.device)
+    loss_err = grad_err = 0.0
+    for i in range(steps):
+        d = su_d.draw(su_d.gen)
+        ld, gd = _loss_grad(lf_d, p, su_d.consts(0), prev, d, i)
+        ls, gs = _loss_grad(lf_s, spar.shard(p), su_s.consts(0), prev, d, i,
+                            spar)
+        loss_err = max(loss_err, abs(ls - ld) / abs(ld))
+        grad_err = max(grad_err, _grad_err(gs, gd))
+        p, st, prev, _ = step(p, st, prev, *su_d.consts(0), d, i)
+    return {"same_start": same, "decode": dec, "cut": cut,
+            "loss": loss_err, "grad": grad_err}
+
+
+def _spatial_clip_fft(label: str, kind: str, flags, steps: int):
+    """(ag) or (ah): clip_fft at its defaults (ViT-B/32, 1280x720, 190
+    cutouts, the chunked path) through its spatial set-up on one NCCL
+    rank against the dense run."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import clip_fft
+    name = torch.cuda.get_device_name(0)
+    base = ["-t", "a lighthouse on a cliff at dawn", "--steps", str(steps),
+            "-nv", "--seed", "1"] + flags
+
+    def args(tag, extra=()):
+        out = os.path.join(OUT_DIR, "spatial", kind, tag)
+        shutil.rmtree(out, ignore_errors=True)
+        return clip_fft.get_args(base + ["--out_dir", out] + list(extra))
+    sps, runs = {"dense": [], "spatial": []}, {}
+    # in turns, dense, spatial, spatial, dense (ag) or dense, spatial (ah)
+    order = (("dense", "spatial", "spatial", "dense") if kind == "fft"
+             else ("dense", "spatial"))
+    for i, run in enumerate(order):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        if run == "dense":
+            res = clip_fft.run(args(f"dense{i}"))
+        else:
+            res = _spatial_launch(lambda a: clip_fft._run(a, spatial=1),
+                                  args(f"spatial{i}"))
+        torch.cuda.synchronize()
+        sps[run].append(_steady_sps(res.step_seconds))
+        runs.setdefault(run, (res, dict(kernels.LAUNCHES)))
+        del res
+    (dense, dl), (sp, sl) = runs["dense"], runs["spatial"]
+    want = {k: v * steps for k, v in SP_STEP[kind].items()}
+    # the run's end gathers the canonical params once
+    cli = dict(want, sp_all_gather=want["sp_all_gather"] + 1)
+    check(sp.samples == dense.samples == 190 and len(sp.losses) == steps
+          and all(math.isfinite(x) for x in sp.losses),
+          f"{label}: cutouts {sp.samples}, losses {sp.losses}")
+    check(_sp_counts(sl) == cli and {k: v for k, v in sl.items()
+                                      if k not in SP_KEYS} == dl,
+          f"{label}: launches {sl}, dense {dl}, spatial collectives "
+          f"expected {cli}")
+
+    def inner():
+        fp32 = ["--precision", "fp32", "-tf", "none"]
+        su_d = clip_fft.setup(args("checks_dense", fp32))
+        su_s = clip_fft.setup(args("checks_spatial", fp32), spatial=1)
+        errs = _spatial_checks(su_d, su_s, steps)
+        del su_d, su_s
+        a_d, a_s = args("loop_dense"), args("loop_spatial")
+        su_d, su_s = clip_fft.setup(a_d), clip_fft.setup(a_s, spatial=1)
+        bf16 = _spatial_checks(su_d, su_s, steps)
+        start = su_s.gen.get_state()
+        eager = [_loop_eager(su_s, a_s, start) for _ in range(2)]
+        got, rep = _loop_replayed(su_s, a_s, start, 2)
+        _, rep_d = _loop_replayed(su_d, a_d, su_d.gen.get_state(), 2)
+        return errs, bf16, eager, got, rep, rep_d
+    errs, bf16, eager, got, rep, rep_d = _spatial_launch(inner)
+    (want_e, e1), (again, _) = eager
+    off = [k for k in want_e if not (torch.equal(got[k], want_e[k])
+                                     and torch.equal(again[k], want_e[k]))]
+    check(errs["same_start"] and errs["decode"] <= 2e-4
+          and errs["cut"] <= 2e-4 and errs["loss"] <= SP_LOSS_REL
+          and errs["grad"] <= SP_GRAD_REL,
+          f"{label}: against the dense step in float32 {errs}")
+    check(not off, f"{label}: the replay or the second eager run differs "
+          f"in {off}")
+    check(_sp_counts(rep["launches"]) == want == _sp_counts(e1["launches"]),
+          f"{label}: replayed collectives {rep['launches']}, expected {want}")
+    print(f"[spatial] {label} on {name}: one NCCL rank, {steps} steps, "
+          f"{sp.samples} cutouts; against the dense step: decode "
+          f"{errs['decode']:.3g}, float32 cut {errs['cut']:.3g} of max, "
+          f"worst step loss {errs['loss']:.3g} and gradient "
+          f"{errs['grad']:.3g} relative in float32 without augmentations "
+          f"(bounds {SP_LOSS_REL}, "
+          f"{SP_GRAD_REL}), in bf16 with `fast` {bf16['loss']:.3g} and "
+          f"{bf16['grad']:.3g}; replay = eager bit for bit; collectives a step "
+          f"{SP_STEP[kind]} (in the captured group, counted per replay); "
+          f"steady steps/s in turns "
+          + ", ".join(f"{r} {sps[r][j]:.3f}" for j, r in (
+              (0, "dense"), (0, "spatial"), (1, "spatial"), (1, "dense"))
+              if j < len(sps[r]))
+          + f"; device ms a step by replay: spatial {rep['step_ms']:.3f}, "
+          f"dense {rep_d['step_ms']:.3f}; peak MiB replayed spatial "
+          f"{rep['peak'] / 2**20:.0f}, dense {rep_d['peak'] / 2**20:.0f}")
+    del runs, dense, sp, eager, got
+    torch.cuda.empty_cache()
+
+
+def _trip_first_frame(su_d, su_s) -> dict:
+    """The first frame of two illustrip setups, dense and spatial, from
+    one state: the motion warp (relative to max), with depth the preview
+    (absolute) and the warp by the dense depth map, then the first step's
+    loss and gradient (relative) from the warped states."""
+    import torch
+    from aphantasia_torch.parallel.spatial import build_spatial_loss_fn
+    from aphantasia_torch.step import build_loss_fn
+    spar, cfg = su_s.spar, su_d.towers[0][0]
+    fs_d, fs_s = su_d.frame_steps()[0], su_s.frame_steps()[0]
+    p0, s0 = su_d.params, su_s.params
+    out = {}
+    with torch.no_grad():
+        dmap = None
+        if fs_d.with_depth:
+            hd, hs = su_d.depth_helpers(), su_s.depth_helpers()
+            pv_d, pv_s = hd.preview(p0), hs.preview(s0)
+            out["preview"] = (pv_s - pv_d).abs().max().item()
+            dmap = hd.infer(pv_d).clone()
+        _, prompts, motion = su_d.frame(su_d.scene(0), 0, 0)
+        mot = torch.tensor(motion, dtype=torch.float32, device=su_d.device)
+        w_d = fs_d.motion_warp(p0, mot, dmap)
+        w_s = fs_s.motion_warp(s0, mot, dmap)
+        out["warp"] = ((spar.full(w_s) - w_d).abs().max()
+                       / w_d.abs().max()).item()
+    d = su_d.draw(su_d.gen)
+    _, vis, aest = su_d.towers[0]
+    prev = torch.zeros((su_d.sampler.count, cfg.embed_dim),
+                       device=su_d.device)
+    consts = (vis, aest, None, prompts)
+    ld, gd = _loss_grad(build_loss_fn(su_d.par, su_d.sampler, cfg,
+                                      su_d.settings), w_d, consts, prev, d, 0)
+    ls, gs = _loss_grad(build_spatial_loss_fn(spar, su_s.sampler, cfg,
+                                              su_s.settings),
+                        w_s, consts, prev, d, 0, spar)
+    out["loss"], out["grad"] = abs(ls - ld) / abs(ld), _grad_err(gs, gd)
+    return out
+
+
+def _spatial_illustrip(label: str, flags, frames: int):
+    """(ai) or (aj): illustrip at 95 cutouts (ViT-B/32, 1280x720,
+    `--opt_step 2`) through its spatial set-up on one NCCL rank."""
+    import torch
+    from aphantasia_torch import kernels
+    from aphantasia_torch.cli import illustrip
+    name = torch.cuda.get_device_name(0)
+    kind = "FFT --depth 1" if "--depth" in flags else "RGB"
+
+    def args(tag, n=frames, extra=()):
+        return illustrip.get_args(
+            ["-t", "a lighthouse on a cliff at dawn", "--size", "1280-720",
+             "--samples", "100", "--steps", str(n), "--fstep", "4",
+             "--opt_step", "2", "-nv", "--seed", "1", "--out_dir",
+             os.path.join(OUT_DIR, "spatial", label[:4], tag)] + flags
+            + list(extra))
+
+    def first_frame(fp32):
+        """The first frame from one state, spatial against dense."""
+        extra = ["--precision", "fp32", "-tf", "none"] if fp32 else []
+        a_d, a_s = args("dense", 4, extra), args("spatial", 4, extra)
+        su_d, su_s = illustrip.setup(a_d), illustrip.setup(a_s, spatial=1)
+        return _trip_first_frame(su_d, su_s), su_s
+
+    def inner():
+        out, su_s = first_frame(True)
+        bf16, su_s = first_frame(False)
+        start = su_s.gen.get_state()
+        want, again = (_trip_eager(su_s, start) for _ in range(2))
+        got, fs, helpers = _trip_replayed(su_s, start)
+        worst = {k: ((got[k].double() - v.double()).abs().max().item(),
+                     (again[k].double() - v.double()).abs().max().item())
+                 for k, v in want.items()}
+        del su_s, want, again, got, fs, helpers
+        torch.cuda.empty_cache()
+        a_cli = args("cli")
+        kernels.reset_launches()
+        res = illustrip._run(a_cli, spatial=1)
+        torch.cuda.synchronize()
+        return (out, bf16, worst, _trip_stats(res, a_cli),
+                dict(kernels.LAUNCHES), res.frames)
+    out, bf16, worst, stats, launches, n = _spatial_launch(inner)
+    multihost_reset()
+    kernels.reset_launches()
+    a_dense = args("dense_cli")
+    dense = illustrip.run(a_dense)
+    torch.cuda.synchronize()
+    stats_d = _trip_stats(dense, a_dense)
+    want = {k: v * n for k, v in SP_FRAME[kind].items()}
+    # the run's end gathers the canonical state once
+    want["sp_all_gather"] += 1
+    if "--depth" in flags:
+        # the first frame's depth map: one preview before the frames
+        want["sp_all_to_all"] += 1
+        want["sp_all_gather"] += 1
+    check(out["warp"] <= 2e-4 and out.get("preview", 0.0) <= 2e-4
+          and out["loss"] <= SP_LOSS_REL and out["grad"] <= SP_GRAD_REL,
+          f"{label}: against the dense frame step in float32 {out}")
+    check(all(e == 0 if sp == 0 else e <= 2 * sp for e, sp in worst.values()),
+          f"{label}: the replay differs from the eager frames: {worst}")
+    check(_sp_counts(launches) == want,
+          f"{label}: collectives {launches}, expected {want}")
+    exact = all(e == 0 for e, _ in worst.values())
+    print(f"[spatial] {label} on {name}: one NCCL rank, 95 cutouts, opt_step "
+          f"2; the first frame against the dense frame step: warp "
+          f"{out['warp']:.3g} of max"
+          + (f", depth preview {out['preview']:.3g}" if "preview" in out
+             else "")
+          + f", loss {out['loss']:.3g} and gradient {out['grad']:.3g} "
+          f"relative in float32 without augmentations, in bf16 with `fast` "
+          f"{bf16['loss']:.3g} and "
+          f"{bf16['grad']:.3g}; replay " + ("= eager bit for bit" if exact else
+                                  f"within twice the eager spread {worst}")
+          + f"; collectives a frame {SP_FRAME[kind]}; frames/min spatial "
+          f"{stats[1]:.1f} (device ms a frame {stats[2]:.3f}, busy "
+          f"{stats[3]:.3f}), dense {stats_d[1]:.1f} ({stats_d[2]:.3f}, "
+          f"{stats_d[3]:.3f})")
+    del dense
+    torch.cuda.empty_cache()
+
+
+def multihost_reset():
+    from aphantasia_torch.parallel import multihost
+    multihost._reset_for_tests()
+
+
+def _spatial_4k():
+    """(ak): one frame group of clip_fft at 3840x2160, spatial (one NCCL
+    rank) against dense: the group's device ms by replay and the peak
+    memory of its eager run, capture and replay."""
+    import torch
+    from aphantasia_torch.cli import clip_fft
+    base = ["-t", "a lighthouse on a cliff at dawn", "--size", "3840-2160",
+            "--steps", "2", "-nv", "--seed", "1", "--out_dir",
+            os.path.join(OUT_DIR, "spatial", "4k")]
+
+    def one(spatial):
+        a = clip_fft.get_args(base)
+        su = clip_fft.setup(a, spatial=spatial)
+        _, rep = _loop_replayed(su, a, su.gen.get_state(), 1)
+        return rep["step_ms"], rep["peak"] / 2**20
+    ms_s, peak_s = _spatial_launch(one, 1)
+    torch.cuda.empty_cache()
+    ms_d, peak_d = one(None)
+    torch.cuda.empty_cache()
+    print(f"[spatial] (ak) clip_fft --size 3840-2160, 190 cutouts, one frame "
+          f"group on {torch.cuda.get_device_name(0)}: device ms by replay "
+          f"spatial (one NCCL rank) {ms_s:.3f}, dense {ms_d:.3f}; peak MiB "
+          f"spatial {peak_s:.0f}, dense {peak_d:.0f}")
+
+
+def phase_spatial(steps: int = 8):
+    """(ag)-(ak): see the module docstring."""
+    _spatial_clip_fft("(ag) clip_fft", "fft", [], steps)
+    _spatial_clip_fft("(ah) clip_fft --dwt", "dwt", ["--dwt"], steps)
+    _spatial_illustrip("(ai) illustrip --gen FFT --depth 1",
+                       ["--gen", "FFT", "--depth", "1"], 8)
+    _spatial_illustrip("(aj) illustrip --gen RGB", ["--gen", "RGB"], 8)
+    _spatial_4k()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,main,loop,parity,mesh")
+    ap.add_argument("--phases",
+                    default="kernels,main,loop,parity,mesh,spatial")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--profile-paths", default="",
                     help="comma-separated label prefixes of the paths the "
@@ -3924,6 +4323,7 @@ def main(argv=None) -> int:
                               phase_loop_illustrip(), phase_loop_coord()),
              "parity": phase_parity,
              "mesh": lambda: phase_mesh(args.steps),
+             "spatial": lambda: phase_spatial(args.steps),
              "cudnn": phase_cudnn,
              "profile": lambda: phase_profile(
                  [p for p in args.profile_paths.split(",") if p])}[ph]()

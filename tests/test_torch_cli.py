@@ -70,12 +70,13 @@ def test_clip_fft_resume_from_pt(tmp_path):
     ["--spatial", "2"], ["--mesh", "2"], ["--fleet", "0/2"],
     ["-m", "RN50x64"]])
 def test_unported_flags_raise(tmp_path, monkeypatch, flags):
-    """--spatial raises naming ROADMAP.md A.10b; RN50x64, which JAX
-    clip_fft does not offer (illustra does), is refused by argparse, as in
-    JAX.  --mesh and --fleet, which raised until they were ported, pass
-    the CLI's launch (`common.run_cli`): --mesh 2 plans two gloo ranks on
-    this host (the runs themselves are held to the dense run in
-    tests/test_torch_mesh.py::test_clip_fft_mesh_matches_dense); --fleet
+    """RN50x64, which JAX clip_fft does not offer (illustra does), is
+    refused by argparse, as in JAX.  --spatial, --mesh and --fleet, which
+    raised until they were ported, pass the CLI's launch
+    (`common.run_cli`): --spatial 2 and --mesh 2 each plan two gloo ranks
+    on this host (the runs themselves are held to JAX and to the dense run
+    in tests/test_torch_spatial.py and
+    tests/test_torch_dcn.py::test_clip_fft_mesh_matches_dense); --fleet
     0/2 without a coordinator runs the whole job once, in this process,
     with the fleet's coordinates."""
     from aphantasia_torch.cli.common import mesh_plan, run_cli
@@ -84,14 +85,10 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flags):
         with pytest.raises(SystemExit):
             _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
         return
-    if flags[0] == "--spatial":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
-            _run(["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags)
-        return
     a = clip_fft.get_args(["-t", "x", "--out_dir", str(tmp_path)] + TINY
                           + flags)
-    if flags[0] == "--mesh":
-        plan = mesh_plan(a.mesh, a.device)
+    if flags[0] in ("--mesh", "--spatial"):
+        plan = mesh_plan(a.mesh, a.device, a.spatial)
         assert (plan.n_local, plan.world, plan.device) == (2, 2, "cpu")
         assert plan.addr.startswith("127.0.0.1:")
         return

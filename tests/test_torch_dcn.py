@@ -118,12 +118,20 @@ def test_uneven_hosts_raise(tmp_path):
 
 @pytest.mark.parametrize("argv,err,match", [
     (["0", "1", "none", "2", "OUT", "spatial", "--device", "cpu"],
-     NotImplementedError, "A.10b"),
+     None, "spatial"),
     (["0", "1", "none", "2", "OUT", "other", "--device", "cpu"],
      ValueError, "mode")])
 def test_witness_modes(tmp_path, argv, err, match):
-    """The spatial witness raises, naming the slice that ports it."""
+    """The spatial witness runs: one host's two ranks split into data 2
+    (the JAX witness's one-host anchor; its numbers are held to JAX in
+    tests/test_torch_spatial.py); an unknown mode raises."""
     argv = [str(tmp_path / "o.json") if a == "OUT" else a for a in argv]
+    if err is None:
+        assert tdcn.main(argv) == 0
+        rec = json.loads((tmp_path / "o.json").read_text())
+        assert rec["mesh"] == {"data": 2, match: 1}
+        assert np.isfinite(rec["loss"]) and np.isfinite(rec["digest"])
+        return
     with pytest.raises(err, match=match):
         tdcn.main(argv)
 

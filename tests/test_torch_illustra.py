@@ -317,16 +317,22 @@ def _no_fleet(monkeypatch):
     ("illustra", ["--spatial", "2"]), ("illustra", ["--mesh", "dcn"]),
     ("illustra", ["--fleet", "0/2"]), ("interpol", ["--fleet", "0/2"])])
 def test_unported_flags_raise(tmp_path, monkeypatch, tiny_towers, cli, flags):
-    """--spatial raises naming ROADMAP.md A.10b.  --mesh and --fleet, which
-    raised until they were ported, run: illustra --mesh dcn (a data mesh
-    of one rank in this process, its collectives included) gives the
-    dense run's losses and spectrum bit for bit; illustra --fleet 0/2
-    renders scene 1 of 1 and assembles; interpol --fleet 0/2 gets past the
-    fleet to the empty snapshot directory."""
+    """--spatial, --mesh and --fleet, which raised until they were ported,
+    pass: illustra --spatial 2 plans two gloo ranks, and with --mesh 2 a
+    data axis of two over them, four, with --mesh 2x2 eight (D x M x S;
+    its runs are held to JAX in tests/test_torch_spatial.py); illustra
+    --mesh dcn (a data mesh of one rank in this process, its collectives
+    included) gives the dense run's losses and spectrum bit for bit;
+    illustra --fleet 0/2 renders scene 1 of 1 and assembles; interpol
+    --fleet 0/2 gets past the fleet to the empty snapshot directory."""
     if flags[0] == "--spatial":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
-            illustra.run(illustra.get_args(["-t", "x", "--out_dir",
-                                            str(tmp_path)] + TINY + flags))
+        from aphantasia_torch.cli.common import mesh_plan
+        for mesh, ranks in ((None, 2), ("2", 4), ("2x2", 8)):
+            a = illustra.get_args(["-t", "x", "--out_dir", str(tmp_path)]
+                                  + TINY + flags
+                                  + (["--mesh", mesh] if mesh else []))
+            plan = mesh_plan(a.mesh, a.device, a.spatial)
+            assert (plan.n_local, plan.world) == (ranks, ranks)
         return
     mh = _no_fleet(monkeypatch)
     if cli == "interpol":

@@ -422,15 +422,21 @@ def _no_fleet(monkeypatch):
 @pytest.mark.parametrize("flags", [["--spatial", "2"], ["--mesh", "dcn"],
                                    ["--fleet", "0/2"]])
 def test_unported_flags_raise(tmp_path, monkeypatch, tiny_towers, flags):
-    """--spatial raises naming ROADMAP.md A.10b.  --mesh and --fleet, which
-    raised until they were ported, run: --mesh dcn (a data mesh of one
-    rank in this process, its collectives included) gives the dense run's
-    losses and last frame state bit for bit; --fleet 0/2 runs the whole
-    job on this host."""
+    """--spatial, --mesh and --fleet, which raised until they were ported,
+    pass: --spatial 2 plans two gloo ranks, and with --mesh dcn raises as
+    in JAX (the spatial axis composes with 'N' and 'NxM' only; its runs
+    are held to JAX in tests/test_torch_spatial.py); --mesh dcn (a data
+    mesh of one rank in this process, its collectives included) gives the
+    dense run's losses and last frame state bit for bit; --fleet 0/2 runs
+    the whole job on this host."""
     if flags[0] == "--spatial":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
-            illustrip.run(illustrip.get_args(
-                ["-t", "x", "--out_dir", str(tmp_path)] + TINY + flags))
+        from aphantasia_torch.cli.common import mesh_plan
+        a = illustrip.get_args(["-t", "x", "--out_dir", str(tmp_path)]
+                               + TINY + flags)
+        plan = mesh_plan(a.mesh, a.device, a.spatial)
+        assert (plan.n_local, plan.world, plan.device) == (2, 2, "cpu")
+        with pytest.raises(ValueError, match="not with 'dcn'"):
+            mesh_plan("dcn", a.device, a.spatial)
         return
     mh = _no_fleet(monkeypatch)
     res = illustrip.run(illustrip.get_args(

@@ -3,9 +3,8 @@ the `mesh=` of aphantasia_torch/step.py, the tensor-parallel blocks of
 models/clip/model.py) against the JAX package on the CPU: gloo ranks
 spawned by the port's launcher (workers in tests/_torch_dist.py) against
 JAX on the conftest's 8 virtual CPU devices, on the same draws and
-converted weights.  Also the one-rank mesh step against the dense step,
-the launcher's clean-up after a failing rank, and --spatial, which still
-raises.
+converted weights.  Also the one-rank mesh step against the dense step
+and the launcher's clean-up after a failing rank.
 
 Tolerances (float32; the `none` transform keeps the step float32):
 * data axis, two free-running steps: losses 1e-4 relative, the last
@@ -335,9 +334,3 @@ def test_failing_rank_leaves_no_child():
         tmesh.spawn(_torch_dist.failing_worker, (1,), _plan(2))
     assert multiprocessing.active_children() == []
 
-
-def test_spatial_still_raises(tmp_path):
-    from aphantasia_torch.cli import clip_fft
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10b"):
-        clip_fft.run(clip_fft.get_args(["-t", "x", "--out_dir", str(tmp_path),
-                                        "--device", "cpu", "--spatial", "2"]))
