@@ -75,7 +75,7 @@ from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.dwt import DWTParameterizer, resume_dwt
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
 from aphantasia_torch.parallel.mesh import mesh_primary
-from aphantasia_torch.profiling import trace
+from aphantasia_torch.profiling import span
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
                                    build_train_loop_frames, build_train_step,
@@ -339,7 +339,7 @@ def _run(a, on_step=None, spatial=None) -> RunResult:
     chunked = (a.opt_step > 0 and a.steps % a.opt_step == 0
                and a.steps >= a.opt_step)
     loop = None
-    with trace(a.profile), frame_writer() as writer:
+    with frame_writer() as writer:
         if chunked:
             n_frames = a.steps // a.opt_step
             nf = frames_per_dispatch(tuple(a.size), n_frames)
@@ -359,7 +359,8 @@ def _run(a, on_step=None, spatial=None) -> RunResult:
                 writer.save_batch([os.path.join(tempdir, '%04d.jpg' % f)
                                    for f in range(c * nf, (c + 1) * nf)],
                                   frames, tone)
-                losses += dl.tolist()     # the dispatch's one wait
+                with span("loss_read"):
+                    losses += dl.tolist()     # the dispatch's one wait
                 seconds += dispatch_seconds(time.perf_counter() - t0,
                                             loop.first_runs, nf, a.opt_step)
                 for i in range(c * nf * a.opt_step, len(losses)):
@@ -387,7 +388,8 @@ def _run(a, on_step=None, spatial=None) -> RunResult:
                 gen_params, opt_state, prev_enc, loss = steps[tower](
                     gen_params, opt_state, prev_enc, *su.consts(tower),
                     su.draw(su.gen), i // a.opt_step)
-                losses.append(loss.item())        # waits for the step's work
+                with span("loss_read"):
+                    losses.append(loss.item())    # waits for the step's work
                 seconds.append(time.perf_counter() - t0)
                 if i % a.opt_step == 0:
                     frame = render(gen_params, contrast=a.contrast).cpu().numpy()

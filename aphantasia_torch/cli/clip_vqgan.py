@@ -48,7 +48,7 @@ from aphantasia_torch.models.vqgan import (VQGAN_CONFIGS, VQGANParameterizer,
 from aphantasia_torch.ops.optim import build_optimizer
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.parallel.mesh import mesh_primary
-from aphantasia_torch.profiling import trace
+from aphantasia_torch.profiling import span
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn,
                                    build_train_loop_frames,
@@ -197,7 +197,7 @@ def _run(a) -> RunResult:
                                    su.settings, su.optimizer, 1, nf,
                                    mesh=su.mesh)
     losses, seconds = [], []
-    with trace(a.profile), frame_writer() as writer:
+    with frame_writer() as writer:
         for c in range(a.steps // nf):
             t0 = time.perf_counter()
             gen_params, opt_state, prev_enc, frames, dl = loop(
@@ -205,7 +205,8 @@ def _run(a) -> RunResult:
                 lambda gstep: su.draw(su.gen), c * nf)
             writer.save_batch([os.path.join(tempdir, '%04d.jpg' % (c * nf + j))
                                for j in range(nf)], frames)
-            losses += dl.tolist()
+            with span("loss_read"):
+                losses += dl.tolist()
             seconds += dispatch_seconds(time.perf_counter() - t0,
                                         loop.first_runs, nf, 1)
             for _ in range(nf if pbar is not None else 0):

@@ -19,6 +19,7 @@ from aphantasia_torch.models.clip.model import (
 from aphantasia_torch.models.clip.tokenizer import tokenize
 from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.color import clip_normalize
+from aphantasia_torch.profiling import span, trace
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_shift_render_loop,
                                    frames_per_dispatch)
@@ -56,15 +57,19 @@ class ClipWrapper:
     """A loaded CLIP model on a device, with its text/image encoders.
     `params` stays float32 (the text tower and reference images encode in
     float32, as in the JAX package); `vision(dtype)` gives the tree with
-    its matmul weights cast once for the training step."""
+    its matmul weights cast once for the training step.  Loading (the
+    checkpoint's read and conversion, or the random draw, and the copy to
+    the device) is a span "setup.clip", each prompt's encoding a span
+    "setup.text"."""
 
     def __init__(self, name: str, device: torch.device,
                  weights: str | None = None,
                  generator: torch.Generator | None = None):
         self.name = name
         self.device = device
-        params, self.cfg = load_clip(name, weights, generator=generator)
-        self.params = _to(params, device)
+        with span("setup.clip"):
+            params, self.cfg = load_clip(name, weights, generator=generator)
+            self.params = _to(params, device)
         self.modsize = input_resolution(name)
 
     def vision(self, dtype):
@@ -73,19 +78,22 @@ class ClipWrapper:
     @torch.no_grad()
     def enc_text(self, txt: str):
         """Prompt syntax `txt :w | txt2 :w2` -> (embs [K,D], weights [K])."""
-        embs, wts = [], []
-        for subtxt in txt.split("|"):
-            if ":" in subtxt:
-                subtxt, wt = subtxt.split(":")
-                wt = float(wt)
-            else:
-                wt = 1.0
-            toks = tokenize(subtxt, context_length=self.cfg.context_length)
-            toks = torch.as_tensor(toks, device=self.device)
-            embs.append(encode_text(self.params, self.cfg, toks)[0])
-            wts.append(wt)
-        return (torch.stack(embs),
-                torch.tensor(wts, dtype=torch.float32, device=self.device))
+        with span("setup.text"):
+            embs, wts = [], []
+            for subtxt in txt.split("|"):
+                if ":" in subtxt:
+                    subtxt, wt = subtxt.split(":")
+                    wt = float(wt)
+                else:
+                    wt = 1.0
+                toks = tokenize(subtxt,
+                                context_length=self.cfg.context_length)
+                toks = torch.as_tensor(toks, device=self.device)
+                embs.append(encode_text(self.params, self.cfg, toks)[0])
+                wts.append(wt)
+            return (torch.stack(embs),
+                    torch.tensor(wts, dtype=torch.float32,
+                                 device=self.device))
 
     @torch.no_grad()
     def enc_image_sliced(self, img_np, samples, align,
@@ -237,8 +245,9 @@ def add_parallel_flags(parser):
                              "(equivalent env var: "
                              "APHANTASIA_EXACT_PERSP=mixed|1)")
     parser.add_argument('--profile', default=None,
-                        help='write a torch.profiler trace of the training '
-                             'loop into this directory')
+                        help='write a torch.profiler trace of the run '
+                             '(set-up and loop, with the program\'s spans) '
+                             'into this directory')
     parser.add_argument('--pallas', action='store_true',
                         help='Use the hand-written CUDA cutout kernel')
     parser.add_argument('--fleet', default=None, help=FLEET_HELP)
@@ -297,14 +306,16 @@ def run_cli(a, body, *args):
     fleet's coordinates first (`init_fleet`), then with a mesh its ranks
     (`parallel.mesh.launch`: one rank runs here, more are spawned, one
     per GPU or CPU process); returns rank 0's result.  Every rank runs
-    the whole CLI; rank 0 writes the files and prints."""
+    the whole CLI; rank 0 writes the files and prints.  Under --profile
+    each rank's body (set-up and loop) runs inside `profiling.trace`."""
     from aphantasia_torch.parallel.mesh import launch
     from aphantasia_torch.parallel.multihost import init_fleet
     init_fleet(getattr(a, 'fleet', None))
     plan = mesh_plan(getattr(a, 'mesh', None), a.device,
                      getattr(a, 'spatial', 0))
     if plan is None:
-        return body(a, *args)
+        with trace(getattr(a, 'profile', None)):
+            return body(a, *args)
     if plan.world > 1 and any(x is not None for x in args):
         raise ValueError("a callback does not cross to spawned mesh ranks")
     return launch(_cli_rank, (body, a) + args, plan)
@@ -316,7 +327,8 @@ def _cli_rank(body, a, *args):
     if torch.device(a.device).type == "cuda":
         a = argparse.Namespace(**vars(a))
         a.device = f"cuda:{torch.cuda.current_device()}"
-    res = body(a, *args)
+    with trace(getattr(a, 'profile', None)):
+        res = body(a, *args)
     return res if mesh_primary() else None
 
 

@@ -54,7 +54,7 @@ from aphantasia_torch.params import siren as siren_mod
 from aphantasia_torch.params.cppn import CPPNParameterizer, export_npy
 from aphantasia_torch.params.siren import SIRENParameterizer
 from aphantasia_torch.parallel.mesh import mesh_primary
-from aphantasia_torch.profiling import trace
+from aphantasia_torch.profiling import span
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.shader_expo import export_all
 from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
@@ -293,7 +293,7 @@ def _run(a) -> RunResult | None:
     losses, seconds, loop = [], [], None
     chunked = a.fstep > 0 and a.steps % a.fstep == 0 and a.steps >= a.fstep
     primary = mesh_primary()
-    with trace(a.profile), frame_writer() as writer:
+    with frame_writer() as writer:
         if chunked:
             n_frames = a.steps // a.fstep
             nf = frames_per_dispatch(tuple(a.size), n_frames)
@@ -312,7 +312,8 @@ def _run(a) -> RunResult | None:
                 snaps = [s.cpu() for s in snaps]       # the dispatch's pull
                 for j, fname in enumerate(fnames if primary else ()):
                     export_npy([s[j] for s in snaps], fname)
-                losses += dl.tolist()
+                with span("loss_read"):
+                    losses += dl.tolist()
                 seconds += dispatch_seconds(time.perf_counter() - t0,
                                             loop.first_runs, nf, a.fstep)
                 for _ in range(nf * a.fstep):
@@ -329,7 +330,8 @@ def _run(a) -> RunResult | None:
                 gen_params, opt_state, prev_enc, loss = steps[tower](
                     gen_params, opt_state, prev_enc, *su.consts(tower),
                     su.draw(su.gen), i)
-                losses.append(loss.item())
+                with span("loss_read"):
+                    losses.append(loss.item())
                 seconds.append(time.perf_counter() - t0)
                 if i % a.fstep == 0:
                     fname = os.path.join(tempdir, '%04d' % (i // a.fstep))

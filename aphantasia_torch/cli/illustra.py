@@ -62,7 +62,7 @@ from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
 from aphantasia_torch.parallel.mesh import mesh_primary
 from aphantasia_torch.parallel.multihost import fleet_info, shard_scenes
-from aphantasia_torch.profiling import trace
+from aphantasia_torch.profiling import span
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_draw_fn, build_render,
                                    build_train_loop_frames, build_train_step,
@@ -247,7 +247,8 @@ class SceneLoop:
                     c * self.nf)
                 if save_frames is not None:
                     save_frames(c * self.nf, frames)
-                losses += dl.tolist()         # the dispatch's one wait
+                with span("loss_read"):
+                    losses += dl.tolist()         # the dispatch's one wait
                 seconds += dispatch_seconds(time.perf_counter() - t0,
                                             loop.first_runs, self.nf, n)
                 for _ in range(self.nf if on_frame is not None else 0):
@@ -258,7 +259,8 @@ class SceneLoop:
             tower = int(i in self.dm_nums)
             gen_params, opt_state, prev, loss = self.step_fns[tower](
                 gen_params, opt_state, prev, *consts[tower], draws(i), i)
-            losses.append(loss.item())
+            with span("loss_read"):
+                losses.append(loss.item())
             seconds.append(time.perf_counter() - t0)
             if i % n == 0:
                 if save_frames is not None:
@@ -469,7 +471,7 @@ def _run(a, spatial=None) -> IllustraResult:
     if fleet:
         print(' fleet %d/%d: scenes %s of %d' % (rank, world, scene_ids,
                                                su.count))
-    with trace(a.profile), frame_writer() as writer:
+    with frame_writer() as writer:
         try:
             for num in scene_ids:
                 if num == scene_ids[0] or a.separate or fleet:

@@ -60,7 +60,7 @@ from aphantasia_torch.ops.sampler import CutoutSampler
 from aphantasia_torch.params.fft import FFTParameterizer, resume_fft
 from aphantasia_torch.params.pixel import PixelParameterizer, resume_pixel
 from aphantasia_torch.parallel.mesh import mesh_primary
-from aphantasia_torch.profiling import trace
+from aphantasia_torch.profiling import collect, span
 from aphantasia_torch.progress import ProgressBar
 from aphantasia_torch.step import (StepSettings, build_depth_helpers,
                                    build_draw_fn, build_frame_step)
@@ -243,19 +243,25 @@ class IllustripSetup:
     def scene(self, num: int) -> list:
         """Scene `num`'s four crossfade schedules (texts, styles,
         subtracts, images), the second tower's interleaved every
-        --dualmod frames."""
-        a = self.a
-        sched = [get_encs(e, num, a.steps, a.interpol)
-                 for e in self.encs[0]]
-        if len(self.encs) > 1:
-            second = [get_encs(e, num, a.steps, a.interpol)
-                      for e in self.encs[1]]
-            sched = [intrl(s, s2, a.dualmod) if s else s
-                     for s, s2 in zip(sched, second)]
-        return sched
+        --dualmod frames; a span "scene"."""
+        with span("scene"):
+            a = self.a
+            sched = [get_encs(e, num, a.steps, a.interpol)
+                     for e in self.encs[0]]
+            if len(self.encs) > 1:
+                second = [get_encs(e, num, a.steps, a.interpol)
+                          for e in self.encs[1]]
+                sched = [intrl(s, s2, a.dualmod) if s else s
+                         for s, s2 in zip(sched, second)]
+            return sched
 
     def frame(self, sched, num: int, ii: int):
-        """Frame `ii` of scene `num`: (tower, prompt groups, motion)."""
+        """Frame `ii` of scene `num`: (tower, prompt groups, motion); a
+        span "frame.plan"."""
+        with span("frame.plan"):
+            return self._plan(sched, num, ii)
+
+    def _plan(self, sched, num: int, ii: int):
         a = self.a
         tower = int(len(self.towers) > 1
                     and ii in dualmod_steps(a.steps, a.dualmod))
@@ -289,12 +295,14 @@ class IllustripResult:
     samples: int                  # cutouts a step after the budget
     frames: int                   # frames written
     losses: list                  # per frame, one float a step
-    starts: list                  # host clock at each frame's start
+    starts: list                  # host clock at each frame's start (its
+    #                               "frame.plan" span's)
     host: list                    # per frame the host seconds of its
     #                               prompts and draws, of its dispatch (the
     #                               frame step and the depth forward) and
-    #                               of the writer's admit
-    end: float                    # host clock after the last frame's work
+    #                               of the writer's admit, from its spans
+    end: float                    # host clock after the last frame's work,
+    #                               the device drained
     first_frames: list            # frames that ran a group's first run
     #                               (on the card its eager run and capture)
     frame_steps: list             # the frame step of each tower
@@ -466,6 +474,21 @@ def setup(a, spatial=None) -> IllustripSetup:
                           spar)
 
 
+def _frame_host(spans) -> tuple:
+    """(start, (prep, dispatch, admit) seconds) of a frame from the spans
+    its loop body made: its "frame.plan" to the end of its last "draw",
+    from there to its last "writer.admit" (the frame step and the depth
+    forward), and that admit.  The depth map's own writer admit, made
+    before the frame step, is the dispatch's.  A rank that writes nothing
+    admits nothing: its dispatch ends with its last span."""
+    plan = next(s for s in spans if s.name == "frame.plan")
+    drawn = max(s.t1 for s in spans if s.name == "draw")
+    admits = [s for s in spans if s.name == "writer.admit"]
+    end = admits[-1].t0 if admits else spans[-1].t1
+    return plan.t0 / 1e9, ((drawn - plan.t0) / 1e9, (end - drawn) / 1e9,
+                           admits[-1].seconds if admits else 0.0)
+
+
 def run(a) -> IllustripResult:
     """The whole run (under --mesh, rank 0's result)."""
     return run_cli(a, _run)
@@ -485,7 +508,6 @@ def _run(a, spatial=None) -> IllustripResult:
                           [],
                           fss, helpers, params)
     dmap_pending = None
-    timing = os.environ.get('APHANTASIA_FRAME_TIMING')
 
     def captures() -> int:
         n = sum(g.first_seconds is not None
@@ -493,7 +515,7 @@ def _run(a, spatial=None) -> IllustripResult:
         return n + int(helpers is not None
                        and helpers.infer.first_seconds is not None)
 
-    with trace(a.profile), frame_writer() as writer:
+    with frame_writer() as writer:
         try:
             for num in range(su.count):
                 sched = su.scene(num)
@@ -506,41 +528,34 @@ def _run(a, spatial=None) -> IllustripResult:
                               su.styles[min(num, len(su.styles) - 1)][:80])
                 pbar = ProgressBar(a.steps) if a.verbose else None
                 for ii in range(a.steps):
-                    t0 = time.perf_counter()
                     before = captures()
                     glob_step = num * a.steps + ii
-                    tower, prompts, motion = su.frame(sched, num, ii)
-                    draws = [su.draw(su.gen) for _ in range(a.opt_step)]
-                    t_prep = time.perf_counter()
-                    args = (params, opt_state, prev_enc, su.towers[tower][1],
-                            su.towers[tower][2], prompts, draws, ii, motion)
-                    if helpers is not None:
-                        if dmap_pending is None:    # the first frame's
-                            dmap_pending = helpers.infer(
-                                helpers.preview(params))
-                        dmap = dmap_pending
-                        if a.depth_dir is not None:
-                            _save_depth_map(writer, dmap, a.depth_dir,
-                                            glob_step, (h, w))
-                        (params, opt_state, prev_enc, frame, losses,
-                         preview) = fss[tower](*args, dmap)
-                        # the next frame's depth, queued behind this frame
-                        dmap_pending = helpers.infer(preview)
-                    else:
-                        params, opt_state, prev_enc, frame, losses = \
-                            fss[tower](*args)
-                    t_disp = time.perf_counter()
-                    writer.save_batch([os.path.join(su.tempdir,
-                                                    '%06d.jpg' % glob_step)],
-                                      frame[None])
-                    t_admit = time.perf_counter()
-                    if timing:
-                        print(f' frame {glob_step}: dispatch '
-                              f'{t_disp - t0:.3f}s save-admit '
-                              f'{t_admit - t_disp:.3f}s', flush=True)
-                    res.starts.append(t0)
-                    res.host.append((t_prep - t0, t_disp - t_prep,
-                                     t_admit - t_disp))
+                    with collect() as spans:
+                        tower, prompts, motion = su.frame(sched, num, ii)
+                        draws = [su.draw(su.gen) for _ in range(a.opt_step)]
+                        args = (params, opt_state, prev_enc,
+                                su.towers[tower][1], su.towers[tower][2],
+                                prompts, draws, ii, motion)
+                        if helpers is not None:
+                            if dmap_pending is None:    # the first frame's
+                                dmap_pending = helpers.infer(
+                                    helpers.preview(params))
+                            dmap = dmap_pending
+                            if a.depth_dir is not None:
+                                _save_depth_map(writer, dmap, a.depth_dir,
+                                                glob_step, (h, w))
+                            (params, opt_state, prev_enc, frame, losses,
+                             preview) = fss[tower](*args, dmap)
+                            # the next frame's depth, queued behind it
+                            dmap_pending = helpers.infer(preview)
+                        else:
+                            params, opt_state, prev_enc, frame, losses = \
+                                fss[tower](*args)
+                        writer.save_batch([os.path.join(
+                            su.tempdir, '%06d.jpg' % glob_step)], frame[None])
+                    start, host = _frame_host(spans)
+                    res.starts.append(start)
+                    res.host.append(host)
                     res.losses.append(losses)
                     if captures() > before:
                         res.first_frames.append(glob_step)

@@ -15,6 +15,8 @@ import threading
 
 import numpy as np
 
+from aphantasia_torch.profiling import span
+
 _IMG_EXTS = ("jpg", "jpeg", "png", "ppm", "tif")
 _PIL_FORMATS = {".jpg": "JPEG", ".jpeg": "JPEG", ".png": "PNG",
                 ".bmp": "BMP", ".tif": "TIFF", ".ppm": "PPM"}
@@ -144,8 +146,9 @@ def frames_to_video(frame_dir: str, out_path: str, pattern: str = "%04d.jpg",
 def _save_frame(path, frame, tone, ready=None):
     if ready is not None:
         ready.synchronize()
-    frame = to_uint8(np.asarray(frame))
-    img_save(path, frame if tone is None else tone(frame))
+    with span("writer.encode"):
+        frame = to_uint8(np.asarray(frame))
+        img_save(path, frame if tone is None else tone(frame))
 
 
 class AsyncFrameWriter:
@@ -156,7 +159,12 @@ class AsyncFrameWriter:
     JPEG encode (Pillow releases the GIL while it compresses), and writes
     the file.  At most `max_pending` frames wait (a whole chunk, when it
     has more); `close()` waits for all of them and raises the first
-    error."""
+    error.
+
+    Spans: "writer.admit" around `save` and `save_batch`; "writer.wait"
+    where the caller blocks on the oldest frames, its value the frames
+    pending on entry; "writer.encode" in the encoder threads (after a
+    chunk's copy from the card has landed)."""
 
     def __init__(self, encoders: int | None = None, max_pending: int = 8):
         n = encoders or max(1, min(4, (os.cpu_count() or 1) - 1))
@@ -165,13 +173,24 @@ class AsyncFrameWriter:
         self._max = max_pending
 
     def _drain(self, keep: int):
+        """Take the oldest frames' results until `keep` wait; a span
+        "writer.wait" only where one of them is not done yet."""
+        oldest = self._pending[:max(len(self._pending) - keep, 0)]
+        if all(f.done() for f in oldest):
+            self._take(keep)
+            return
+        with span("writer.wait", len(self._pending)):
+            self._take(keep)
+
+    def _take(self, keep: int):
         while len(self._pending) > keep:
             self._pending.pop(0).result()
 
     def save(self, path, frame, tone=None):
-        self._drain(self._max - 1)
-        self._pending.append(
-            self._pool.submit(_save_frame, path, np.asarray(frame), tone))
+        with span("writer.admit"):
+            self._drain(self._max - 1)
+            self._pending.append(
+                self._pool.submit(_save_frame, path, np.asarray(frame), tone))
 
     def save_batch(self, paths, stacked, tone=None):
         """Enqueue a chunk: `stacked` [N,H,W,3] from a chunked dispatch
@@ -180,8 +199,11 @@ class AsyncFrameWriter:
         into pinned memory, which the encoder threads wait for; the caller
         does not wait."""
         paths = list(paths)
-        if not paths:
-            return
+        if paths:
+            with span("writer.admit"):
+                self._admit(paths, stacked, tone)
+
+    def _admit(self, paths, stacked, tone):
         ready = None
         if getattr(stacked, "is_cuda", False):
             import torch

@@ -14,7 +14,9 @@ counts the launches per kernel name: each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
 main path went through.  Under a CUDA graph a wrapper runs once, at the
 capture, when nothing launches: `CountedGraph` takes the capture's counts
-out of `LAUNCHES` and adds them again at each replay.
+out of `LAUNCHES` and adds them again at each replay.  `LAUNCHES` counts
+only the hand-written kernels; `CountedGraph.nodes` counts every kernel a
+captured graph launches.
 """
 from __future__ import annotations
 
@@ -48,32 +50,65 @@ def reset_launches() -> None:
 
 
 class CountedGraph:
-    """A `torch.cuda.CUDAGraph` whose replays count its kernels' launches.
+    """A `torch.cuda.CUDAGraph` whose replays count its kernels' launches,
+    that counts its own nodes and times its marks.
 
     `capture()` records the block into the graph (nothing runs) and keeps
     the counts the wrappers added meanwhile apart from `LAUNCHES`;
-    `replay()` runs the graph and adds those counts, once per replay."""
+    `replay()` runs the graph and adds those counts, once per replay.  The
+    capture keeps the graph's nodes for a walk (`keep_graph`), stores their
+    count by type in `nodes` ("kernel", "memset", "event_record", ...:
+    `profiling.graph_nodes`) and instantiates the graph at once.  The
+    `profiling.mark`s met during the capture become timing events in the
+    graph, kept as `marks` [(name, event)] in capture order;
+    `layer_ms()` reads them after a replay."""
 
     def __init__(self):
         import torch
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.counts: collections.Counter = collections.Counter()
+        self.nodes: collections.Counter = collections.Counter()
+        self.marks: list = []
 
     @contextlib.contextmanager
     def capture(self, **kwargs):
         import torch
+
+        from aphantasia_torch import profiling
         before = LAUNCHES.copy()
         try:
-            with torch.cuda.graph(self.graph, **kwargs):
+            with torch.cuda.graph(self.graph, **kwargs), \
+                    profiling.marking(self):
                 yield
         finally:
             self.counts = LAUNCHES - before
             LAUNCHES.clear()
             LAUNCHES.update(before)
+        self.nodes = profiling.graph_nodes(self.graph.raw_cuda_graph())
+        self.graph.instantiate()
+
+    def add_mark(self, name: str) -> None:
+        """A timing event recorded into the graph on the current stream
+        (called by `profiling.mark` during the capture)."""
+        import torch
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        self.marks.append((name, event))
 
     def replay(self) -> None:
         self.graph.replay()
         LAUNCHES.update(self.counts)
+
+    def layer_ms(self) -> dict:
+        """Device ms of the last replay by layer, each interval between
+        consecutive marks given to its layer (`profiling.interval_names`)
+        and summed over the group's steps.  Synchronise first."""
+        from aphantasia_torch import profiling
+        names = profiling.interval_names([n for n, _ in self.marks])
+        out: dict = {}
+        for name, (_, a), (_, b) in zip(names, self.marks, self.marks[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
 
 
 def _nvcc() -> str:
@@ -134,7 +169,9 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_all((name,))[name])
+            from aphantasia_torch.profiling import span
+            with span("setup.kernels"):
+                lib = ctypes.CDLL(build_all((name,))[name])
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

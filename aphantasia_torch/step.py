@@ -70,7 +70,6 @@ communicator, and are captured with the rest.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -85,6 +84,7 @@ from aphantasia_torch.ops.resize import resize_bicubic
 from aphantasia_torch.ops.sampler import Boxes
 from aphantasia_torch.parallel.mesh import (gather_rows, reduce_grads,
                                             replicated, shard_batch)
+from aphantasia_torch.profiling import mark, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,15 +155,17 @@ def build_draw_fn(sampler, settings: StepSettings, param_shape):
                         transform.draw(gen, sampler.count, m, m))
 
     def draw(gen: torch.Generator) -> StepDraws:
-        shift = None
-        if settings.noise > 0 and param_shape is not None:
-            h, wf = param_shape[2], param_shape[3]
-            u = torch.rand((1, 1, h, wf, 1), generator=gen, device=gen.device)
-            if settings.noise_centered:
-                u = u - 0.5
-            shift = settings.noise * u
-        return StepDraws(shift, draw_cuts(gen),
-                         draw_cuts(gen) if settings.enforce != 0 else None)
+        with span("draw"):
+            shift = None
+            if settings.noise > 0 and param_shape is not None:
+                h, wf = param_shape[2], param_shape[3]
+                u = torch.rand((1, 1, h, wf, 1), generator=gen,
+                               device=gen.device)
+                if settings.noise_centered:
+                    u = u - 0.5
+                shift = settings.noise * u
+            return StepDraws(shift, draw_cuts(gen),
+                             draw_cuts(gen) if settings.enforce != 0 else None)
 
     return draw
 
@@ -176,26 +178,38 @@ def build_loss_fn(parameterizer, sampler, clip_cfg, settings: StepSettings,
     None; `lpips_bundle` is (lpips_params, half-size target image) or
     None; `prompts` a sequence of (embs [K,D], wts [K], coeff) groups;
     `step_i` an int or a 0-d int32 tensor on the params' device.  With
-    `mesh` the cutouts split over its data axis (module docstring)."""
+    `mesh` the cutouts split over its data axis (module docstring).
+
+    Without `mesh` the layers are marked for a captured graph's device
+    times (`profiling.mark`, `CountedGraph.layer_ms`): "decode" on the
+    params, "cut" on the frame, "tower" on the augmented cutouts and
+    "loss" on their encodings, each before the layer it names (the cut's
+    interval holds the augment); the backward marks each layer's end."""
     transform = get_transform(settings.transform, settings.persp)
     dt = settings.clip_dtype
     n = sampler.count
     local = sampler
+    marked = mark
     if mesh is not None:
         rows = mesh.rows(n)
         local = dataclasses.replace(sampler, count=rows.stop - rows.start)
+        marked = _unmarked
 
     def encode_cuts(clip_params, cut_draws: CutDraws, img):
         if mesh is not None:
             cut_draws = shard_batch(cut_draws, mesh, n)
-        cuts = local.cut(img, cut_draws.boxes, compute_dtype=dt)
+        cuts = local.cut(marked(img, "cut"), cut_draws.boxes,
+                         compute_dtype=dt)
         cuts = transform.apply(cut_draws.aug, cuts.to(dt))
-        enc = encode_image(clip_params, clip_cfg, cuts, dtype=dt).float()
-        return enc if mesh is None else gather_rows(enc, mesh, n)
+        enc = encode_image(clip_params, clip_cfg, marked(cuts, "tower"),
+                           dtype=dt).float()
+        return (marked(enc, "loss") if mesh is None
+                else gather_rows(enc, mesh, n))
 
     def loss_fn(gen_params, clip_params, aest_params, lpips_bundle, prompts,
                 prev_enc, draws: StepDraws, step_i):
-        img = parameterizer.image(gen_params, shift=draws.shift)
+        img = parameterizer.image(marked(gen_params, "decode"),
+                                  shift=draws.shift)
         out_enc = encode_cuts(clip_params, draws.cuts, img)
         img_r = replicated(img, mesh)     # the image-side terms' input
         loss = torch.zeros((), device=img.device)
@@ -267,13 +281,20 @@ def build_train_step(parameterizer, sampler, clip_cfg, settings: StepSettings,
     return train_step
 
 
+def _unmarked(x, name):
+    return x
+
+
 def build_render(parameterizer):
-    """Frame renderer: params -> [H,W,3] uint8 on the params' device."""
+    """Frame renderer: params -> [H,W,3] uint8 on the params' device,
+    marked "render" and, after it, "group" (the loop's own work) for a
+    captured graph's device times."""
     @torch.no_grad()
     def render(gen_params, contrast: float = 1.0):
-        img = parameterizer.image(gen_params, contrast=contrast)
+        img = parameterizer.image(mark(gen_params, "render"),
+                                  contrast=contrast)
         img = torch.clamp(img[0].permute(1, 2, 0), 0.0, 1.0)
-        return (img * 255.0 + 0.5).to(torch.uint8)
+        return mark((img * 255.0 + 0.5).to(torch.uint8), "group")
     return render
 
 
@@ -354,8 +375,12 @@ class StepGroup:
     `train_steps[towers[k]]`, the frame rendered after the first when
     `render` is given.  Step k of a group sees step_i = index, or
     index + k when `stride`.  On the card the first `run` is the eager
-    group and the capture (`graph`; `first_seconds` is its wall,
-    synchronised before and after); later runs replay."""
+    group and the capture (`graph`); later runs replay.  A run is a span
+    "loop.group"; the first run's eager group and capture (on the CPU its
+    eager group), synchronised before and after, a span "loop.capture",
+    whose length is `first_seconds`."""
+
+    CAPTURE_SPAN = "loop.capture"
 
     def __init__(self, train_steps, towers, stride: bool, bufs: LoopBuffers,
                  render=None, contrast: float = 1.0):
@@ -367,23 +392,30 @@ class StepGroup:
 
     def run(self, index: int) -> None:
         """The group on the bound buffers, its first step at `index`."""
+        with span("loop.group"):
+            self._run(index)
+
+    def _run(self, index: int) -> None:
         b = self.bufs
         cuda = b.device.type == "cuda"
-        if cuda and self.first_seconds is None:
-            # the work queued before it is not this run's
-            torch.cuda.synchronize(b.device)
-        b.index.fill_(index)
-        t0 = time.perf_counter()
-        if not cuda:
-            self._steps()
-        elif self.graph is None:
-            self._capture()
-        else:
-            self.graph.replay()
         if self.first_seconds is None:
             if cuda:
+                # the work queued before it is not this run's
                 torch.cuda.synchronize(b.device)
-            self.first_seconds = time.perf_counter() - t0
+            b.index.fill_(index)
+            with span(self.CAPTURE_SPAN) as first:
+                if cuda:
+                    self._capture()
+                    torch.cuda.synchronize(b.device)
+                else:
+                    self._steps()
+            self.first_seconds = first.seconds
+            return
+        b.index.fill_(index)
+        if cuda:
+            self.graph.replay()
+        else:
+            self._steps()
 
     def _steps(self) -> None:
         b = self.bufs
@@ -481,6 +513,12 @@ class FrameLoop:
                            prompts2))
         else:
             draws, frame0 = rest
+        with span("loop.dispatch"):
+            return self._dispatch(gen_params, opt_state, prev_enc,
+                                  tuple(consts), draws, frame0)
+
+    def _dispatch(self, gen_params, opt_state, prev_enc, consts, draws,
+                  frame0):
         n, nf, b = self.opt_step, self.n_frames, self.bufs
         dev = leaves(gen_params)[0].device
         frames = torch.empty((nf,) + b.frame_shape, dtype=torch.uint8,
@@ -493,7 +531,7 @@ class FrameLoop:
         for j in range(nf):
             fstep = int(frame0) + j
             base = fstep * n
-            b.bind(gen_params, opt_state, prev_enc, tuple(consts),
+            b.bind(gen_params, opt_state, prev_enc, consts,
                    [draws(base + k) for k in range(n)])
             group = self._group(self.pattern(base))
             first = group.first_seconds is None
@@ -612,13 +650,19 @@ class FrameGroup(StepGroup):
     the params, a fresh optimizer state unless `smooth`, `opt_steps` train
     steps that all see the frame's step index, the uint8 render after the
     last, and with depth the next depth preview (`preview`, allocated
-    before the first run)."""
+    before the first run).  A run is inside its frame's "frame.step" span;
+    the first run's eager group and capture is a span "frame.capture"."""
+
+    CAPTURE_SPAN = "frame.capture"
 
     def __init__(self, frame_step, train_step, bufs: LoopBuffers):
         super().__init__((train_step,), (0,) * frame_step.opt_steps, False,
                          bufs)
         self.fs = frame_step
         self.preview = None
+
+    def run(self, index: int) -> None:
+        self._run(index)
 
     def _steps(self) -> None:
         b, fs = self.bufs, self.fs
@@ -701,6 +745,13 @@ class FrameStep:
 
     def __call__(self, params_tmp, opt_state, prev_enc, clip_params,
                  aest_params, prompts, draws, step_i, motion, depth_map=None):
+        with span("frame.step"):
+            return self._frame(params_tmp, opt_state, prev_enc, clip_params,
+                               aest_params, prompts, draws, step_i, motion,
+                               depth_map)
+
+    def _frame(self, params_tmp, opt_state, prev_enc, clip_params,
+               aest_params, prompts, draws, step_i, motion, depth_map):
         key = tuple(tuple(tuple(t.shape) for t in g[:2]) for g in prompts)
         group = self.groups.get(key)
         if group is None:
@@ -768,9 +819,10 @@ def _depth_preview(img_raw, size, colors):
 class GraphFn:
     """fn(x) with no gradient at one input shape.  On the card its first
     call runs eagerly on a side stream (that result is returned) and is
-    then captured into a `kernels.CountedGraph`; later calls copy x into
-    the graph's input and replay, and return the graph's output, which
-    the next call overwrites.  On the CPU every call runs eagerly."""
+    then captured into a `kernels.CountedGraph` (a span "loop.capture",
+    whose length is `first_seconds`); later calls copy x into the graph's
+    input and replay, and return the graph's output, which the next call
+    overwrites.  On the CPU every call runs eagerly."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -786,20 +838,20 @@ class GraphFn:
             self.graph.replay()
             return self.out
         torch.cuda.synchronize(x.device)
-        t0 = time.perf_counter()
-        self.x = x.clone()
-        main = torch.cuda.current_stream(x.device)
-        side = torch.cuda.Stream(x.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            first = self.fn(self.x)
-        main.wait_stream(side)
-        graph = kernels.CountedGraph()
-        with graph.capture(capture_error_mode="thread_local"):
-            self.out = self.fn(self.x)
-        self.graph = graph
-        torch.cuda.synchronize(x.device)
-        self.first_seconds = time.perf_counter() - t0
+        with span("loop.capture") as capture:
+            self.x = x.clone()
+            main = torch.cuda.current_stream(x.device)
+            side = torch.cuda.Stream(x.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                first = self.fn(self.x)
+            main.wait_stream(side)
+            graph = kernels.CountedGraph()
+            with graph.capture(capture_error_mode="thread_local"):
+                self.out = self.fn(self.x)
+            self.graph = graph
+            torch.cuda.synchronize(x.device)
+        self.first_seconds = capture.seconds
         return first
 
 

@@ -953,3 +953,131 @@ def test_mesh_wider_than_the_host_raises(cuda, tmp_path):
         with pytest.raises(SystemExit, match=f"needs {n} devices"):
             clip_fft.run(clip_fft.get_args(["-t", "x", "--out_dir",
                                             str(tmp_path), "--mesh", spec]))
+
+
+def _three_kernels(mark=lambda x, name: x):
+    """A bf16 product, an in-place scale and an in-place sum, each one
+    kernel of about a millisecond (so an event node's few microseconds
+    stay under 1% of it), each behind a mark of its name."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a = torch.randn((8192, 8192), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    x = torch.rand(2 ** 28, generator=gen, device="cuda")
+    y = torch.rand(2 ** 28, generator=gen, device="cuda")
+
+    def fn():
+        torch.mm(mark(a, "mm"), a, out=c)
+        mark(x, "mul").mul_(1.0001)
+        mark(y, "add").add_(x)
+        mark(y, "end")
+    return fn, (c, x, y)
+
+
+def _counted(fn):
+    """fn() on a side stream, then captured into a CountedGraph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = kernels.CountedGraph()
+    with graph.capture():
+        fn()
+    return graph
+
+
+def test_counted_graph_counts_its_kernel_nodes_and_times_its_marks(cuda):
+    """A graph of three known kernels: three kernel nodes (a mark is an
+    event node, not a kernel), and the marks' intervals of a replay
+    within 5% of the profiler's time of the kernel each holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from aphantasia_torch.profiling import mark
+    fn, _ = _three_kernels(mark)
+    graph = _counted(fn)
+    assert graph.nodes["kernel"] == 3
+    assert graph.nodes["event_record"] == 4
+    assert [n for n, _ in graph.marks] == ["mm", "mul", "add", "end"]
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    graph.replay()              # the marks of a replay the profiler missed
+    torch.cuda.synchronize()
+    ms = graph.layer_ms()
+    kern = [e.duration_ns() / 1e6
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.name().startswith("Memset")]
+    assert len(kern) == 3
+    pairs = [(ms[name], k) for name, k in zip(("mm", "mul", "add"), kern)]
+    assert all(abs(m - k) <= 0.05 * k for m, k in pairs), pairs
+
+
+def test_keep_graph_replay_equals_the_eager_calls(cuda):
+    """A CountedGraph (captured with keep_graph, its nodes walked, then
+    instantiated) replays what the eager calls compute, bit for bit."""
+    fn, outs = _three_kernels()
+    starts = [t.clone() for t in outs]
+    fn()
+    eager = [t.clone() for t in outs]
+    for t, s in zip(outs, starts):
+        t.copy_(s)
+    graph = _counted(fn)
+    for t, s in zip(outs, starts):
+        t.copy_(s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, eager))
+
+
+def test_step_marks_cover_the_replayed_group(cuda):
+    """A captured clip_fft group (1280x720 FFT, ViT-B/32 in bf16 on 64
+    cutouts, a step and the render): its marks name the decode, cut,
+    tower, loss, optimizer and render, and their intervals sum to within
+    3% of the replay's device time."""
+    from aphantasia_torch.models.clip import model as tm
+    from aphantasia_torch.ops import optim as to
+    from aphantasia_torch.params.fft import FFTParameterizer
+    from aphantasia_torch.step import (StepSettings, build_draw_fn,
+                                       build_train_loop_frames)
+    cfg = tm.CLIP_CONFIGS["ViT-B/32"]
+    par = FFTParameterizer((720, 1280), 1.5, 1.8)
+    sampler = CutoutSampler((720, 1280), 64, 224, "uniform")
+    settings = StepSettings(transform="fast", clip_dtype=torch.bfloat16)
+    opt = to.build_optimizer("adam", 0.05)
+    vis = {"visual": cast_weights(tm.clip_init(cuda, cfg)["visual"],
+                                  torch.bfloat16)}
+    prompts = ((torch.randn((1, 512), generator=cuda, device="cuda"),
+                torch.ones(1, device="cuda"),
+                torch.full((), -1.0, device="cuda")),)
+    params = par.init(cuda)
+    loop = build_train_loop_frames(par, sampler, cfg, settings, opt, 1, 2)
+    draw = build_draw_fn(sampler, settings, tuple(params.shape))
+    state = (params, opt.init(params), torch.zeros((64, 512), device="cuda"))
+    for c in range(2):
+        state = loop(*state, vis, None, None, prompts,
+                     lambda g: draw(cuda), 2 * c)[:3]
+    (group,) = loop.groups.values()
+    graph = group.graph
+    assert graph.nodes["kernel"] > 100
+    names = [n for n, _ in graph.marks]
+    assert names == ["decode", "cut", "tower", "loss", "loss.bwd",
+                     "tower.bwd", "cut.bwd", "decode.bwd", "render", "group"]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    total = start.elapsed_time(stop)
+    ms = graph.layer_ms()
+    assert set(ms) == {"decode", "cut", "tower", "loss", "step", "render"}
+    assert 0.97 * total <= sum(ms.values()) <= total, (ms, total)

@@ -338,11 +338,25 @@ def test_illustrip_two_scenes_rgb_cpu(tmp_path, tiny_towers):
     """Two RGB scenes (the second line with two `|` parts, so its frames
     take a second frame group from frame 3 on), --opt_step 2: six frames
     `%06d.jpg`, the config, the text file copied, the video, finite
-    losses."""
+    losses; a span each frame for its plan, its step and its writer
+    admit, two draws a frame, a span a scene, and the frames' host
+    seconds taken from them."""
+    from aphantasia_torch import profiling
     txt = _write(tmp_path / "lines.txt", "first scene\n# note\nsecond | two\n")
-    res = illustrip.run(illustrip.get_args(
-        ["-t", txt, "--out_dir", str(tmp_path / "o"), "--opt_step", "2"]
-        + TINY))
+    with profiling.collect() as spans:
+        res = illustrip.run(illustrip.get_args(
+            ["-t", txt, "--out_dir", str(tmp_path / "o"), "--opt_step", "2"]
+            + TINY))
+    names = [s.name for s in spans]
+    for name, n in (("frame.plan", 6), ("frame.step", 6), ("draw", 12),
+                    ("writer.admit", 6), ("scene", 2), ("frame.capture", 2),
+                    ("setup.clip", 1)):
+        assert names.count(name) == n, (name, names.count(name))
+    plans = [s.t0 / 1e9 for s in spans if s.name == "frame.plan"]
+    assert res.starts == plans
+    assert len(res.host) == 6 and all(
+        len(h) == 3 and min(h) >= 0 for h in res.host)
+    assert res.end > res.starts[-1] + sum(res.host[-1])
     assert os.path.basename(res.workdir) == "lines-rgb"
     assert _frames(res.workdir) == ["%06d.jpg" % i for i in range(6)]
     for f in ("config.txt", "lines.txt"):

@@ -349,7 +349,12 @@ def test_step_and_draws_make_no_host_tables_after_the_first(monkeypatch,
 def test_cli_chunked_path_with_profile(tmp_path, monkeypatch):
     """--steps 4 --opt_step 2 takes the chunked path (two frame groups in
     one dispatch): two frames, config.txt, four finite losses and step
-    times, on_step once per step, and --profile writes a trace."""
+    times, on_step once per step, one "draw" and one "loop.group" span a
+    step, one "loss_read" a dispatch, and --profile writes a trace that
+    shows the program's spans as ranges."""
+    import json
+
+    from aphantasia_torch import profiling
     built = []
     real = clip_fft.build_train_loop_frames
 
@@ -359,10 +364,17 @@ def test_cli_chunked_path_with_profile(tmp_path, monkeypatch):
     monkeypatch.setattr(clip_fft, "build_train_loop_frames", spy)
     out, prof = str(tmp_path / "out"), str(tmp_path / "prof")
     seen = []
-    res = clip_fft.run(clip_fft.get_args(
-        ["-t", "x", "--size", "96-64", "--samples", "4", "--steps", "4",
-         "--opt_step", "2", "-nv", "--device", "cpu", "--out_dir", out,
-         "--profile", prof]), seen.append)
+    with profiling.collect() as spans:
+        res = clip_fft.run(clip_fft.get_args(
+            ["-t", "x", "--size", "96-64", "--samples", "4", "--steps", "4",
+             "--opt_step", "2", "-nv", "--device", "cpu", "--out_dir", out,
+             "--profile", prof]), seen.append)
+    names = [s.name for s in spans]
+    assert names.count("draw") == 4 and names.count("loop.group") == 2
+    assert names.count("loop.dispatch") == 1 and names.count(
+        "loss_read") == 1 and names.count("loop.capture") == 1
+    assert res.loop.first_runs == {0: next(
+        s.seconds for s in spans if s.name == "loop.capture")}
     assert built == [(2, 2)] and seen == [0, 1, 2, 3]
     run_dir = os.path.join(out, res.out_name)
     frames = sorted(f for f in os.listdir(run_dir) if f.endswith(".jpg"))
@@ -371,8 +383,11 @@ def test_cli_chunked_path_with_profile(tmp_path, monkeypatch):
     assert len(res.losses) == 4 and all(np.isfinite(res.losses))
     assert len(res.step_seconds) == 4 and min(res.step_seconds) > 0
     traces = [f for f in os.listdir(prof) if f.endswith(".json")]
-    assert len(traces) == 1 and os.path.getsize(
-        os.path.join(prof, traces[0])) > 0
+    assert len(traces) == 1
+    with open(os.path.join(prof, traces[0])) as f:
+        ranges = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"draw", "loop.group", "loop.dispatch", "loss_read",
+            "writer.admit"} <= ranges
 
 
 def test_cli_chunked_and_per_step_paths_agree(tmp_path, monkeypatch):
@@ -392,18 +407,3 @@ def test_cli_chunked_and_per_step_paths_agree(tmp_path, monkeypatch):
     a = img_read(os.path.join(tmp_path / "a", chunked.out_name, "0000.jpg"))
     b = img_read(os.path.join(tmp_path / "b", per_step.out_name, "0000.jpg"))
     np.testing.assert_array_equal(a, b)
-
-
-def test_phase_timers_report_each_phase():
-    """profiling.PhaseTimers (the JAX package's counterpart): a phase's
-    calls and total time, largest first."""
-    from aphantasia_torch.profiling import PhaseTimers, trace
-    timers = PhaseTimers()
-    for name in ("decode", "encode", "decode"):
-        with timers.phase(name):
-            pass
-    assert timers.counts == {"decode": 2, "encode": 1}
-    lines = timers.report().splitlines()
-    assert len(lines) == 2 and all("ms/call" in ln for ln in lines)
-    with trace(None):       # no dir: no profiler
-        pass
