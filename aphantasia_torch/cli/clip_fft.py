@@ -52,11 +52,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import shutil
 import time
 
-import numpy as np
 import torch
 
 from aphantasia_torch.cli.common import (
@@ -66,6 +66,7 @@ from aphantasia_torch.cli.common import (
     run_cli, setup_mesh, setup_spatial, spatial_canvas, spatial_count)
 from aphantasia_torch.device import resolve_device
 from aphantasia_torch.io.checkpoint import save_pt
+from aphantasia_torch.io.encoder import gamma_tone
 from aphantasia_torch.io.media import frames_to_video, img_list, img_read
 from aphantasia_torch.models.lpips import lpips_get
 from aphantasia_torch.ops.losses import aesthetic_dims, aesthetic_get
@@ -325,13 +326,12 @@ def _run(a, on_step=None, spatial=None) -> RunResult:
     opt_state = su.optimizer.init(gen_params)
     prev_enc = torch.zeros((a.samples, su.clip_cfg.embed_dim),
                            device=su.gen.device)
-    # empirical tone mapping, applied in the writer
+    # empirical tone mapping, applied in the writer's encoder processes
     tone = None
     if a.sync > 0 and a.in_img is not None:
-        tone = lambda im: ((im / 255.0) ** 1.3 * 255).astype(np.uint8)  # noqa: E731
+        tone = functools.partial(gamma_tone, power=1.3)
     elif a.sharp != 0:
-        tone = (lambda im: ((im / 255.0) ** (1 + a.sharp / 2.0) * 255)
-                .astype(np.uint8))
+        tone = functools.partial(gamma_tone, power=1 + a.sharp / 2.0)
     pbar = ProgressBar(a.steps // a.opt_step) if a.verbose else None
     losses, seconds = [], []
     # the JAX CLI's condition for its chunked loop; the random stream is

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import shutil
 import time
@@ -51,6 +52,7 @@ from aphantasia_torch.cli.common import (
     maybe_translate, parse_size, resolve_dtype, resolve_persp, round_samples,
     run_cli, setup_mesh, setup_spatial, spatial_canvas, spatial_count)
 from aphantasia_torch.device import resolve_device
+from aphantasia_torch.io.encoder import depth_tone
 from aphantasia_torch.io.media import (basename, file_list, frames_to_video,
                                        img_read)
 from aphantasia_torch.motion.anima import motion_schedule
@@ -73,14 +75,10 @@ CLIP_MODELS = ['ViT-B/16', 'ViT-B/32', 'RN50', 'RN50x4', 'RN50x16', 'RN101']
 
 def _save_depth_map(writer, dmap, depth_dir, num, size):
     """The depth-map JPEG of a frame: the fused map at the DA-V2 size is
-    pulled by the writer, and resized to the frame in its thread."""
-    def tone(arr8):
-        from PIL import Image
-        arr8 = np.asarray(Image.fromarray(arr8).resize((size[1], size[0]),
-                                                       Image.BICUBIC))
-        return np.stack([arr8] * 3, -1)
+    pulled by the writer, and resized to the frame in its encoder process
+    (`depth_tone`)."""
     writer.save_batch([os.path.join(depth_dir, '%05d.jpg' % num)], dmap[0],
-                      tone)
+                      functools.partial(depth_tone, size=tuple(size)))
 
 
 def get_args(argv=None):

@@ -15,10 +15,15 @@
 //   LN      one-pass float32 moments, h = round_T(xhat * g + b);
 //   product T operands, float32 sums, round_T, then the bias added in T
 //           (round_T(round_T(acc) + bias)); the residual add in T;
-//   attention  s = q.k * scale, e = exp(min(s, 60)) (a clamp, no max
-//           subtraction), inv = 1 / sum(e) saved per (row, head),
-//           o = round_T(sum_j round_T(e_j) v_j * inv);
-//   attention backward  p32 = e * inv, dv = sum_i round_T(p32) do_i,
+//   attention  s = q.k * scale, c = k ln 2 with k = floor(max_j s_j /
+//           ln 2), e = exp(s - c) (the exact softmax: no clamp, e < 2),
+//           lse = c + log(sum(e)) saved per (row, head),
+//           o = round_T(sum_j round_T(e_j) v_j / sum(e)).  The TPU kernel
+//           clamps, e = exp(min(s, 60)) with nothing subtracted, and saves
+//           1 / sum(e): the two agree wherever no score passes 60, and since
+//           c shifts e by a power of two, round_T(e) is the TPU kernel's
+//           rounding scaled (csrc/attention.cu subtracts the max itself);
+//   attention backward  p32 = exp(s - lse), dv = sum_i round_T(p32) do_i,
 //           ds = round_T(p32 (dp - sum_j dp p32) * scale), dq = ds k,
 //           dk = ds^T q, each rounded to T; dh = dqkv @ in_w^T in float32;
 //   MLP     u = round_T(round_T(h @ fc_w) + fc_b), a = round_T(u sigmoid(1.702 u));
@@ -85,11 +90,12 @@
 //   tiles of every operand in shared memory for no gain.
 //   Forward: `core_fwd_tc_kernel`, a block per (sample, 64-row query
 //   tile, head) walking 64-key tiles (one at t <= 64: 27 KB, 2280 blocks
-//   at R = 9500); the clamp subtracts no running max, so o and the row
-//   sum add up over key tiles with no rescaling, and keys past t are
-//   masked to e = 0.  The clamp softmax also differs from
-//   csrc/attention.cu's lse backward: rs = sum_j dp p32 needs the whole
-//   row of dp before any ds.  t <= 64 (ViT-B/32):
+//   at R = 9500) with an online softmax: a running row max, and o and the
+//   row sum scaled by 2^(k_old - k_new), exactly, when a key tile raises
+//   its power of two; keys past t are masked to e = 0.  The backward recomputes p32 = exp(s -
+//   lse) from the saved lse; unlike csrc/attention.cu it sums rs = sum_j
+//   dp p32 (the TPU kernel's order), which needs the whole row of dp
+//   before any ds.  t <= 64 (ViT-B/32):
 //   `core_one_tile_tc_kernel`, a block per (sample, head) with Q, dO, K,
 //   V resident (46 KB, 4 blocks an SM, 2280 blocks at R = 9500): dq with
 //   rs kept in shared memory, then dk, dv.  Longer t: `core_dq_tc_kernel`
@@ -734,7 +740,7 @@ int product_tc(const bf16* A, const bf16* B, int M, int N, int K,
 // ------------------------------------------------------------ attention
 
 // Shared floats of the core kernels at (t, hd): two [t][hd + 1] matrices,
-// per-warp rows and columns, and (backward) inv and rs per query row.
+// per-warp rows and columns, and (backward) lse and rs per query row.
 size_t core_fwd_smem(int t, int hd) {
   return sizeof(float) * (2 * (size_t)t * (hd + 1) +
                           kAttnWarps * ((size_t)hd + t));
@@ -744,6 +750,25 @@ size_t core_bwd_smem(int t, int hd) {
                           2 * kAttnWarps * ((size_t)hd + t) + 2 * (size_t)t);
 }
 
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kInvLn2 = 1.4426950408889634f;
+
+// The softmax's shift for a row max m: k = floor(m / ln 2) and c = k ln 2,
+// each rounded once (no contraction), as ops/block.py's `_shift`.
+__device__ __forceinline__ float shift_pow2(float m) {
+  return floorf(__fmul_rn(m, kInvLn2));
+}
+__device__ __forceinline__ float shift_of(float k) {
+  return __fmul_rn(k, kLn2);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 __device__ __forceinline__ float dot(const float* a, const float* b, int n) {
   float s = 0.f;
   for (int c = 0; c < n; ++c) s = fmaf(a[c], b[c], s);
@@ -751,18 +776,19 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int n) {
 }
 
 // A block per (sample, head): K and V in shared memory, each warp walks
-// query rows; lanes take keys for the scores, head columns for o.
+// query rows; lanes take keys for the scores (kept, then their max, then
+// e), head columns for o.
 template <typename T>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 core_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                float* __restrict__ inv_out, int t, int n_heads, int d,
+                float* __restrict__ lse_out, int t, int n_heads, int d,
                 float scale) {
   extern __shared__ float smem[];
   const int hd = d / n_heads, ld = hd + 1;
   float* ks = smem;
   float* vs = ks + t * ld;
   float* qbuf = vs + t * ld;           // [warps][hd]
-  float* pbuf = qbuf + kAttnWarps * hd;  // [warps][t]: round_T(e)
+  float* pbuf = qbuf + kAttnWarps * hd;  // [warps][t]: s, then round_T(e)
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int64_t row0 = (int64_t)b * t, d3 = 3 * (int64_t)d;
   const T* base = qkv + row0 * d3 + (int64_t)h * hd;
@@ -778,13 +804,20 @@ core_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   for (int i = warp; i < t; i += kAttnWarps) {
     for (int c = lane; c < hd; c += 32) q[c] = to_f(base[i * d3 + c]);
     __syncwarp();
+    float mx = -INFINITY;
+    for (int j = lane; j < t; j += 32) {
+      p[j] = dot(q, ks + j * ld, hd) * scale;
+      mx = fmaxf(mx, p[j]);
+    }
+    const float sh = shift_of(shift_pow2(warp_max(mx)));
     float sum = 0.f;
     for (int j = lane; j < t; j += 32) {
-      const float e = expf(fminf(dot(q, ks + j * ld, hd) * scale, 60.f));
+      const float e = expf(__fsub_rn(p[j], sh));
       p[j] = rnd<T>(e);
       sum += e;
     }
-    const float inv = 1.f / warp_sum(sum);
+    sum = warp_sum(sum);
+    const float inv = 1.f / sum;
     __syncwarp();
     T* orow = out + (row0 + i) * d + (int64_t)h * hd;
     for (int c = lane; c < hd; c += 32) {
@@ -792,7 +825,7 @@ core_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
       for (int j = 0; j < t; ++j) acc = fmaf(p[j], vs[j * ld + c], acc);
       orow[c] = from_f<T>(acc * inv);
     }
-    if (lane == 0) inv_out[(row0 + i) * n_heads + h] = inv;
+    if (lane == 0) lse_out[(row0 + i) * n_heads + h] = sh + logf(sum);
     __syncwarp();
   }
 }
@@ -800,13 +833,13 @@ core_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
 // dqkv of one (sample, head) in two phases over the same shared memory:
 // with K, V resident each warp walks query rows (p32, dp, rs = sum dp p32,
 // ds, dq); then with Q, dO resident each warp walks key rows, recomputes
-// that key's column of p32 and ds from the saved inv and rs, and writes dk
+// that key's column of p32 and ds from the saved lse and rs, and writes dk
 // and dv.  The scores and dp are the same dot products in the same order
 // in both phases, so the two phases see the same bits.
 template <typename T>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                const float* __restrict__ inv_in, T* __restrict__ dqkv, int t,
+                const float* __restrict__ lse_in, T* __restrict__ dqkv, int t,
                 int n_heads, int d, float scale) {
   extern __shared__ float smem[];
   const int hd = d / n_heads, ld = hd + 1;
@@ -814,8 +847,8 @@ core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   float* mb = ma + t * ld;                      // [t][ld]: V, then dO
   float* rows = mb + t * ld;                    // [2][warps][hd]
   float* cols = rows + 2 * kAttnWarps * hd;     // [2][warps][t]
-  float* inv_s = cols + 2 * kAttnWarps * t;     // [t]
-  float* rs_s = inv_s + t;                      // [t]
+  float* lse_s = cols + 2 * kAttnWarps * t;     // [t]
+  float* rs_s = lse_s + t;                      // [t]
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int64_t row0 = (int64_t)b * t, d3 = 3 * (int64_t)d;
   const int64_t hoff = (int64_t)h * hd;
@@ -832,7 +865,7 @@ core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     mb[j * ld + c] = to_f(base[j * d3 + 2 * d + c]);
   }
   for (int i = threadIdx.x; i < t; i += kAttnWarps * 32)
-    inv_s[i] = inv_in[(row0 + i) * n_heads + h];
+    lse_s[i] = lse_in[(row0 + i) * n_heads + h];
   __syncthreads();
   for (int i = warp; i < t; i += kAttnWarps) {
     for (int c = lane; c < hd; c += 32) {
@@ -842,8 +875,7 @@ core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     __syncwarp();
     float rs = 0.f;
     for (int j = lane; j < t; j += 32) {
-      const float e = expf(fminf(dot(r1, ma + j * ld, hd) * scale, 60.f));
-      const float p32 = e * inv_s[i];
+      const float p32 = expf(dot(r1, ma + j * ld, hd) * scale - lse_s[i]);
       const float dp = dot(r2, mb + j * ld, hd);
       pc[j] = p32;
       dsc[j] = dp;
@@ -877,8 +909,7 @@ core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     }
     __syncwarp();
     for (int i = lane; i < t; i += 32) {
-      const float e = expf(fminf(dot(ma + i * ld, r1, hd) * scale, 60.f));
-      const float p32 = e * inv_s[i];
+      const float p32 = expf(dot(ma + i * ld, r1, hd) * scale - lse_s[i]);
       const float dp = dot(mb + i * ld, r2, hd);
       pc[i] = rnd<T>(p32);
       dsc[i] = rnd<T>(p32 * (dp - rs_s[i]) * scale);
@@ -899,7 +930,7 @@ core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 }
 
 template <typename T>
-cudaError_t core_fwd(const T* qkv, T* out, float* inv, int rows, int t,
+cudaError_t core_fwd(const T* qkv, T* out, float* lse, int rows, int t,
                      int n_heads, int d, float scale, cudaStream_t stream) {
   const size_t smem = core_fwd_smem(t, d / n_heads);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
@@ -908,12 +939,12 @@ cudaError_t core_fwd(const T* qkv, T* out, float* inv, int rows, int t,
       (int)smem);
   if (err != cudaSuccess) return err;
   core_fwd_kernel<T><<<(rows / t) * n_heads, kAttnWarps * 32, smem, stream>>>(
-      qkv, out, inv, t, n_heads, d, scale);
+      qkv, out, lse, t, n_heads, d, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t core_bwd(const T* qkv, const T* dout, const float* inv, T* dqkv,
+cudaError_t core_bwd(const T* qkv, const T* dout, const float* lse, T* dqkv,
                      int rows, int t, int n_heads, int d, float scale,
                      cudaStream_t stream) {
   const size_t smem = core_bwd_smem(t, d / n_heads);
@@ -923,7 +954,7 @@ cudaError_t core_bwd(const T* qkv, const T* dout, const float* inv, T* dqkv,
       (int)smem);
   if (err != cudaSuccess) return err;
   core_bwd_kernel<T><<<(rows / t) * n_heads, kAttnWarps * 32, smem, stream>>>(
-      qkv, dout, inv, dqkv, t, n_heads, d, scale);
+      qkv, dout, lse, dqkv, t, n_heads, d, scale);
   return cudaGetLastError();
 }
 
@@ -932,7 +963,7 @@ cudaError_t core_bwd(const T* qkv, const T* dout, const float* inv, T* dqkv,
 constexpr int kTcThreads = 128;  // 4 warps x 16 rows = one 64-row tile
 constexpr size_t kDqSmem = 6 * kTile * sizeof(bf16);  // Q, dO, 2 K, 2 V
 constexpr size_t kDkvSmem =                           // K, V, 2 Q, 2 dO,
-    6 * kTile * sizeof(bf16) + 4 * kRows * sizeof(float);  // 2 inv, 2 rs
+    6 * kTile * sizeof(bf16) + 4 * kRows * sizeof(float);  // 2 lse, 2 rs
 
 // Rows [0, n) and head columns [0, hd) of a 64 x 64 tile from device
 // memory (row stride ld) into shared memory, zeros elsewhere, so padded
@@ -976,20 +1007,23 @@ __device__ __forceinline__ void head_store(bf16* s, const float (&acc)[8][4],
     }
 }
 
-// o and inv of one 64-row query tile of one (sample, head): the clamp
+// o and lse of one 64-row query tile of one (sample, head): the exact
 // softmax forward on the tensor cores.  Each warp owns 16 query rows; Q
 // comes by `head_load`, K and V in 64-key tiles double-buffered by
-// cp.async (t <= 64: one tile, one stage, no loop).  e = exp(min(s scale,
-// 60)) subtracts nothing, so e needs no rescaling across key tiles: o and
-// the row sum simply add up.  Keys at and past t get e = 0 (a zero-filled
-// key row would score 0 and add exp(0) = 1 to the row sum).  The row sum
-// takes the float32 e: a lane sums its columns in key order, then the
-// quad adds its four partial sums, a fixed order.  o += round_bf16(e) v
-// (`to_a_frags` rounds, as the TPU kernel's `e.astype(dt)`), and at the
-// end o = round_bf16(o inv), multiplied in float32 and rounded once.
+// cp.async (t <= 64: one tile, one stage, no loop).  Each key tile raises
+// the rows' running max m (the quad shares its rows' max) and with it the
+// shift c = k ln 2, k = floor(m / ln 2); e = exp(s scale - c).  Where k
+// rose, the lane's part of the row sum and o are first scaled by
+// 2^(k_old - k_new), exactly.
+// Keys at and past t get e = 0 (a zero-filled key row would score 0).
+// The row sum takes the float32 e: a lane sums its columns in key order,
+// then the quad adds its four partial sums, a fixed order.
+// o += round_bf16(e) v (`to_a_frags` rounds, as the TPU kernel's
+// `e.astype(dt)`), and at the end o = round_bf16(o / sum), multiplied by
+// 1 / sum in float32 and rounded once; lse = c + log(sum).
 __global__ void __launch_bounds__(kTcThreads)
 core_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                   float* __restrict__ inv_out, int t, int n_heads, int d,
+                   float* __restrict__ lse_out, int t, int n_heads, int d,
                    float scale, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nk = (t + kRows - 1) / kRows;
@@ -1014,6 +1048,8 @@ core_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   const int w16 = warp * 16;
   const bf16* qw = qs + w16 * kLd;
   float o[8][4], sum[2] = {0.f, 0.f};
+  float m[2] = {-INFINITY, -INFINITY}, k[2] = {-INFINITY, -INFINITY};
+  float sh[2];
   zero_acc(o);
   for (int v = 0; v < nk; ++v) {
     const int st = v & 1, k0 = v * kRows;
@@ -1027,14 +1063,39 @@ core_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     float s[8][4];
     zero_acc(s);
     warp_abt(s, qw, ks + st * kTile, lane);
-    // e = exp(min(s scale, 60)); zero past the sample's keys
+    // s scale, -inf past the sample's keys; the rows' new max
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = k0 + 8 * j + c + (e & 1) < t ? s[j][e] * scale : -INFINITY;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // key 0 is in the first tile, so mx is finite from there on
+      const float kn = shift_pow2(mx);
+      const float alpha = exp2f(k[hh] - kn);   // a power of two, or 0
+      sum[hh] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[j][2 * hh] *= alpha;
+        o[j][2 * hh + 1] *= alpha;
+      }
+      m[hh] = mx;
+      k[hh] = kn;
+      sh[hh] = shift_of(kn);
+    }
+    // e = exp(s scale - c); zero past the sample's keys
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = k0 + 8 * j + c + (e & 1) < t
-                      ? expf(fminf(s[j][e] * scale, 60.f))
-                      : 0.f;
+        s[j][e] = expf(__fsub_rn(s[j][e], sh[e >> 1]));
         sum[e >> 1] += s[j][e];
       }
     unsigned pf[4][4];
@@ -1049,7 +1110,8 @@ core_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
     inv[hh] = 1.f / sum[hh];
     const int row = q0 + w16 + r + 8 * hh;
-    if (c == 0 && row < t) inv_out[(rows0 + row) * n_heads + h] = inv[hh];
+    if (c == 0 && row < t)
+      lse_out[(rows0 + row) * n_heads + h] = sh[hh] + logf(sum[hh]);
   }
   // the warp's own Q rows (read by no other warp) stage its o
   head_store(qs + w16 * kLd, o, out + (rows0 + q0 + w16) * d + hoff, d,
@@ -1058,13 +1120,13 @@ core_fwd_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
 // The bf16 core forward: one launch of `core_fwd_tc_kernel`, a block per
 // (sample, 64-row query tile, head); heads up to 64 wide.
-int core_fwd_tc(const bf16* qkv, bf16* out, float* inv, int rows, int t,
+int core_fwd_tc(const bf16* qkv, bf16* out, float* lse, int rows, int t,
                 int n_heads, int d, float scale, cudaStream_t stream) {
   if (d / n_heads > kHd) return (int)cudaErrorInvalidValue;
   const int n_tiles = (t + kRows - 1) / kRows;
   const size_t smem = (1 + 2 * (n_tiles > 1 ? 2 : 1)) * kTile * sizeof(bf16);
   core_fwd_tc_kernel<<<dim3((rows / t) * n_tiles, n_heads), kTcThreads, smem,
-                       stream>>>(qkv, out, inv, t, n_heads, d, scale,
+                       stream>>>(qkv, out, lse, t, n_heads, d, scale,
                                  n_tiles);
   return (int)cudaGetLastError();
 }
@@ -1078,7 +1140,7 @@ int core_fwd_tc(const bf16* qkv, bf16* out, float* inv, int rows, int t,
 // fixed order.
 __global__ void __launch_bounds__(kTcThreads)
 core_dq_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                  const float* __restrict__ inv_in, bf16* __restrict__ dqkv,
+                  const float* __restrict__ lse_in, bf16* __restrict__ dqkv,
                   float* __restrict__ rs_out, int t, int n_heads, int d,
                   float scale, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1105,11 +1167,11 @@ core_dq_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   load_kv(0, 0);                   // Q and dO ride in the first group
   const int r = lane >> 2, c = (lane & 3) * 2;
   const int row0 = q0 + warp * 16 + r;       // this lane's rows: +0, +8
-  float inv[2], rs[2] = {0.f, 0.f};
+  float lse[2], rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
-    inv[hh] = row < t ? inv_in[(rows0 + row) * n_heads + h] : 0.f;
+    lse[hh] = row < t ? lse_in[(rows0 + row) * n_heads + h] : 0.f;
   }
   const bf16* qw = qs + warp * 16 * kLd;
   const bf16* gw = gs + warp * 16 * kLd;
@@ -1129,13 +1191,13 @@ core_dq_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     zero_acc(dp);
     warp_abt(s, qw, ks + st * kTile, lane);
     warp_abt(dp, gw, vs + st * kTile, lane);
-    // p32 = exp(min(s scale, 60)) inv; zero past the sample's keys
+    // p32 = exp(s scale - lse); zero past the sample's keys
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[j][e] = k0 + 8 * j + c + (e & 1) < t
-                      ? expf(fminf(s[j][e] * scale, 60.f)) * inv[e >> 1]
+                      ? expf(s[j][e] * scale - lse[e >> 1])
                       : 0.f;
     if (v < nk) {
 #pragma unroll
@@ -1174,14 +1236,14 @@ core_dq_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 }
 
 // dk and dv of one 64-key tile of one (sample, head): K and V resident,
-// the query tiles of Q and dO double-buffered with their rows' inv and rs
+// the query tiles of Q and dO double-buffered with their rows' lse and rs
 // (from the dq pass).  S^T = K Q^T and dP^T = V dO^T come out key-major,
 // so P^T and dS^T sit in registers as the A operands of dV += P^T dO and
 // dK += dS^T Q.
 __global__ void __launch_bounds__(kTcThreads)
 core_dkv_tc_kernel(const bf16* __restrict__ qkv,
                    const bf16* __restrict__ dout,
-                   const float* __restrict__ inv_in,
+                   const float* __restrict__ lse_in,
                    const float* __restrict__ rs_in, bf16* __restrict__ dqkv,
                    int t, int n_heads, int d, float scale, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1189,8 +1251,8 @@ core_dkv_tc_kernel(const bf16* __restrict__ qkv,
   bf16* vs = ks + kTile;
   bf16* qs = vs + kTile;           // two stages
   bf16* gs = qs + 2 * kTile;       // dO, two stages
-  float* inv_s = reinterpret_cast<float*>(gs + 2 * kTile);  // [2][64]
-  float* rs_s = inv_s + 2 * kRows;                          // [2][64]
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * kTile);  // [2][64]
+  float* rs_s = lse_s + 2 * kRows;                          // [2][64]
   const int b = blockIdx.x / n_tiles, j0 = (blockIdx.x % n_tiles) * kRows;
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1208,7 +1270,7 @@ core_dkv_tc_kernel(const bf16* __restrict__ qkv,
     for (int i = tid; i < kRows; i += kTcThreads) {
       const int row = i0 + i;
       const int64_t at = (rows0 + row) * n_heads + h;
-      inv_s[st * kRows + i] = row < t ? inv_in[at] : 0.f;
+      lse_s[st * kRows + i] = row < t ? lse_in[at] : 0.f;
       rs_s[st * kRows + i] = row < t ? rs_in[at] : 0.f;
     }
   };
@@ -1231,7 +1293,7 @@ core_dkv_tc_kernel(const bf16* __restrict__ qkv,
     __syncthreads();
     const bf16* qst = qs + st * kTile;
     const bf16* gst = gs + st * kTile;
-    const float* inv_t = inv_s + st * kRows;
+    const float* lse_t = lse_s + st * kRows;
     const float* rs_t = rs_s + st * kRows;
     float s[8][4], dp[8][4];       // key rows x query columns
     zero_acc(s);
@@ -1243,9 +1305,8 @@ core_dkv_tc_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + c + (e & 1);
-        const float p = i0 + col < t
-                            ? expf(fminf(s[j][e] * scale, 60.f)) * inv_t[col]
-                            : 0.f;
+        const float p =
+            i0 + col < t ? expf(s[j][e] * scale - lse_t[col]) : 0.f;
         s[j][e] = p;                                  // p32^T
         dp[j][e] = p * (dp[j][e] - rs_t[col]) * scale;  // ds^T
       }
@@ -1263,7 +1324,7 @@ core_dkv_tc_kernel(const bf16* __restrict__ qkv,
 }
 
 constexpr size_t kOneSmem =                   // Q, dO, K, V, a staging
-    5 * kTile * sizeof(bf16) + 2 * kRows * sizeof(float);  // tile; inv, rs
+    5 * kTile * sizeof(bf16) + 2 * kRows * sizeof(float);  // tile; lse, rs
 
 // dq, dk and dv of one (sample, head) with t <= 64 in one block: Q, dO, K
 // and V stay in shared memory for both phases.  First each warp owns 16
@@ -1273,7 +1334,7 @@ constexpr size_t kOneSmem =                   // Q, dO, K, V, a staging
 __global__ void __launch_bounds__(kTcThreads)
 core_one_tile_tc_kernel(const bf16* __restrict__ qkv,
                         const bf16* __restrict__ dout,
-                        const float* __restrict__ inv_in,
+                        const float* __restrict__ lse_in,
                         bf16* __restrict__ dqkv, int t, int n_heads, int d,
                         float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1282,8 +1343,8 @@ core_one_tile_tc_kernel(const bf16* __restrict__ qkv,
   bf16* ks = gs + kTile;
   bf16* vs = ks + kTile;
   bf16* os = vs + kTile;           // the warps' output staging
-  float* inv_s = reinterpret_cast<float*>(os + kTile);  // [64]
-  float* rs_s = inv_s + kRows;                          // [64]
+  float* lse_s = reinterpret_cast<float*>(os + kTile);  // [64]
+  float* rs_s = lse_s + kRows;                          // [64]
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hd = d / n_heads;
@@ -1296,7 +1357,7 @@ core_one_tile_tc_kernel(const bf16* __restrict__ qkv,
   head_load(vs, base + 2 * d, d3, t, hd, tid);
   cp_async_commit();
   for (int i = tid; i < kRows; i += kTcThreads)
-    inv_s[i] = i < t ? inv_in[(rows0 + i) * n_heads + h] : 0.f;
+    lse_s[i] = i < t ? lse_in[(rows0 + i) * n_heads + h] : 0.f;
   cp_async_wait<0>();
   __syncthreads();
   const int r = lane >> 2, c = (lane & 3) * 2;
@@ -1314,8 +1375,7 @@ core_one_tile_tc_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = 8 * j + c + (e & 1) < t
-                      ? expf(fminf(s[j][e] * scale, 60.f)) *
-                            inv_s[w16 + r + 8 * (e >> 1)]
+                      ? expf(s[j][e] * scale - lse_s[w16 + r + 8 * (e >> 1)])
                       : 0.f;
         rs[e >> 1] += dp[j][e] * s[j][e];
       }
@@ -1351,9 +1411,7 @@ core_one_tile_tc_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + c + (e & 1);
-        const float p = col < t
-                            ? expf(fminf(s[j][e] * scale, 60.f)) * inv_s[col]
-                            : 0.f;
+        const float p = col < t ? expf(s[j][e] * scale - lse_s[col]) : 0.f;
         s[j][e] = p;                                     // p32^T
         dp[j][e] = p * (dp[j][e] - rs_s[col]) * scale;   // ds^T
       }
@@ -1374,13 +1432,13 @@ core_one_tile_tc_kernel(const bf16* __restrict__ qkv,
 // The bf16 core backward: one launch of `core_one_tile_tc_kernel` for
 // t <= 64, else the dq pass (which writes rs, float32 scratch
 // [rows, n_heads]) and then the dk/dv pass.  Heads up to 64 wide.
-int core_bwd_tc(const bf16* qkv, const bf16* dout, const float* inv,
+int core_bwd_tc(const bf16* qkv, const bf16* dout, const float* lse,
                 float* rs, bf16* dqkv, int rows, int t, int n_heads, int d,
                 float scale, cudaStream_t stream) {
   if (d / n_heads > kHd) return (int)cudaErrorInvalidValue;
   if (t <= kRows) {
     core_one_tile_tc_kernel<<<dim3(rows / t, n_heads), kTcThreads, kOneSmem,
-                              stream>>>(qkv, dout, inv, dqkv, t, n_heads, d,
+                              stream>>>(qkv, dout, lse, dqkv, t, n_heads, d,
                                         scale);
     return (int)cudaGetLastError();
   }
@@ -1395,11 +1453,11 @@ int core_bwd_tc(const bf16* qkv, const bf16* dout, const float* inv,
                              (int)kDkvSmem);
   if (err != cudaSuccess) return (int)err;
   core_dq_tc_kernel<<<grid, kTcThreads, kDqSmem, stream>>>(
-      qkv, dout, inv, dqkv, rs, t, n_heads, d, scale, n_tiles);
+      qkv, dout, lse, dqkv, rs, t, n_heads, d, scale, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   core_dkv_tc_kernel<<<grid, kTcThreads, kDkvSmem, stream>>>(
-      qkv, dout, inv, rs, dqkv, t, n_heads, d, scale, n_tiles);
+      qkv, dout, lse, rs, dqkv, t, n_heads, d, scale, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -1438,24 +1496,24 @@ int run_product(const float* A, const float* B, int M, int N, int K,
                 const Ep& ep, cudaStream_t s) {
   return (int)product<float, BT>(A, B, M, N, K, ep, s);
 }
-int core_forward(const bf16* qkv, bf16* o, float* inv, int rows, int t,
+int core_forward(const bf16* qkv, bf16* o, float* lse, int rows, int t,
                  int n_heads, int d, float scale, cudaStream_t s) {
-  return core_fwd_tc(qkv, o, inv, rows, t, n_heads, d, scale, s);
+  return core_fwd_tc(qkv, o, lse, rows, t, n_heads, d, scale, s);
 }
-int core_forward(const float* qkv, float* o, float* inv, int rows, int t,
+int core_forward(const float* qkv, float* o, float* lse, int rows, int t,
                  int n_heads, int d, float scale, cudaStream_t s) {
-  return (int)core_fwd(qkv, o, inv, rows, t, n_heads, d, scale, s);
+  return (int)core_fwd(qkv, o, lse, rows, t, n_heads, d, scale, s);
 }
-int core_back(const bf16* qkv, const bf16* dout, const float* inv, float* rs,
+int core_back(const bf16* qkv, const bf16* dout, const float* lse, float* rs,
               bf16* dqkv, int rows, int t, int n_heads, int d, float scale,
               cudaStream_t s) {
-  return core_bwd_tc(qkv, dout, inv, rs, dqkv, rows, t, n_heads, d, scale,
+  return core_bwd_tc(qkv, dout, lse, rs, dqkv, rows, t, n_heads, d, scale,
                      s);
 }
-int core_back(const float* qkv, const float* dout, const float* inv,
+int core_back(const float* qkv, const float* dout, const float* lse,
               float* /* rs */, float* dqkv, int rows, int t, int n_heads,
               int d, float scale, cudaStream_t s) {
-  return (int)core_bwd(qkv, dout, inv, dqkv, rows, t, n_heads, d, scale, s);
+  return (int)core_bwd(qkv, dout, lse, dqkv, rows, t, n_heads, d, scale, s);
 }
 
 // The bf16 forward products' tile widths, each measured at 256 against
@@ -1469,19 +1527,19 @@ constexpr int kQkvBN = 256, kOutBN = 128, kFcBN = 128, kProjBN = 256;
 template <typename T>
 int attn_fwd(const T* x, const float* g, const float* b, const T* in_w,
              const T* in_b, const T* out_w, const T* out_b, T* h, T* qkv,
-             T* o, T* y, float* inv, int rows, int d, int n_heads, int t,
+             T* o, T* y, float* lse, int rows, int d, int n_heads, int t,
              float scale, cudaStream_t s) {
   TRY(layer_norm(x, g, b, h, (float*)nullptr, rows, d, s));
   TRY((run_product<false>(h, in_w, rows, 3 * d, d,
                           EpBias<T, kQkvBN>{qkv, in_b, 3 * d}, s)));
-  TRY(core_forward(qkv, o, inv, rows, t, n_heads, d, scale, s));
+  TRY(core_forward(qkv, o, lse, rows, t, n_heads, d, scale, s));
   TRY((run_product<false>(o, out_w, rows, d, d,
                           EpBiasResidual<T, kOutBN>{y, out_b, x, d}, s)));
   return 0;
 }
 
 template <typename T>
-int attn_bwd(const T* x, const T* dy, const float* inv, const float* g,
+int attn_bwd(const T* x, const T* dy, const float* lse, const float* g,
              const float* b, const T* in_w, const T* in_b, const T* out_w,
              T* h, float* stat, T* qkv, T* dout, T* dqkv, float* rs,
              float* dh, T* dx, int rows, int d, int n_heads, int t,
@@ -1490,7 +1548,7 @@ int attn_bwd(const T* x, const T* dy, const float* inv, const float* g,
   TRY((run_product<false>(h, in_w, rows, 3 * d, d,
                            EpBias<T>{qkv, in_b, 3 * d}, s)));
   TRY((run_product<true>(dy, out_w, rows, d, d, EpStore<T>{dout, d}, s)));
-  TRY(core_back(qkv, dout, inv, rs, dqkv, rows, t, n_heads, d, scale, s));
+  TRY(core_back(qkv, dout, lse, rs, dqkv, rows, t, n_heads, d, scale, s));
   TRY((run_product<true>(dqkv, in_w, rows, d, 3 * d,
                           EpStore<float>{dh, d}, s)));
   TRY(layer_norm_back(x, g, stat, dh, dy, dx, rows, d, s));
@@ -1550,23 +1608,23 @@ extern "C" {
 
 // x, y, h, o [rows, d], qkv [rows, 3d], in_w [d, 3d], in_b [3d],
 // out_w [d, d], out_b [d] in T (bf16 when `is_bf16` is 1, else float32);
-// g, b [d] and inv [rows, n_heads] float32.  h, qkv, o are scratch.
+// g, b [d] and lse [rows, n_heads] float32.  h, qkv, o are scratch.
 int attn_half_fwd(const void* x, const void* g, const void* b,
                   const void* in_w, const void* in_b, const void* out_w,
                   const void* out_b, void* h, void* qkv, void* o, void* y,
-                  void* inv, int rows, int d, int n_heads, int t, float scale,
+                  void* lse, int rows, int d, int n_heads, int t, float scale,
                   int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return attn_fwd<__nv_bfloat16>(
         (const bf16*)x, (const float*)g, (const float*)b, (const bf16*)in_w,
         (const bf16*)in_b, (const bf16*)out_w, (const bf16*)out_b, (bf16*)h,
-        (bf16*)qkv, (bf16*)o, (bf16*)y, (float*)inv, rows, d, n_heads, t,
+        (bf16*)qkv, (bf16*)o, (bf16*)y, (float*)lse, rows, d, n_heads, t,
         scale, s);
   return attn_fwd<float>(
       (const float*)x, (const float*)g, (const float*)b, (const float*)in_w,
       (const float*)in_b, (const float*)out_w, (const float*)out_b,
-      (float*)h, (float*)qkv, (float*)o, (float*)y, (float*)inv, rows, d,
+      (float*)h, (float*)qkv, (float*)o, (float*)y, (float*)lse, rows, d,
       n_heads, t, scale, s);
 }
 
@@ -1574,7 +1632,7 @@ int attn_half_fwd(const void* x, const void* g, const void* b,
 // [rows, 2], rs [rows, n_heads] and dh [rows, d] float32; h, stat, qkv,
 // dout, dqkv, rs, dh scratch (rs is written by the bf16 core only).  bf16
 // needs heads up to 64 wide and 16-byte aligned bases (TMA).
-int attn_half_bwd(const void* x, const void* dy, const void* inv,
+int attn_half_bwd(const void* x, const void* dy, const void* lse,
                   const void* g, const void* b, const void* in_w,
                   const void* in_b, const void* out_w, void* h, void* stat,
                   void* qkv, void* dout, void* dqkv, void* rs, void* dh,
@@ -1583,13 +1641,13 @@ int attn_half_bwd(const void* x, const void* dy, const void* inv,
   const cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return attn_bwd<__nv_bfloat16>(
-        (const bf16*)x, (const bf16*)dy, (const float*)inv, (const float*)g,
+        (const bf16*)x, (const bf16*)dy, (const float*)lse, (const float*)g,
         (const float*)b, (const bf16*)in_w, (const bf16*)in_b,
         (const bf16*)out_w, (bf16*)h, (float*)stat, (bf16*)qkv,
         (bf16*)dout, (bf16*)dqkv, (float*)rs, (float*)dh, (bf16*)dx, rows,
         d, n_heads, t, scale, s);
   return attn_bwd<float>(
-      (const float*)x, (const float*)dy, (const float*)inv, (const float*)g,
+      (const float*)x, (const float*)dy, (const float*)lse, (const float*)g,
       (const float*)b, (const float*)in_w, (const float*)in_b,
       (const float*)out_w, (float*)h, (float*)stat, (float*)qkv,
       (float*)dout, (float*)dqkv, (float*)rs, (float*)dh, (float*)dx, rows,
@@ -1678,20 +1736,20 @@ int block_product(const void* a, const void* w, const void* bias,
 }
 
 // The bf16 attention core forward alone, as attn_half_fwd launches it:
-// o [rows, d] bf16 and inv [rows, n_heads] float32 from qkv [rows, 3d].
-int block_core_fwd(const void* qkv, void* o, void* inv, int rows, int t,
+// o [rows, d] bf16 and lse [rows, n_heads] float32 from qkv [rows, 3d].
+int block_core_fwd(const void* qkv, void* o, void* lse, int rows, int t,
                    int n_heads, int d, float scale, void* stream) {
-  return core_fwd_tc((const bf16*)qkv, (bf16*)o, (float*)inv, rows, t,
+  return core_fwd_tc((const bf16*)qkv, (bf16*)o, (float*)lse, rows, t,
                      n_heads, d, scale, (cudaStream_t)stream);
 }
 
 // The bf16 attention core backward alone, as attn_half_bwd launches it:
 // dqkv [rows, 3d] bf16 and rs [rows, n_heads] float32 (scratch) from qkv
-// [rows, 3d], dout [rows, d] bf16 and inv [rows, n_heads] float32.
-int block_core_bwd(const void* qkv, const void* dout, const void* inv,
+// [rows, 3d], dout [rows, d] bf16 and lse [rows, n_heads] float32.
+int block_core_bwd(const void* qkv, const void* dout, const void* lse,
                    void* rs, void* dqkv, int rows, int t, int n_heads, int d,
                    float scale, void* stream) {
-  return core_bwd_tc((const bf16*)qkv, (const bf16*)dout, (const float*)inv,
+  return core_bwd_tc((const bf16*)qkv, (const bf16*)dout, (const float*)lse,
                      (float*)rs, (bf16*)dqkv, rows, t, n_heads, d, scale,
                      (cudaStream_t)stream);
 }

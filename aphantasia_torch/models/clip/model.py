@@ -12,9 +12,11 @@ The vision tower always runs the flat [b*t, d] stream and the text tower
 runs unpadded at t=77: the JAX package pads tokens (`_pad_tokens`,
 `_padded_t`) and picks a flat or padded path (`flat_geometry`) only to fit
 the TPU's (8, 128) tiles, and the CUDA kernel takes any token count.
-Under APHANTASIA_FUSED_BLOCK=1 the vision blocks run as the fused
-half-block kernels of ops/block.py where that geometry gate opens
-(ViT-B/32), so the switch reaches the same models in both packages.
+On the card the bf16 vision blocks run as the fused half-block kernels of
+ops/block.py wherever the JAX geometry gate opens (ViT-B/32's t = 50) and
+no model axis splits them; APHANTASIA_FUSED_BLOCK=1 takes that route on
+every device and dtype (the CPU's plain versions included), so the switch
+reaches the same models in both packages.
 
 The ModifiedResNet towers (RN50 to RN50x64) run their convolutions as
 `F.conv2d` in the channels-last layout (NHWC, the JAX tower's layout; the
@@ -194,18 +196,31 @@ def resblock(x, p, n_heads, causal=False):
     return x + _mlp(layer_norm(x, p["ln_2"]), p["mlp"], k)
 
 
+def fused_blocks(x, blocks, t) -> bool:
+    """Whether `transformer_flat` runs the blocks as the fused half-block
+    kernels of ops/block.py: only where the JAX geometry gate opens
+    (`block.flat_geometry`: t = 50 of ViT-B/32, not ViT-B/16's 197 or
+    ViT-L/14's 257).  There, by default, a bf16 stream on the card takes
+    them unless a model axis splits the blocks (csrc/block.cu fuses whole
+    products); APHANTASIA_FUSED_BLOCK=1 (read at each call, as the JAX
+    package reads it) takes them on any device and dtype, and raises
+    under a model axis."""
+    if block.flat_geometry(t, x.dtype) is None:
+        return False
+    split = bool(blocks) and model_split(blocks[0]) > 1
+    if os.environ.get("APHANTASIA_FUSED_BLOCK") == "1":
+        if split:
+            raise NotImplementedError(
+                "APHANTASIA_FUSED_BLOCK=1 runs whole blocks (csrc/block.cu "
+                "fuses the whole products); it does not take a model axis")
+        return True
+    return x.is_cuda and x.dtype == torch.bfloat16 and not split
+
+
 def transformer_flat(x, blocks, n_heads, t):
-    """The vision blocks over the flat stream.  With
-    APHANTASIA_FUSED_BLOCK=1 (read at each call, as the JAX package reads
-    it) and the JAX geometry gate open (`block.flat_geometry`: t = 50 of
-    ViT-B/32, not ViT-B/16's 197 or ViT-L/14's 257), each block runs as the
-    two fused half-block kernels of ops/block.py."""
-    fused = (os.environ.get("APHANTASIA_FUSED_BLOCK") == "1"
-             and block.flat_geometry(t, x.dtype) is not None)
-    if fused and blocks and model_split(blocks[0]) > 1:
-        raise NotImplementedError(
-            "APHANTASIA_FUSED_BLOCK=1 runs whole blocks (csrc/block.cu fuses "
-            "the whole products); it does not take a model axis")
+    """The vision blocks over the flat stream, each as the two fused
+    half-block kernels where `fused_blocks` says so, else unfused."""
+    fused = fused_blocks(x, blocks, t)
     for p in blocks:
         x = (block.resblock_flat_fused if fused else resblock_flat)(
             x, p, n_heads, t)

@@ -8,7 +8,7 @@
 over the flat sample-major stream x [R, D], R = b*t.  The backward of each
 half is closed-form and gives dx only: the CLIP towers are frozen, so every
 weight gets None (the JAX custom_vjp returns zeros).  It recomputes the
-forward pieces from x and, for the attention, the saved 1/rowsums `inv`
+forward pieces from x and, for the attention, the saved log-sum-exps `lse`
 [R, n_heads] float32.
 
 Both versions round where the TPU kernels (pallas_call at
@@ -16,9 +16,14 @@ pallas_block.py:273, :298, :333, :358) round, with `dt` the dtype of x:
 - LN: one-pass float32 moments, h = xhat * g + b rounded to dt;
 - a product: dt operands summed in float32, rounded to dt, then the bias
   added in dt; the residual add in dt;
-- attention: s = q k^T / sqrt(hd) in float32, e = exp(min(s, 60)) (a clamp,
-  not a max subtraction), inv = 1 / sum(e), o = (round_dt(e) @ v) * inv;
-- attention backward: p32 = e * inv, dv = round_dt(p32)^T do,
+- attention: s = q k^T / sqrt(hd) in float32, c = k ln 2 with k =
+  floor(rowmax(s) / ln 2), e = exp(s - c), lse = c + log(sum(e)),
+  o = (round_dt(e) @ v) / sum(e): an exact softmax, no clamp, e < 2.  The
+  TPU kernel clamps (e = exp(min(s, 60)), nothing subtracted) and saves
+  1 / sum(e); the two agree wherever no score passes 60, and since c
+  shifts e by a power of two, round_dt(e) is the TPU kernel's rounding
+  scaled (`_shift`);
+- attention backward: p32 = exp(s - lse), dv = round_dt(p32)^T do,
   ds = round_dt(p32 (dp - sum(dp p32)) / sqrt(hd)); dh = dqkv @ in_w^T
   stays float32 into the LN backward;
 - MLP backward: da = dy @ p_w^T stays float32, du = round_dt(da * gelu'(u)),
@@ -59,6 +64,7 @@ _SMEM_LIMIT = 232448
 _TC_HEAD = 64       # the widest head of the bf16 tensor-core core
 _EPS = 1e-5
 _ROW_TARGET = 256   # the JAX geometry's default row target
+_LN2, _INV_LN2 = 0.6931471805599453, 1.4426950408889634
 
 
 def flat_geometry(t: int, dtype):
@@ -118,34 +124,45 @@ def _split(qkv, n_heads, t):
     return qkv.reshape(r // t, t, 3, n_heads, d // n_heads).unbind(2)
 
 
+def _shift(m):
+    """c = k ln 2, k = floor(m / ln 2), each product rounded to float32:
+    the softmax's shift for the row max m.  exp(s - c) is exp(s) times
+    2^-k, so its roundings to bf16 are those of the unshifted exp(s)
+    (to a float32 ulp of s - c), and it stays below 2."""
+    return torch.floor(m * _INV_LN2) * _LN2
+
+
 def _scores(q, k, hd):
-    """e = exp(min(q k^T / sqrt(hd), 60)) [b, heads, q, k] float32."""
+    """s = q k^T / sqrt(hd) [b, heads, q, k] float32."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    return torch.exp(torch.clamp(s * (1.0 / math.sqrt(hd)), max=60.0))
+    return s * (1.0 / math.sqrt(hd))
 
 
 def _attn_core_fwd(qkv, n_heads, t):
-    """(o [R, D] in qkv's dtype, inv [R, heads] float32)."""
+    """(o [R, D] in qkv's dtype, lse [R, heads] float32)."""
     r, d3 = qkv.shape
     hd = d3 // 3 // n_heads
     q, k, v = _split(qkv, n_heads, t)
-    e = _scores(q, k, hd)
-    inv = 1.0 / e.sum(-1, keepdim=True)                        # [b,h,q,1]
+    s = _scores(q, k, hd)
+    c = _shift(s.amax(-1, keepdim=True))                       # [b,h,q,1]
+    e = torch.exp(s - c)
+    total = e.sum(-1, keepdim=True)
     o = torch.einsum("bhqk,bkhd->bqhd", e.to(qkv.dtype).float(), v.float())
-    o = o * inv.permute(0, 2, 1, 3)
+    o = o * (1.0 / total).permute(0, 2, 1, 3)
+    lse = c + torch.log(total)
     return (o.reshape(r, d3 // 3).to(qkv.dtype),
-            inv[..., 0].permute(0, 2, 1).reshape(r, n_heads))
+            lse[..., 0].permute(0, 2, 1).reshape(r, n_heads))
 
 
-def _attn_core_bwd(qkv, do, inv, n_heads, t):
-    """dqkv [R, 3D] in qkv's dtype from do [R, D] and the saved inv."""
+def _attn_core_bwd(qkv, do, lse, n_heads, t):
+    """dqkv [R, 3D] in qkv's dtype from do [R, D] and the saved lse."""
     r, d3 = qkv.shape
     hd = d3 // 3 // n_heads
     dt = qkv.dtype
     q, k, v = _split(qkv, n_heads, t)
     do4 = do.reshape(r // t, t, n_heads, hd).float()
-    inv4 = inv.reshape(r // t, t, n_heads).permute(0, 2, 1)[..., None]
-    p32 = _scores(q, k, hd) * inv4
+    lse4 = lse.reshape(r // t, t, n_heads).permute(0, 2, 1)[..., None]
+    p32 = torch.exp(_scores(q, k, hd) - lse4)
     dv = torch.einsum("bhqk,bqhd->bkhd", p32.to(dt).float(), do4)
     dp = torch.einsum("bqhd,bkhd->bhqk", do4, v.float())
     ds = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
@@ -156,21 +173,21 @@ def _attn_core_bwd(qkv, do, inv, n_heads, t):
 
 
 def attn_half_fwd_plain(x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
-    """Plain forward: (y in x's dtype, inv [R, n_heads] float32)."""
+    """Plain forward: (y in x's dtype, lse [R, n_heads] float32)."""
     dt = x.dtype
     h, _, _ = _ln(x, g, b)
-    o, inv = _attn_core_fwd(_mm_bias(h, in_w.to(dt), in_b), n_heads, t)
-    return x + _mm_bias(o, out_w.to(dt), out_b), inv
+    o, lse = _attn_core_fwd(_mm_bias(h, in_w.to(dt), in_b), n_heads, t)
+    return x + _mm_bias(o, out_w.to(dt), out_b), lse
 
 
-def attn_half_bwd_plain(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
+def attn_half_bwd_plain(x, dy, lse, g, b, in_w, in_b, out_w, n_heads, t):
     """Plain closed-form backward: dx in x's dtype."""
     dt = x.dtype
     dy = dy.to(dt)
     h, xhat, rstd = _ln(x, g, b)
     qkv = _mm_bias(h, in_w.to(dt), in_b)
     do = _mm_t(dy, out_w.to(dt)).to(dt)
-    dh = _mm_t(_attn_core_bwd(qkv, do, inv, n_heads, t), in_w.to(dt))
+    dh = _mm_t(_attn_core_bwd(qkv, do, lse, n_heads, t), in_w.to(dt))
     return dy + _ln_bwd(dh, g, xhat, rstd, dt)
 
 
@@ -266,7 +283,7 @@ def _empty(x, *shape, dtype=None):
 
 
 def attn_half_fwd_kernel(x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
-    """Launch the attention half's forward: (y in x's dtype, inv
+    """Launch the attention half's forward: (y in x's dtype, lse
     [R, n_heads] float32).  Its four launches are counted once."""
     _check(x, n_heads=n_heads, t=t, what="block attention forward")
     r, d = x.shape
@@ -278,31 +295,31 @@ def attn_half_fwd_kernel(x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
         _smem_ok(lib, t, d // n_heads, backward=False)
     h, o, y = _empty(x, r, d), _empty(x, r, d), _empty(x, r, d)
     qkv = _empty(x, r, 3 * d)
-    inv = _empty(x, r, n_heads, dtype=torch.float32)
-    code = lib.attn_half_fwd(*_ptrs(x, *ws, out_b, h, qkv, o, y, inv), r, d,
+    lse = _empty(x, r, n_heads, dtype=torch.float32)
+    code = lib.attn_half_fwd(*_ptrs(x, *ws, out_b, h, qkv, o, y, lse), r, d,
                              n_heads, t, 1.0 / math.sqrt(d // n_heads),
                              int(x.dtype == torch.bfloat16),
                              kernels.stream_ptr(x))
     kernels.check(lib, code, "block_attn_fwd")
     kernels.LAUNCHES["block_attn_fwd"] += 1
-    return y, inv
+    return y, lse
 
 
-def attn_half_bwd_kernel(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
+def attn_half_bwd_kernel(x, dy, lse, g, b, in_w, in_b, out_w, n_heads, t):
     """Launch the attention half's backward: dx in x's dtype.  Its six
     launches (seven in bf16 past t = 64, where the tensor-core core is
     two) are counted once."""
     _check(x, n_heads=n_heads, t=t, what="block attention backward")
     r, d = x.shape
-    if (tuple(dy.shape) != (r, d) or tuple(inv.shape) != (r, n_heads)
-            or dy.device != x.device or inv.device != x.device):
+    if (tuple(dy.shape) != (r, d) or tuple(lse.shape) != (r, n_heads)
+            or dy.device != x.device or lse.device != x.device):
         raise ValueError(f"block attention backward: dy {tuple(dy.shape)} / "
-                         f"inv {tuple(inv.shape)} do not fit x {(r, d)} on "
+                         f"lse {tuple(lse.shape)} do not fit x {(r, d)} on "
                          f"{x.device}")
     bf16 = x.dtype == torch.bfloat16
     x = kernels.aligned(x)
     dy = kernels.aligned(dy.to(x.dtype))
-    inv = inv.float().contiguous()
+    lse = lse.float().contiguous()
     ws = _attn_weights(x, g, b, in_w, in_b, out_w)
     lib = kernels.library("block", _SIGNATURES)
     if not bf16:
@@ -312,7 +329,7 @@ def attn_half_bwd_kernel(x, dy, inv, g, b, in_w, in_b, out_w, n_heads, t):
     stat = _empty(x, r, 2, dtype=torch.float32)
     rs = _empty(x, r, n_heads, dtype=torch.float32)
     dh = _empty(x, r, d, dtype=torch.float32)
-    code = lib.attn_half_bwd(*_ptrs(x, dy, inv, *ws, h, stat, qkv, do, dqkv,
+    code = lib.attn_half_bwd(*_ptrs(x, dy, lse, *ws, h, stat, qkv, do, dqkv,
                                     rs, dh, dx), r, d, n_heads, t,
                              1.0 / math.sqrt(d // n_heads),
                              int(bf16), kernels.stream_ptr(x))
@@ -449,34 +466,34 @@ def _core_args(qkv, n_heads, t, what):
 
 def core_fwd_kernel(qkv, n_heads, t):
     """The bf16 attention core forward on the tensor cores (one launch,
-    counted as `block_core_fwd`): (o [R, D] bf16, inv [R, heads] float32)
+    counted as `block_core_fwd`): (o [R, D] bf16, lse [R, heads] float32)
     from qkv [R, 3D]; plain version `_attn_core_fwd`."""
     qkv, r, d = _core_args(qkv, n_heads, t, "core_fwd_kernel")
     o = _empty(qkv, r, d)
-    inv = _empty(qkv, r, n_heads, dtype=torch.float32)
+    lse = _empty(qkv, r, n_heads, dtype=torch.float32)
     lib = kernels.library("block", _SIGNATURES)
-    code = lib.block_core_fwd(*_ptrs(qkv, o, inv), r, t, n_heads, d,
+    code = lib.block_core_fwd(*_ptrs(qkv, o, lse), r, t, n_heads, d,
                               1.0 / math.sqrt(d // n_heads),
                               kernels.stream_ptr(qkv))
     kernels.check(lib, code, "block_core_fwd")
     kernels.LAUNCHES["block_core_fwd"] += 1
-    return o, inv
+    return o, lse
 
 
-def core_bwd_kernel(qkv, do, inv, n_heads, t):
+def core_bwd_kernel(qkv, do, lse, n_heads, t):
     """The bf16 attention core backward on the tensor cores (one launch
     for t <= 64, else two, counted once as `block_core_bwd`): dqkv [R, 3D]
-    bf16 from qkv [R, 3D], do [R, D] bf16 and the forward's inv [R,
+    bf16 from qkv [R, 3D], do [R, D] bf16 and the forward's lse [R,
     heads]; plain version `_attn_core_bwd`."""
     qkv, r, d = _core_args(qkv, n_heads, t, "core_bwd_kernel")
     if do.dtype != torch.bfloat16:
         raise ValueError("core_bwd_kernel takes a bf16 do")
     do = kernels.aligned(do)
-    inv = inv.float().contiguous()
+    lse = lse.float().contiguous()
     rs = _empty(qkv, r, n_heads, dtype=torch.float32)
     dqkv = _empty(qkv, r, 3 * d)
     lib = kernels.library("block", _SIGNATURES)
-    code = lib.block_core_bwd(*_ptrs(qkv, do, inv, rs, dqkv), r, t, n_heads,
+    code = lib.block_core_bwd(*_ptrs(qkv, do, lse, rs, dqkv), r, t, n_heads,
                               d, 1.0 / math.sqrt(d // n_heads),
                               kernels.stream_ptr(qkv))
     kernels.check(lib, code, "block_core_bwd")
@@ -497,17 +514,17 @@ def _device_fn(x, kernel, plain):
 class _AttnHalf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, b, in_w, in_b, out_w, out_b, n_heads, t):
-        y, inv = _device_fn(x, attn_half_fwd_kernel, attn_half_fwd_plain)(
+        y, lse = _device_fn(x, attn_half_fwd_kernel, attn_half_fwd_plain)(
             x, g, b, in_w, in_b, out_w, out_b, n_heads, t)
-        ctx.save_for_backward(x, inv, g, b, in_w, in_b, out_w)
+        ctx.save_for_backward(x, lse, g, b, in_w, in_b, out_w)
         ctx.args = (n_heads, t)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, inv, *ws = ctx.saved_tensors
+        x, lse, *ws = ctx.saved_tensors
         dx = _device_fn(x, attn_half_bwd_kernel, attn_half_bwd_plain)(
-            x, dy, inv, *ws, *ctx.args)
+            x, dy, lse, *ws, *ctx.args)
         return (dx,) + (None,) * 8
 
 

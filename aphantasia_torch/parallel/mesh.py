@@ -482,7 +482,10 @@ def spawn(fn: Callable, args: tuple, plan: Plan) -> list:
     try:
         for local in range(plan.n_local):
             mine, theirs = ctx.Pipe()
-            p = ctx.Process(target=_rank_main, daemon=True, args=(
+            # not daemonic: rank 0's frame writer starts encoder processes
+            # of its own, which a daemonic process may not; every way out
+            # of this function stops the ranks (below)
+            p = ctx.Process(target=_rank_main, daemon=False, args=(
                 local, plan, fleet, coord, theirs))
             p.start()
             theirs.close()

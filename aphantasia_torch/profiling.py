@@ -15,6 +15,12 @@ object itself, appended to `RECORDS` when the block ends:
     value    a number the block records (the writer's pending frames), or
              None
 
+A span that ran in another process (an encoder process's "writer.encode")
+is recorded by `add_record` when its interval comes back: its `thread` and
+its `process` are that process's pid, its parent None.  Its times are on
+the same clock, since `perf_counter_ns` reads the machine's monotonic
+clock; the process's own spans have no `process`.
+
 `RECORDS` is a deque of at most `CAPACITY` (32768) records; the oldest go
 first.  A 10-s window of any benchmark cell makes under 5,000 (a still
 step records about 4, a video frame about 7), so a run's set-up and window
@@ -25,8 +31,10 @@ event's `start_ns()`.
 
 Inside `trace(log_dir)`, and only there, each span also opens a
 `record_function` range of its name, so a `--profile` trace shows the
-program's spans over the card's kernels.  Elsewhere a span opens no range:
-a profiler that the program did not start (the benchmark's) sees none.
+program's spans over the card's kernels (and the records of other
+processes, added to its file as events of their pid).  Elsewhere a span
+opens no range: a profiler that the program did not start (the
+benchmark's) sees none.
 
 `mark(x, name)` is an identity on a tensor that, while a
 `kernels.CountedGraph` captures, records a timing event into the graph
@@ -69,7 +77,7 @@ class span:
     once the block has ended."""
 
     __slots__ = ("name", "value", "seq", "parent", "thread", "t0", "t1",
-                 "_range")
+                 "_range", "process")
 
     def __init__(self, name: str, value=None):
         self.name, self.value = name, value
@@ -106,6 +114,17 @@ class span:
     def __repr__(self):
         return (f"span({self.name!r}, seq={self.seq}, parent={self.parent}, "
                 f"{(self.t1 - self.t0) / 1e3:.1f} us)")
+
+
+def add_record(name: str, t0: int, t1: int, pid: int, value=None) -> span:
+    """Record a span that ran in the process `pid` from t0 to t1
+    (`perf_counter_ns` there); returns the record (module docstring)."""
+    rec = span(name, value)
+    rec.seq, rec.parent, rec._range = next(_seq), None, None
+    rec.thread = rec.process = pid
+    rec.t0, rec.t1 = t0, t1
+    RECORDS.append(rec)
+    return rec
 
 
 def records() -> list:
@@ -272,15 +291,45 @@ def trace(log_dir: str | None):
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    try:        # the writer's encoder threads' spans too, where torch can
+    try:        # every thread's spans, where torch can
         config = torch._C._profiler._ExperimentalConfig(
             profile_all_threads=True)
     except (AttributeError, TypeError):
         config = None
+    handler = tensorboard_trace_handler(log_dir)
+    start = time.perf_counter_ns()
+
+    def ready(prof):
+        handler(prof)
+        _add_outside(log_dir, start)
     with profile(activities=acts, experimental_config=config,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+                 on_trace_ready=ready) as prof:
         _ranges = True
         try:
             yield prof
         finally:
             _ranges = False
+
+
+def _add_outside(log_dir: str, start: int):
+    """Add the records of other processes that started after `start` to
+    the newest trace file in `log_dir`, as complete events of their pid on
+    the file's clock (Kineto's `ts` in us from `baseTimeNanoseconds`)."""
+    import glob
+    import json
+    outside = [r for r in records()
+               if getattr(r, "process", None) is not None and r.t0 >= start]
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if not outside or not files:
+        return
+    path = max(files, key=os.path.getmtime)
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    doc["traceEvents"] += [
+        {"ph": "X", "cat": "user_annotation", "name": r.name,
+         "pid": r.process, "tid": r.process,
+         "ts": (r.t0 + PROFILER_OFFSET_NS - base) / 1e3,
+         "dur": (r.t1 - r.t0) / 1e3} for r in outside]
+    with open(path, "w") as f:
+        json.dump(doc, f)

@@ -204,6 +204,28 @@ KERNELS = {
 BLOCK_KERNELS = ("block_attn_fwd", "block_attn_bwd", "block_mlp_fwd",
                  "block_mlp_bwd")
 
+
+def b32(steps: int, text: int = 0, **more) -> dict:
+    """The kernel launches of `steps` steps of the bf16 ViT-B/32 image
+    tower on the card, whose blocks take the fused halves by default (one
+    of each entry point a block and step, no attention kernel), with
+    `text` attention forwards of the text towers (12 a prompt and tower)
+    or a float32 image prompt (12), and the launches in `more`."""
+    want = {k: 12 * steps for k in BLOCK_KERNELS}
+    if text:
+        want["attn_fwd"] = text
+    want.update(more)
+    return want
+
+
+def b32_dual(steps: int, second: int, text: int, **more) -> dict:
+    """As `b32`, with `second` of the steps on ViT-B/16 (--dualmod), whose
+    t = 197 keeps its blocks unfused: 12 attention launches each way."""
+    want = b32(steps - second, text + 12 * second, **more)
+    if second:
+        want["attn_bwd"] = 12 * second
+    return want
+
 # the switches of the windowed cutout and the fused LayerNorm, and of the
 # fused half blocks
 SWITCHES = {"APHANTASIA_WIN_CUTOUT": "1", "APHANTASIA_PALLAS_LN": "1"}
@@ -1029,7 +1051,7 @@ def block_case(rows, d, dtype, seed=0):
 
 def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
     """The four half-block kernels against their plain versions (y and
-    inv forward, dx backward from the same inv), and, when `timed`, their
+    lse forward, dx backward from the same lse), and, when `timed`, their
     times beside the plain versions, the port's unfused half (cuBLAS
     products, the attention kernel, plain LayerNorms; forward and
     autograd backward) and the bounds."""
@@ -1047,19 +1069,19 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
         "block_mlp_fwd": (
             lambda: B.mlp_half_fwd_kernel(x, *mw, m["proj_b"]),
             lambda: B.mlp_half_fwd_plain(x, *mw, m["proj_b"]))}
-    (y, inv), (yr, invr) = (f() for f in runs["block_attn_fwd"])
+    (y, lse), (yr, lser) = (f() for f in runs["block_attn_fwd"])
     runs["block_attn_bwd"] = (
-        lambda: B.attn_half_bwd_kernel(x, dy, invr, *aw, heads, t),
-        lambda: B.attn_half_bwd_plain(x, dy, invr, *aw, heads, t))
+        lambda: B.attn_half_bwd_kernel(x, dy, lser, *aw, heads, t),
+        lambda: B.attn_half_bwd_plain(x, dy, lser, *aw, heads, t))
     runs["block_mlp_bwd"] = (
         lambda: B.mlp_half_bwd_kernel(x, dy, *mw),
         lambda: B.mlp_half_bwd_plain(x, dy, *mw))
-    outs = {"block_attn_fwd": (y, yr), "block_attn_inv": (inv, invr)}
+    outs = {"block_attn_fwd": (y, yr), "block_attn_lse": (lse, lser)}
     for k in ("block_mlp_fwd", "block_attn_bwd", "block_mlp_bwd"):
         outs[k] = tuple(f() for f in runs[k])
     # every entry point launched twice gives the same bits (no split-K, no
     # atomics, every sum in a fixed order)
-    firsts = {"block_attn_fwd": (y, inv)}
+    firsts = {"block_attn_fwd": (y, lse)}
     for k in BLOCK_KERNELS:
         again = runs[k][0]()
         first = firsts.get(k, outs[k][0])
@@ -1071,16 +1093,17 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
         h = B._ln(x, *aw[:2])[0]
         qkv = B._mm_bias(h, a["in_w"], a["in_b"])
         do = B._mm_t(dy, a["out_w"]).to(dtype)
-        o_k, inv_k = B.core_fwd_kernel(qkv, heads, t)
-        o_r, inv_r = B._attn_core_fwd(qkv, heads, t)
+        o_k, lse_k = B.core_fwd_kernel(qkv, heads, t)
+        o_r, lse_r = B._attn_core_fwd(qkv, heads, t)
         outs["block_core_fwd"] = (o_k, o_r)
         # the row sums take the float32 e in both: float32 sums in another
-        # order only (a sum of the bf16-rounded e drifts by ~1e-4)
-        rel = ((inv_k - inv_r).abs() / inv_r.abs()).max().item()
-        check(rel <= 1e-5, f"block_core_fwd [{rows},{d}] t={t}: inv "
-              f"relative error {rel:.3g} > 1e-5")
-        outs["block_core_bwd"] = (B.core_bwd_kernel(qkv, do, invr, heads, t),
-                                  B._attn_core_bwd(qkv, do, invr, heads, t))
+        # order only (a sum of the bf16-rounded e drifts by ~1e-4), so lse
+        # within 1e-5 (1e-5 relative on the sums)
+        err = (lse_k - lse_r).abs().max().item()
+        check(err <= 1e-5, f"block_core_fwd [{rows},{d}] t={t}: lse "
+              f"error {err:.3g} > 1e-5")
+        outs["block_core_bwd"] = (B.core_bwd_kernel(qkv, do, lser, heads, t),
+                                  B._attn_core_bwd(qkv, do, lser, heads, t))
     torch.cuda.synchronize()
     # float32: the same operations, products summed in another order
     # through a chain of up to six products; bf16: both sides round at the
@@ -1098,7 +1121,7 @@ def check_block(rows, t, d, heads, dtype, timed=False, seed=0):
         return res
     del outs
     res["fwd_launches"] = block_fwd_launches(x, p, heads, t)
-    res["launches"] = block_bwd_launches(x, dy, p, heads, t, invr)
+    res["launches"] = block_bwd_launches(x, dy, p, heads, t, lser)
     for k, (kern, plain) in runs.items():
         res[k] = {"ms": cuda_ms(kern), "graph": graph_ms(kern),
                   "plain": cuda_ms(plain, iters=5)}
@@ -1192,7 +1215,7 @@ def block_fwd_launches(x, p, heads, t):
     return res
 
 
-def block_bwd_launches(x, dy, p, heads, t, inv):
+def block_bwd_launches(x, dy, p, heads, t, lse):
     """Each launch inside the bf16 backward chains of `attn_half_bwd` and
     `mlp_half_bwd`, alone at this shape, on inputs from the plain chain:
     {label: (device ms by graph replay, yardstick ms, yardstick name,
@@ -1210,7 +1233,7 @@ def block_bwd_launches(x, dy, p, heads, t, inv):
     h2 = B._ln(x, p["ln_2"]["g"], p["ln_2"]["b"])[0]
     qkv = B._mm_bias(h1, a["in_w"], a["in_b"])
     do = B._mm_t(dy, a["out_w"]).to(x.dtype)
-    dqkv = B._attn_core_bwd(qkv, do, inv, heads, t)
+    dqkv = B._attn_core_bwd(qkv, do, lse, heads, t)
     u = B._mm_bias(h2, m["fc_w"], m["fc_b"])
     du = B.product_plain(dy, m["proj_w"], "gelu_back", aux=u)
     out, lse = A.attention_fwd_kernel(qkv, heads, t)
@@ -1231,8 +1254,8 @@ def block_bwd_launches(x, dy, p, heads, t, inv):
         gflop = 2 * lhs.shape[0] * lhs.shape[1] * wt.shape[1] / 1e9
         res[label] = (graph_ms(kern), graph_ms(lambda: torch.matmul(lhs, wt)),
                       "torch.matmul", gflop) + err
-    err = max_err(B.core_bwd_kernel(qkv, do, inv, heads, t), dqkv)
-    res["core"] = (graph_ms(lambda: B.core_bwd_kernel(qkv, do, inv, heads, t)),
+    err = max_err(B.core_bwd_kernel(qkv, do, lse, heads, t), dqkv)
+    res["core"] = (graph_ms(lambda: B.core_bwd_kernel(qkv, do, lse, heads, t)),
                    graph_ms(lambda: A.attention_bwd_kernel(qkv, do, out, lse,
                                                            heads, t)),
                    "attention.cu attn_bwd", core_flop / 1e9) + err
@@ -1590,14 +1613,16 @@ def phase_main(report, steps: int):
     losses = res.losses
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
           f"main path losses not finite: {losses}")
-    for k in ("attn_fwd", "attn_bwd", "cutout_fwd", "cutout_bwd"):
-        check(launches.get(k, 0) > 0, f"main path never launched {k}")
+    for k in ("attn_fwd", "attn_bwd", "cutout_fwd",
+              "cutout_bwd") + BLOCK_KERNELS:
+        check(k == "attn_bwd" or launches.get(k, 0) > 0,
+              f"main path never launched {k}")
         if k in report:
-            report[k]["launches"] = launches[k]
-    # every step: 12 vision layers forward and backward, one cutout each
-    # way; before the loop: 12 text layers for the one prompt
-    expect = {"attn_fwd": 12 * steps + 12, "attn_bwd": 12 * steps,
-              "cutout_fwd": steps, "cutout_bwd": steps}
+            report[k]["launches"] = launches.get(k, 0)
+    # every step: 12 vision blocks as the fused halves forward and
+    # backward, one cutout each way; before the loop: 12 text layers for
+    # the one prompt
+    expect = b32(steps, 12, cutout_fwd=steps, cutout_bwd=steps)
     check(launches == expect, f"launches {launches} != expected {expect}")
     run_dir = os.path.join(out, res.out_name)
     frames = sorted(f for f in os.listdir(run_dir) if f.endswith(".jpg"))
@@ -1627,8 +1652,8 @@ def phase_main(report, steps: int):
     print(f"[main] default (einsum cutout) run: launches {launches2}")
     check(all(math.isfinite(x) for x in res2.losses),
           f"einsum path losses not finite: {res2.losses}")
-    check(launches2.get("attn_fwd", 0) > 0 and launches2.get("attn_bwd", 0) > 0,
-          "default path never launched the attention kernels")
+    check(all(launches2.get(k, 0) > 0 for k in BLOCK_KERNELS),
+          "default path never launched the fused block kernels")
     check(launches2.get("cutout_fwd", 0) == 0,
           "default path launched the cutout kernel")
     steady2 = sorted(res2.step_seconds[1:] or res2.step_seconds)
@@ -1643,8 +1668,7 @@ def phase_main(report, steps: int):
     #   --persp exact: two each (the perspective and the rotate stage);
     #   elastic + switch: two shift passes forward, two backward;
     #   elastic alone: the plain shift (no kernel).
-    base = {"attn_fwd": 12 * steps + 12, "attn_bwd": 12 * steps,
-            "cutout_fwd": steps, "cutout_bwd": steps}
+    base = b32(steps, 12, cutout_fwd=steps, cutout_bwd=steps)
     for label, extra, env, more in (
             ("--persp mixed", ["--persp", "mixed"], None,
              {"persp_fwd": steps, "persp_bwd": steps}),
@@ -1767,14 +1791,16 @@ def phase_main_flags(steps: int):
             a, b = a[k], b[k]
         check(torch.equal(a, b.half().float()),
               f"(h) the checkpoint's {path} did not load as written")
-    base = {"attn_fwd": 12 * steps + 12, "attn_bwd": 12 * steps,
-            "cutout_fwd": steps, "cutout_bwd": steps}
-    more = dict(base, attn_fwd=12 * steps + 24)
+    from aphantasia_torch.cli.common import dualmod_steps
+    cut = {"cutout_fwd": steps, "cutout_bwd": steps}
+    base = b32(steps, 12, **cut)
     out = os.path.join(OUT_DIR, "flags")
     for label, extra, samples, want, suffix in (
-            ("(f) --dualmod 4", ["--dualmod", "4"], 43, more, "-dm4"),
+            ("(f) --dualmod 4", ["--dualmod", "4"], 43,
+             b32_dual(steps, len(dualmod_steps(steps, 4)), 24, **cut),
+             "-dm4"),
             ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", sync_image()], 95,
-             more, "-sync-ViTB32"),
+             b32(steps, 24, **cut), "-sync-ViTB32"),
             ("(h) --aest 1 --clip_weights", ["--aest", "1", "--clip_weights",
                                              ckpt], 190, base, "-ViTB32"),
             ("(i) --dwt", ["--dwt", "--save_pt"], 190, base, "-ViTB32")):
@@ -2024,8 +2050,8 @@ def phase_main_illustra(steps: int):
         "(n) illustra --pallas, 3 scenes",
         ["-t", scenes_file(3), "--steps", str(steps), "--out_dir",
          "illustra"] + base,
-        {"attn_fwd": 36 + 36 * steps, "attn_bwd": 36 * steps,
-         "cutout_fwd": 3 * steps, "cutout_bwd": 3 * steps}, 3, 25, 190)
+        b32(3 * steps, 36, cutout_fwd=3 * steps, cutout_bwd=3 * steps), 3,
+        25, 190)
     _run_illustra(
         "(o) illustra -m RN50x64 --pallas, 2 scenes",
         ["-t", scenes_file(2), "-m", "RN50x64", "--steps", "4", "--out_dir",
@@ -2212,10 +2238,11 @@ def phase_main_illustrip():
     with `--depth 1` (DA-V2 `b`) and `--depth_dir`, 16 frames; (w) `--gen
     FFT --smooth --dualmod 2`, 24 frames; (x) `python -m
     aphantasia_torch.cli.depth` on three images of two sizes.  Launches:
-    12 text-tower forwards a scene line and tower, 12 + 12 attention
-    launches a train step (ViT-B/16 on the flat stream too), one cutout
-    each way a step under `--pallas`; DINOv2 and the DPT head launch no
-    kernel of the port."""
+    12 text-tower forwards a scene line and tower, 12 of each fused
+    half-block entry point a ViT-B/32 train step (12 + 12 attention
+    launches a ViT-B/16 one, on the flat stream), one cutout each way a
+    step under `--pallas`; DINOv2 and the DPT head launch no kernel of the
+    port."""
     import torch
     from aphantasia_torch import kernels
     from aphantasia_torch.cli import depth
@@ -2223,26 +2250,23 @@ def phase_main_illustrip():
     rgb = ["-t", trip_file(), "--steps", "24", "--fstep", "12"] + base
     fft = (["-t", "benchmark scene", "--steps", "24", "--fstep", "24",
             "--opt_step", "3", "--gen", "FFT", "-tf", "fast"] + base)
-    _run_illustrip("(s) illustrip --gen RGB, 2 scenes", rgb,
-                   {"attn_fwd": 24 + 12 * 48, "attn_bwd": 12 * 48}, 48, 95)
-    _run_illustrip("(t) illustrip --gen FFT --opt_step 3", fft,
-                   {"attn_fwd": 12 + 36 * 24, "attn_bwd": 36 * 24}, 24, 95)
+    _run_illustrip("(s) illustrip --gen RGB, 2 scenes", rgb, b32(48, 24),
+                   48, 95)
+    _run_illustrip("(t) illustrip --gen FFT --opt_step 3", fft, b32(72, 12),
+                   24, 95)
     _run_illustrip("(u) illustrip --gen RGB --pallas, 2 scenes",
                    rgb + ["--pallas"],
-                   {"attn_fwd": 24 + 12 * 48, "attn_bwd": 12 * 48,
-                    "cutout_fwd": 48, "cutout_bwd": 48}, 48, 95)
+                   b32(48, 24, cutout_fwd=48, cutout_bwd=48), 48, 95)
     ddir = os.path.join(tmp_dir(), "depth_maps")
     dfft = list(fft)
     dfft[dfft.index("--steps") + 1] = dfft[dfft.index("--fstep") + 1] = "16"
     _run_illustrip("(v) illustrip --gen FFT --opt_step 3 --depth 1",
                    dfft + ["--depth", "1", "--depth_dir", ddir],
-                   {"attn_fwd": 12 + 36 * 16, "attn_bwd": 36 * 16}, 16, 95,
-                   depth_dir=ddir)
+                   b32(48, 12), 16, 95, depth_dir=ddir)
     _run_illustrip("(w) illustrip --gen FFT --smooth --dualmod 2",
                    ["-t", "benchmark scene", "--steps", "24", "--gen", "FFT",
                     "--smooth", "--dualmod", "2"] + base,
-                   {"attn_fwd": 24 + 12 * 24, "attn_bwd": 12 * 24}, 24, 21,
-                   dual=2)
+                   b32_dual(24, 11, 24), 24, 21, dual=2)
     src = depth_images()
     out = os.path.join(OUT_DIR, "depth")
     torch.cuda.synchronize()
@@ -2354,16 +2378,16 @@ def phase_main_coord(steps: int):
     from a full-width taming state dict written here from random weights
     and deleted, 640x480, 190 cutouts, uniform, fast, adam_custom at 0.1,
     sim mix; (ac) `--vqgan gumbel_f8_8192 -s 640-512 --pallas` (random
-    decoder, 190 cutouts).  Launches: 12 text-tower forwards once, 12 +
-    12 attention launches a step, one cutout each way a step under
-    --pallas; the CPPN, SIREN and VQGAN decodes launch no kernel of the
-    port."""
+    decoder, 190 cutouts).  Launches: 12 text-tower forwards once, 12 of
+    each fused half-block entry point a step, one cutout each way a step
+    under --pallas; the CPPN, SIREN and VQGAN decodes launch no kernel of
+    the port."""
     import torch
     from aphantasia_torch.cli import clip_vqgan, cppn
     from aphantasia_torch.models import vqgan as V
     text = ["-t", "a lighthouse on a cliff at dawn", "--steps", str(steps),
             "--seed", "1"]
-    attn = {"attn_fwd": 12 + 12 * steps, "attn_bwd": 12 * steps}
+    attn = b32(steps, 12)
     cut = dict(attn, cutout_fwd=steps, cutout_bwd=steps)
     for label, extra, want, samples, fstep in (
             ("(y) cppn", [], attn, 50, 1),
@@ -2430,13 +2454,14 @@ def phase_main_switches(report, steps: int):
     forward replaces the dense one only there), each with its exact launch
     counts:
       (a) ViT-B/32 with the cutout and LayerNorm switches: one windowed cut
-          a step, the 12 vision blocks' two LayerNorms (9500 flat rows)
-          fused each way;
+          a step; the vision blocks take the fused halves by default, whose
+          LayerNorms are inside them, so no fused LayerNorm (as (e));
       (b) ViT-L/14 with both: 7 cutouts of 257 tokens (1799 rows), 24
           blocks, so 48 fused LayerNorms each way;
       (c) ViT-L/14 without them: no windowed cut, no fused LayerNorm;
       (d) ViT-B/32 with APHANTASIA_FUSED_BLOCK=1: each vision block as the
-          two fused halves each way, so no vision attention kernel;
+          two fused halves each way, so no vision attention kernel (the
+          default route on the card);
       (e) ViT-B/32 with all three switches: as (d) plus the windowed cut;
           no fused LayerNorm, since the blocks' LayerNorms are inside the
           halves, ln_pre is 3-D and ln_post has 190 rows.
@@ -2456,7 +2481,7 @@ def phase_main_switches(report, steps: int):
         return want
     for label, model, env, samples, want in (
             ("(a) ViT-B/32, both switches", "ViT-B/32", SWITCHES, 190,
-             unfused(12, True)),
+             dict(text, win_cut_fwd=steps, **halves)),
             ("(b) ViT-L/14, both switches", "ViT-L/14", SWITCHES, 7,
              unfused(24, True)),
             ("(c) ViT-L/14", "ViT-L/14", None, 7, unfused(24, False)),
@@ -2500,9 +2525,10 @@ def phase_main_switches(report, steps: int):
 
 # ---------------------------------------------------------------- loop
 
-# (label, CLI flags, environment, opt_step, kernel launches a step): the
-# paths the `loop` phase replays, each against its eager steps
-_B32 = {"attn_fwd": 12, "attn_bwd": 12}
+# (label, CLI flags, environment, opt_step, kernel launches a step, or a
+# function of the steps giving the run's): the paths the `loop` phase
+# replays, each against its eager steps
+_B32 = {k: 12 for k in BLOCK_KERNELS}     # the fused halves, by default
 _PALLAS = dict(_B32, cutout_fwd=1, cutout_bwd=1)
 LOOP_PATHS = (
     ("default", [], None, 1, _B32),
@@ -2512,13 +2538,14 @@ LOOP_PATHS = (
     ("--pallas -tf elastic, shift kernel", ["--pallas", "-tf", "elastic"],
      {"APHANTASIA_PALLAS_SHIFT": "1"}, 1, dict(_PALLAS, frac_shift=4)),
     ("(a) ViT-B/32, cutout + LN switches", [], SWITCHES, 1,
-     dict(_B32, win_cut_fwd=1, ln_fwd=24, ln_bwd=24)),
+     dict(_B32, win_cut_fwd=1)),
     ("(b) ViT-L/14, cutout + LN switches", ["-m", "ViT-L/14"], SWITCHES, 1,
      {"attn_fwd": 24, "attn_bwd": 24, "win_cut_fwd": 1, "ln_fwd": 48,
       "ln_bwd": 48}),
     ("(d) ViT-B/32, fused block", [], FUSED, 1,
      {k: 12 for k in BLOCK_KERNELS}),
-    ("(f) --dualmod 3, opt_step 2", ["--dualmod", "3"], None, 2, _B32),
+    ("(f) --dualmod 3, opt_step 2", ["--dualmod", "3"], None, 2,
+     lambda steps: b32_dual(steps, len(range(3, steps, 3)), 0)),
     ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", "{img}"], None, 1, _B32),
     ("(i) --dwt", ["--dwt"], None, 1, _B32),
     ("(j) -m RN50 --pallas", ["-m", "RN50", "--pallas"], None, 1,
@@ -2684,7 +2711,8 @@ def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
             runs = [_loop_eager(su, a, start) for _ in range(2)]
             got, rep = _loop_replayed(su, a, start, nf)
         (want, eager), (again, _) = runs
-        want_launches = {k: v * a.steps for k, v in per_step.items()}
+        want_launches = (per_step(a.steps) if callable(per_step) else
+                         {k: v * a.steps for k, v in per_step.items()})
         check(eager["launches"] == want_launches
               and rep["launches"] == want_launches,
               f"loop {label}: launches eager {eager['launches']}, replayed "
@@ -2724,7 +2752,7 @@ def phase_loop(steps: int = 16, nf: int = 2, paths=LOOP_PATHS):
               f"ms by tower pattern {graphs} ({dev_ms:.3f} a step), busy "
               f"share {busy:.3f}; peak memory eager "
               f"{eager['peak'] / 2**20:.0f} MiB, replayed "
-              f"{rep['peak'] / 2**20:.0f} MiB; launches a step {per_step}; "
+              f"{rep['peak'] / 2**20:.0f} MiB; launches {want_launches}; "
               + ("bit for bit" if exact else
                  "max |replayed - eager| (eager spread): "
                  + ", ".join(f"{k} {e:.3g} ({sp:.3g})"
@@ -2849,7 +2877,7 @@ def phase_loop_coord(steps: int = 16, nf: int = 2, paths=COORD_LOOP_PATHS):
                                    start)
         (want, eager), (again, _) = runs
         check(eager["launches"] == rep["launches"]
-              and eager["launches"].get("attn_bwd") == 12 * steps,
+              and eager["launches"].get("block_attn_bwd") == 12 * steps,
               f"loop {label}: launches eager {eager['launches']}, replayed "
               f"{rep['launches']}")
         check(got.keys() == want.keys(), f"loop {label}: {sorted(got)} != "
@@ -3799,7 +3827,7 @@ def _mesh_data_axis(steps: int):
     runs, (got, rep) = launch(replay_vs_eager, (), Plan(
         1, f"127.0.0.1:{free_port()}", "cuda"))
     (want, eager), (again, _) = runs
-    per_step = {"attn_fwd": 12, "attn_bwd": 12, **{k: 1 for k in coll}}
+    per_step = dict(_B32, **{k: 1 for k in coll})
     want_launches = {k: v * steps for k, v in per_step.items()}
     check(eager["launches"] == want_launches == rep["launches"],
           f"(ad) loop: launches eager {eager['launches']}, replayed "
@@ -3859,7 +3887,7 @@ def _mesh_illustra_fleet(steps: int) -> str:
     one = illustra.run(illustra.get_args(argv + ["--out_dir", ref,
                                                  "--separate"]))
     torch.cuda.synchronize()
-    want = {"attn_fwd": 36 + 36 * steps, "attn_bwd": 36 * steps}
+    want = b32(3 * steps, 36)
     check(len(one.out_names) == 3 and dict(kernels.LAUNCHES) == want,
           f"(ae): {one.out_names}, launches {dict(kernels.LAUNCHES)}, "
           f"expected {want}")

@@ -209,6 +209,44 @@ def test_transformer_flat_under_the_switch_matches_jax(blocks, monkeypatch):
     np.testing.assert_allclose(_np(g_t), _np(g_j), rtol=2e-4, atol=2e-5)
 
 
+def _hot_block(p, gain=6.0):
+    """The block `p` with its q and k projections scaled by `gain`, so
+    its attention scores pass the TPU kernel's clamp at 60."""
+    a = dict(p["attn"])
+    w = a["in_w"].clone()
+    w[:, :2 * D] *= gain
+    a["in_w"] = w
+    return dict(p, attn=a)
+
+
+@pytest.mark.parametrize("t", [T, 80])
+def test_fused_plain_matches_resblock_flat_past_the_clamp(blocks, t):
+    """Where scores pass 60 (q and k scaled up: exp(min(s, 60)) would lose
+    them), the fused block's plain version still matches resblock_flat,
+    whose attention subtracts the row max: both softmaxes are exact.
+    float32, forward and dx within 1e-4 of their largest entry (the
+    scaled scores make the backward's float32 sums 6x larger); the
+    clamped softmax misses by whole units.  At t = 80 the scores span two
+    of the card's 64-key tiles."""
+    p = _hot_block(blocks[1][0])
+    x, co = _inputs(3 * t, seed=13)
+    h = tb._ln(torch.tensor(x), p["ln_1"]["g"], p["ln_1"]["b"])[0]
+    qkv = tb._mm_bias(h, p["attn"]["in_w"], p["attn"]["in_b"])
+    q, k, _ = tb._split(qkv, NH, t)
+    assert tb._scores(q, k, D // NH).max() > 60.0
+    outs = []
+    for fn in (tb.resblock_flat_fused, tm.resblock_flat):
+        xt = torch.tensor(x, requires_grad=True)
+        y = fn(xt, p, NH, t)
+        (g,) = torch.autograd.grad(y, xt, torch.tensor(co))
+        outs.append((_np(y), _np(g)))
+    (y_f, g_f), (y_u, g_u) = outs
+    assert np.isfinite(y_f).all() and np.isfinite(g_f).all()
+    for got, want in ((y_f, y_u), (g_f, g_u)):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,fused", [(50, True), (197, False),
                                      (257, False)])
@@ -385,17 +423,19 @@ def test_attn_core_fwd_matches_jax_core(t, d, heads, dt):
     tensor-core core forward against, against JAX's
     pallas_block._attn_fwd_core called directly on one sample's qkv
     [t, 3d] (bias 0.0): a 20-wide head at t = 13, one 64-key tile at 50,
-    two at 80.  inv within 1e-5 relative to each entry (float32 row sums
-    of the float32 e on both sides); o in float32 within 1e-5 of the
-    largest entry, in bf16 within one step (both round e before e v)."""
+    two at 80.  The port saves each row's log-sum-exp, JAX 1 / rowsum:
+    exp(-lse) within 1e-5 relative to each entry of JAX's (float32 row
+    sums of the float32 e on both sides); o in float32 within 1e-5 of the
+    largest entry, in bf16 within one step (both round e before e v, the
+    port's e a power of two below JAX's)."""
     jd, td = DTYPES[dt]
     qkv = np.random.RandomState(t).randn(t, 3 * d).astype(np.float32)
     o_j, inv_j = jb._attn_fwd_core(jnp.asarray(qkv).astype(jd), 0.0, heads,
                                    jd)
-    o_t, inv_t = tb._attn_core_fwd(torch.tensor(qkv).to(td), heads, t)
-    assert o_t.dtype == td and inv_t.dtype == torch.float32
-    assert o_t.shape == (t, d) and inv_t.shape == (t, heads)
-    np.testing.assert_allclose(_np(inv_t), _np(inv_j), rtol=1e-5)
+    o_t, lse_t = tb._attn_core_fwd(torch.tensor(qkv).to(td), heads, t)
+    assert o_t.dtype == td and lse_t.dtype == torch.float32
+    assert o_t.shape == (t, d) and lse_t.shape == (t, heads)
+    np.testing.assert_allclose(_np(torch.exp(-lse_t)), _np(inv_j), rtol=1e-5)
     if dt == "float32":
         np.testing.assert_allclose(_np(o_t), _np(o_j),
                                    atol=1e-5 * np.abs(_np(o_j)).max())

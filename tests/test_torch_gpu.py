@@ -35,7 +35,9 @@ order); fused half blocks 1e-4 relative in float32 (products summed in
 another order through a chain of up to six) and 2^-6 in bf16 (both sides
 round at the same points, but a sum in another order can flip an
 intermediate rounding, which the output's own rounding may show again:
-two bf16 steps), on y, inv and dx.
+two bf16 steps), on y and dx, and 1e-5 on the attention's saved lse
+(absolute: 1e-5 relative on its exp).  The ViT-B/32 tower's default
+(fused) route holds a block to the unfused route at the same 2^-6.
 """
 import itertools
 
@@ -592,11 +594,11 @@ def test_block_kernels_match_plain(cuda, dtype, tol, rows, t, d, heads):
     ym = BL.mlp_half(xm, *mw, m["proj_b"])
     (gm,) = torch.autograd.grad(ym, xm, dy)
     assert [kernels.LAUNCHES[k] - n for k, n in zip(names, before)] == [1] * 4
-    yr, inv = BL.attn_half_fwd_plain(x, *aw, a["out_b"], heads, t)
-    _, inv_k = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
+    yr, lse = BL.attn_half_fwd_plain(x, *aw, a["out_b"], heads, t)
+    _, lse_k = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
     assert ya.dtype == dtype and ga.dtype == dtype
-    assert _rel(ya, yr) <= tol and _rel(inv_k, inv) <= tol
-    assert _rel(ga, BL.attn_half_bwd_plain(x, dy, inv_k, *aw, heads, t)) <= tol
+    assert _rel(ya, yr) <= tol and _rel(lse_k, lse) <= tol
+    assert _rel(ga, BL.attn_half_bwd_plain(x, dy, lse_k, *aw, heads, t)) <= tol
     assert _rel(ym, BL.mlp_half_fwd_plain(x, *mw, m["proj_b"])) <= tol
     assert _rel(gm, BL.mlp_half_bwd_plain(x, dy, *mw)) <= tol
 
@@ -638,8 +640,8 @@ def _block_fn(cuda, rows, t, d, heads, forward=False):
     if forward:
         return (lambda: BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t),
                 lambda: BL.mlp_half_fwd_kernel(x, *mw, m["proj_b"]))
-    _, inv = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
-    return (lambda: BL.attn_half_bwd_kernel(x, dy, inv, *aw, heads, t),
+    _, lse = BL.attn_half_fwd_kernel(x, *aw, a["out_b"], heads, t)
+    return (lambda: BL.attn_half_bwd_kernel(x, dy, lse, *aw, heads, t),
             lambda: BL.mlp_half_bwd_kernel(x, dy, *mw))
 
 
@@ -657,7 +659,7 @@ def test_bf16_block_backward_is_deterministic(cuda, rows, t, d, heads):
                                             (16 * 80, 80, 768, 12)])
 def test_bf16_block_forward_is_deterministic(cuda, rows, t, d, heads):
     """Two launches of each bf16 forward entry point give the same bits,
-    y and inv: no split-K, no atomics, the row sums in a fixed order."""
+    y and lse: no split-K, no atomics, the row sums in a fixed order."""
     for fn in _block_fn(cuda, rows, t, d, heads, forward=True):
         first, again = fn(), fn()
         if isinstance(first, tuple):
@@ -725,22 +727,23 @@ def test_block_forward_products_match_plain(cuda, width, launch, rows, d):
 def test_block_tensor_core_attention_forward_matches_plain(cuda, rows, t, d,
                                                            heads):
     """The bf16 core forward alone against `_attn_core_fwd`: o at 2^-6
-    relative; inv at 1e-5 relative to each entry, since both sum the
-    float32 e (summing the bf16-rounded e instead drifts ~1e-4, and a row
-    sum that counted a zero-filled key past t would gain 1 a key).  One
-    and two 64-key tiles, and a head 20 wide, padded to 64."""
+    relative; lse within 1e-5 of each entry (1e-5 relative on the row
+    sums), since both sum the float32 e (summing the bf16-rounded e
+    instead drifts ~1e-4, and a row sum that counted a zero-filled key
+    past t would gain 1 a key).  One and two 64-key tiles (the second
+    rescaling the first's sum and o), and a head 20 wide, padded to 64."""
     x, _, p = _block(cuda, rows, d, torch.bfloat16)
     a = p["attn"]
     h = BL._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
     qkv = BL._mm_bias(h, a["in_w"], a["in_b"])
     before = kernels.LAUNCHES["block_core_fwd"]
-    o, inv = BL.core_fwd_kernel(qkv, heads, t)
+    o, lse = BL.core_fwd_kernel(qkv, heads, t)
     assert kernels.LAUNCHES["block_core_fwd"] == before + 1
-    o_r, inv_r = BL._attn_core_fwd(qkv, heads, t)
-    assert o.dtype == torch.bfloat16 and inv.dtype == torch.float32
+    o_r, lse_r = BL._attn_core_fwd(qkv, heads, t)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert bool(torch.isfinite(o).all())
     assert _rel(o, o_r) <= 2 ** -6
-    assert ((inv - inv_r).abs() / inv_r.abs()).max().item() <= 1e-5
+    assert (lse - lse_r).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("rows,t,d,heads", [(9500, 50, 768, 12),
@@ -756,9 +759,9 @@ def test_block_tensor_core_attention_backward_matches_plain(cuda, rows, t, d,
     a = p["attn"]
     h = BL._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
     qkv = BL._mm_bias(h, a["in_w"], a["in_b"])
-    _, inv = BL._attn_core_fwd(qkv, heads, t)
-    got = BL.core_bwd_kernel(qkv, dy, inv, heads, t)
-    ref = BL._attn_core_bwd(qkv, dy, inv, heads, t)
+    _, lse = BL._attn_core_fwd(qkv, heads, t)
+    got = BL.core_bwd_kernel(qkv, dy, lse, heads, t)
+    ref = BL._attn_core_bwd(qkv, dy, lse, heads, t)
     assert bool(torch.isfinite(got).all())
     assert _rel(got, ref) <= 2 ** -6
 
@@ -781,6 +784,132 @@ def test_block_halves_capture_into_a_graph(cuda):
         return y.detach(), gx
     (y0, g0), (y1, g1) = _captured(step)
     assert torch.equal(y0, y1) and torch.equal(g0, g1)
+
+
+def _hot(p, d=768, heads=12):
+    """The block `p` with every head's scores lifted by ~80: the k
+    projection's first column of each head is the constant 16 (zero weight,
+    bias 16, exact in bf16) and the q projection's bias there 40, so each
+    row's scores gain 2 q_0 = 80 +- 2, the same for all its keys.  The
+    exact softmax does not move; exp(min(s, 60)) would flatten every row."""
+    a = dict(p["attn"])
+    in_w, in_b = a["in_w"].clone(), a["in_b"].clone()
+    for h in range(heads):
+        in_w[:, d + 64 * h] = 0
+        in_b[d + 64 * h] = 16
+        in_b[64 * h] = 40
+    a["in_w"], a["in_b"] = in_w, in_b
+    return dict(p, attn=a)
+
+
+@pytest.mark.parametrize("hot", [False, True])
+def test_vit_b32_blocks_take_the_fused_route_and_match_the_unfused(
+        cuda, monkeypatch, hot):
+    """ViT-B/32's bf16 blocks on the card take the fused halves by default
+    (no switch set; `kernels.LAUNCHES` counts one of each entry point a
+    block and no attention kernel), and their forward and input gradient
+    match the unfused route (`resblock_flat`: cuBLAS products and
+    csrc/attention.cu) at the block tolerance, 2^-6 relative.  `hot`: with
+    every score past 60, so only an exact softmax on both routes agrees."""
+    from aphantasia_torch.models.clip import model as M
+    monkeypatch.delenv("APHANTASIA_FUSED_BLOCK", raising=False)
+    rows, t, d, heads = 190 * 50, 50, 768, 12
+    x, dy, p = _block(cuda, rows, d, torch.bfloat16)
+    if hot:
+        p = _hot(p)
+        h = BL._ln(x, p["ln_1"]["g"], p["ln_1"]["b"])[0]
+        q, k, _ = BL._split(BL._mm_bias(h, p["attn"]["in_w"],
+                                        p["attn"]["in_b"]), heads, t)
+        assert BL._scores(q, k, 64).amax(-1).min().item() > 60.0
+    assert M.fused_blocks(x, [p], t)
+    outs = []
+    for fn in (lambda v: M.transformer_flat(v, [p], heads, t),
+               lambda v: M.resblock_flat(v, p, heads, t)):
+        kernels.reset_launches()
+        xr = x.clone().requires_grad_(True)
+        y = fn(xr)
+        (g,) = torch.autograd.grad(y, xr, dy)
+        outs.append((y, g, {k: v for k, v in kernels.LAUNCHES.items() if v}))
+    (y_f, g_f, n_f), (y_u, g_u, n_u) = outs
+    assert n_f == {"block_attn_fwd": 1, "block_attn_bwd": 1,
+                   "block_mlp_fwd": 1, "block_mlp_bwd": 1}
+    assert n_u == {"attn_fwd": 1, "attn_bwd": 1}
+    assert bool(torch.isfinite(y_f).all()) and bool(torch.isfinite(g_f).all())
+    assert _rel(y_f, y_u) <= 2 ** -6 and _rel(g_f, g_u) <= 2 ** -6
+
+
+def test_vit_b32_tower_route_by_default(cuda, monkeypatch):
+    """The whole ViT-B/32 image tower, bf16, forward and image gradient: 12
+    of each fused entry point and no attention kernel by default; in
+    float32 (the card-against-CPU checks) and under a closed geometry gate
+    (ViT-B/16's t = 197) the blocks stay unfused."""
+    from aphantasia_torch.models.clip.model import (CLIP_CONFIGS, clip_init,
+                                                    encode_image)
+    monkeypatch.delenv("APHANTASIA_FUSED_BLOCK", raising=False)
+    for name, dtype, want in (
+            ("ViT-B/32", torch.bfloat16,
+             {k: 12 for k in ("block_attn_fwd", "block_attn_bwd",
+                              "block_mlp_fwd", "block_mlp_bwd")}),
+            ("ViT-B/32", torch.float32, {"attn_fwd": 12, "attn_bwd": 12}),
+            ("ViT-B/16", torch.bfloat16, {"attn_fwd": 12, "attn_bwd": 12})):
+        cfg = CLIP_CONFIGS[name]
+        vis = {"visual": cast_weights(clip_init(cuda, cfg)["visual"], dtype)}
+        x = torch.randn((8, 3, 224, 224), generator=cuda, device="cuda",
+                        requires_grad=True)
+        kernels.reset_launches()
+        emb = encode_image(vis, cfg, x, dtype)
+        (gx,) = torch.autograd.grad(emb.float().square().sum(), x)
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        assert got == want, (name, dtype, got)
+        assert bool(torch.isfinite(gx).all()) and gx.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("registered", [True, False])
+def test_frame_writer_admits_a_card_frame_without_waiting(
+        cuda, tmp_path, monkeypatch, registered):
+    """A frame on the card is admitted into a slot registered as pinned
+    memory by a non-blocking copy and an event: with ~1 s of work queued
+    ahead of it, its "writer.admit" span stays under 1 ms, the work is
+    still running when the admission returns, and the file holds the
+    frame's bytes once the writer closes.  Where registration fails (here
+    made to), the copy lands in a pinned staging buffer instead, just as
+    fast, and reaches the slot once its event has completed."""
+    import io
+    from PIL import Image
+    from aphantasia_torch.io.media import AsyncFrameWriter
+    from aphantasia_torch.profiling import collect
+    if not registered:
+        rt = torch.cuda.cudart()
+
+        class Refusing:
+            cudaError = rt.cudaError
+
+            def cudaHostRegister(self, *args):
+                return "refused"        # anything but cudaError.success
+
+            def __getattr__(self, name):
+                return getattr(rt, name)
+        monkeypatch.setattr(torch.cuda, "cudart", lambda: Refusing())
+    frame = torch.randint(0, 256, (720, 1280, 3), generator=cuda,
+                          device="cuda").to(torch.uint8)
+    with AsyncFrameWriter(encoders=2) as w:
+        w.save_batch([str(tmp_path / "warm.jpg")], frame[None])
+        w.flush()                   # the slot exists, registered or not
+        slot = w._slots[0]
+        if registered:
+            assert slot.pinned >= frame.numel() and slot.staging is None
+        else:
+            assert slot.pinned == 0 and slot.staging.is_pinned()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)
+        with collect() as got:
+            w.save_batch([str(tmp_path / "a.jpg")], frame[None])
+        busy = not torch.cuda.current_stream().query()
+    (admit,) = [r for r in got if r.name == "writer.admit"]
+    assert busy and admit.seconds < 1e-3, admit.seconds
+    buf = io.BytesIO()
+    Image.fromarray(frame.cpu().numpy()).save(buf, format="JPEG")
+    assert (tmp_path / "a.jpg").read_bytes() == buf.getvalue()
 
 
 # ------------------------------------------------------------ the step loop

@@ -1,6 +1,6 @@
 """The port's own measurement (aphantasia_torch/profiling.py) on the CPU:
 span records, their parents per thread and sequence numbers, the ring's
-eviction, spans in the frame writer's threads and its waits, the clock
+eviction, the frame writer's waits and its encoder processes' spans, the clock
 that puts records on the profiler's, the ranges that only `trace` opens,
 the device marks (off a capture an identity that adds no node; in a
 capture, at the step's layer boundaries) and the intervals they name.
@@ -8,7 +8,6 @@ capture, at the step's layer boundaries) and the intervals they name.
 The graph's own node walk and event times need the card: see
 tests/test_torch_gpu.py."""
 import collections
-import concurrent.futures
 import sys
 import threading
 import time
@@ -109,24 +108,22 @@ def test_threads_keep_their_own_parents_under_contention(monkeypatch):
 
 def test_writer_encodes_in_its_threads_and_waits_only_when_it_blocks(
         tmp_path):
-    """max_pending=1: a second frame admitted while the first still
-    encodes waits (a "writer.wait" holding the one pending frame); one
-    admitted once the first is done does not; "writer.encode" runs in the
-    encoder thread (the writer's close may wait for the last frame)."""
+    """One slot: a second frame admitted while the first (a large PNG)
+    still encodes waits (a "writer.wait" holding the one pending frame);
+    one admitted once the first is done does not; each "writer.encode" is
+    the interval its encoder process sent back, recorded with that
+    process's pid and no parent (the writer's close may wait for the last
+    frame)."""
     start = time.perf_counter_ns()
-    gate = threading.Event()
-
-    def slow(img):
-        gate.wait(timeout=30)
-        return img
+    slow = np.random.RandomState(0).randint(0, 256, (900, 1200, 3),
+                                            dtype=np.uint8)
     frame = np.zeros((8, 8, 3), np.uint8)
-    with collect() as got, AsyncFrameWriter(encoders=1,
-                                            max_pending=1) as w:
-        w.save(str(tmp_path / "a.png"), frame, slow)
-        threading.Timer(0.05, gate.set).start()
+    with collect() as got, AsyncFrameWriter(encoders=1, slots=1) as w:
+        w.save(str(tmp_path / "a.png"), slow)
         w.save(str(tmp_path / "b.png"), frame)
-        concurrent.futures.wait(w._pending, timeout=30)
+        w.flush()
         w.save(str(tmp_path / "c.png"), frame)
+        pid = w._procs[0].pid
     admits = [r for r in got if r.name == "writer.admit"]
     waits = [r for r in got if r.name == "writer.wait"
              and r.parent in {a.seq for a in admits}]
@@ -136,8 +133,9 @@ def test_writer_encodes_in_its_threads_and_waits_only_when_it_blocks(
     encodes = [r for r in profiling.records()
                if r.name == "writer.encode" and r.t0 >= start]
     assert len(encodes) == 3
-    assert {r.thread for r in encodes} != {threading.get_ident()}
+    assert {r.thread for r in encodes} == {r.process for r in encodes} == {pid}
     assert all(r.parent is None for r in encodes)
+    assert encodes[0].t1 <= waits[0].t1
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "a.png", "b.png", "c.png"]
 
@@ -173,6 +171,30 @@ def test_trace_ranges_lie_within_their_records_on_the_profiler_clock(
         assert r.t0 + off - 20_000 <= s <= e <= r.t1 + off + 20_000, (
             r.name, s - r.t0 - off, r.t1 + off - e)
     assert list(tmp_path.iterdir())
+
+
+def test_trace_file_shows_the_encoder_processes_encodes(tmp_path):
+    """`trace(dir)` adds the writer's encodes, which ran in its encoder
+    process, to the trace file as events of that process's pid, on the
+    file's clock: each starts after the range of the admission that sent
+    it began, and ends before the trace file was written."""
+    import json
+    frame = np.zeros((16, 16, 3), np.uint8)
+    with profiling.trace(str(tmp_path)):
+        with AsyncFrameWriter(encoders=1) as w:
+            pid = w._procs[0].pid
+            w.save(str(tmp_path / "a.jpg"), frame)
+            w.save(str(tmp_path / "b.jpg"), frame)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    admits = sorted(e["ts"] for e in events
+                    if e.get("name") == "writer.admit" and e.get("ph") == "X")
+    encodes = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("name") == "writer.encode")
+    assert len(admits) == 2 and len(encodes) == 2
+    assert all(e["pid"] == pid for e in events
+               if e.get("name") == "writer.encode")
+    assert all(a <= s < t for a, (s, t) in zip(admits, encodes))
 
 
 def test_no_program_range_under_a_profiler_the_program_did_not_start():
