@@ -171,9 +171,11 @@ def scene_generator(seed: int, num: int, stream: int, device) -> torch.Generator
 
 class SceneLoop:
     """The training of a run's scenes, one after another.  The chunked
-    path keeps one frame loop for every scene whose prompts have the same
-    shapes (a scene with other shapes builds, and on the card captures,
-    its own); the per-step loop runs `build_train_step` step by step."""
+    path runs a scene as `dispatches` calls of `dispatch`, `nf` frames
+    each, and keeps one frame loop for every scene whose prompts have the
+    same shapes (a scene with other shapes builds, and on the card
+    captures, its own); the per-step loop runs `build_train_step` step by
+    step."""
 
     def __init__(self, par, sampler, cfgs, settings, optimizer, steps: int,
                  save_step: int, contrast: float, dm_every=None, mesh=None):
@@ -188,6 +190,7 @@ class SceneLoop:
         self.spar = par if isinstance(par, spatial.SpatialCanvas) else None
         if self.chunked:
             self.nf = frames_per_dispatch(tuple(par.size), steps // save_step)
+            self.dispatches = steps // save_step // self.nf
         elif self.spar is not None:
             self.step_fns = [spatial.build_spatial_train_step(
                 par, sampler, cfg, settings, optimizer) for cfg in self.cfgs]
@@ -220,6 +223,24 @@ class SceneLoop:
                     dual=dual, mesh=self.mesh)
         return self.loops[key]
 
+    def dispatch(self, c: int, gen_params, opt_state, prev, consts, draws,
+                 save_frames=None):
+        """Dispatch `c` of a scene on the chunked path: its `nf` frame
+        groups through `loop_for(consts)`, the frames handed to
+        `save_frames(first, frames)`, the losses read (the dispatch's one
+        wait).  Returns (gen_params, opt_state, prev, losses)."""
+        loop = self.loop_for(consts)
+        extra = () if self.dm_every is None else (
+            consts[1][0], consts[1][1], consts[1][3])
+        gen_params, opt_state, prev, frames, dl = loop(
+            gen_params, opt_state, prev, *consts[0], *extra, draws,
+            c * self.nf)
+        if save_frames is not None:
+            save_frames(c * self.nf, frames)
+        with span("loss_read"):
+            losses = dl.tolist()          # the dispatch's one wait
+        return gen_params, opt_state, prev, losses
+
     def scene(self, gen_params, opt_state, consts, draws, save_frames=None,
               on_frame=None):
         """One scene of `steps` steps from (gen_params, opt_state) and a
@@ -228,29 +249,25 @@ class SceneLoop:
         StepDraws, called in step order; `save_frames(first, frames)`
         takes the uint8 frames [N,H,W,3] from frame `first` on;
         `on_frame()` is called after each frame.  Returns (gen_params,
-        opt_state, losses, step_seconds): on the chunked path each step of
-        a dispatch gets its wall over its steps, and each pattern's first
-        frame group (eager run and capture) its own."""
+        opt_state, losses, step_seconds): on the chunked path (`dispatch`
+        after dispatch) each step of a dispatch gets its wall over its
+        steps, and each pattern's first frame group (eager run and
+        capture) its own."""
         dev = gen_params.device
         prev = torch.zeros((self.sampler.count, self.cfgs[0].embed_dim),
                            device=dev)
         losses, seconds = [], []
         n = self.save_step
         if self.chunked:
-            loop = self.loop_for(consts)
-            extra = () if self.dm_every is None else (
-                consts[1][0], consts[1][1], consts[1][3])
-            for c in range(self.steps // n // self.nf):
+            for c in range(self.dispatches):
                 t0 = time.perf_counter()
-                gen_params, opt_state, prev, frames, dl = loop(
-                    gen_params, opt_state, prev, *consts[0], *extra, draws,
-                    c * self.nf)
-                if save_frames is not None:
-                    save_frames(c * self.nf, frames)
-                with span("loss_read"):
-                    losses += dl.tolist()         # the dispatch's one wait
+                gen_params, opt_state, prev, dl = self.dispatch(
+                    c, gen_params, opt_state, prev, consts, draws,
+                    save_frames)
+                losses += dl
                 seconds += dispatch_seconds(time.perf_counter() - t0,
-                                            loop.first_runs, self.nf, n)
+                                            self.loop_for(consts).first_runs,
+                                            self.nf, n)
                 for _ in range(self.nf if on_frame is not None else 0):
                     on_frame()
             return gen_params, opt_state, losses, seconds

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from aphantasia_torch.ops.attention import attention_core, attention_core_flat
 from aphantasia_torch.ops import block, ln
+from aphantasia_torch.profiling import mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,9 +170,13 @@ def mha(x, p, n_heads, causal=False, k=1):
 
 def mha_flat(x, p, n_heads, t, k=1):
     """mha over the flat sample-major stream [b*t, d]: the projections run
-    on the flat rows; only the kernel sees the sample structure."""
+    on the flat rows; only the kernel sees the sample structure.  In a
+    captured graph the attention core sits between an "attn" mark and a
+    "tower" mark (`profiling.mark`), so `CountedGraph.layer_ms()` gives
+    its forward and backward as "attn" apart from the rest of the tower."""
     qkv = _linear(_enter(x, k), p["in_w"], p["in_b"])         # [b*t,3D/k]
-    o = attention_core_flat(qkv, n_heads // k, t)
+    o = mark(attention_core_flat(mark(qkv, "attn"), n_heads // k, t),
+             "tower")
     if k == 1:
         return _linear(o, p["out_w"], p["out_b"])
     return _leave(o @ p["out_w"].to(o.dtype), p["out_b"])

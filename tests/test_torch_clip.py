@@ -187,6 +187,46 @@ def test_vit_at_the_336_geometry_matches_jax():
     _close(g_t.numpy(), g_j)
 
 
+def test_vit_at_the_336_geometry_matches_the_benchmark_reference(tmp_path):
+    """`vit_encode` at ViT-L/14@336px's geometry (577 tokens; width 64, 4
+    heads of 16, 2 layers, 2 images, float32) against the benchmark's
+    plain reference (`benchmark/reference/clip.encode_image`), both
+    loading one OpenAI-layout state dict of seeded random weights at
+    OpenAI's scales (`benchmark/harness/weights.py`): embedding and image
+    gradient within 1e-4 of the largest entry, the module's float32
+    tolerance (the port's one-pass LayerNorm moments and its own product
+    and attention orders against the reference's two-pass `layer_norm`
+    and plain softmax)."""
+    from aphantasia_torch.models.clip.convert import convert_checkpoint
+    from benchmark.harness.weights import write_weights
+    from benchmark.reference import clip as ref
+    vision = {"image_resolution": 336, "patch_size": 14, "width": 64,
+              "layers": 2, "heads": 4}
+    config = {"embed_dim": 32, "vision": vision,
+              "text": {"context_length": 77, "vocab_size": 49408,
+                       "width": 32, "layers": 1, "heads": 2}}
+    path = write_weights(config, 2 ** 31 + 9, str(tmp_path), "cpu")["clip"]
+    cfg = tm.CLIPConfig("l14-336-narrow", 32, 336, 2, 64, 14,
+                        transformer_width=32, transformer_heads=2,
+                        transformer_layers=1, vision_heads_override=4)
+    params = convert_checkpoint(path, expect_cfg=cfg)
+    sd = ref.load_state_dict(path, "cpu")
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 3, 336, 336), generator=gen)
+    co = torch.randn((2, 32), generator=gen)
+    outs = []
+    for fn in (lambda im: tm.encode_image(params, cfg, im),
+               lambda im: ref.encode_image(sd, vision, im)):
+        xx = x.clone().requires_grad_(True)
+        emb = fn(xx)
+        (g,) = torch.autograd.grad(emb, xx, co)
+        outs.append((emb.detach(), g))
+    (e_t, g_t), (e_r, g_r) = outs
+    assert (336 // 14) ** 2 + 1 == 577 and cfg.vision_heads == 4
+    _close(e_t.numpy(), e_r.numpy())
+    _close(g_t.numpy(), g_r.numpy())
+
+
 def test_unported_models_raise(monkeypatch):
     """Every model is ported since the ModifiedResNets were: the largest,
     RN50x64, builds through `load_clip` (shape-only: its 623M parameters

@@ -1210,3 +1210,73 @@ def test_step_marks_cover_the_replayed_group(cuda):
     ms = graph.layer_ms()
     assert set(ms) == {"decode", "cut", "tower", "loss", "step", "render"}
     assert 0.97 * total <= sum(ms.values()) <= total, (ms, total)
+
+
+def test_unfused_tower_graph_times_its_attention_apart(cuda, monkeypatch):
+    """A captured step group (`build_train_loop_frames`, as the CLIs
+    capture it) whose tower runs unfused (ViT-B/16 in bf16, t = 197, 4
+    cutouts of a 256x256 FFT frame) holds an "attn" and a "tower" mark
+    around each layer's attention core and again in its backward (4 event
+    nodes a layer beside the step's 10), and `layer_ms()` gives "attn"
+    (the cores, forward and backward) apart from the rest of the tower."""
+    from aphantasia_torch.models.clip import model as tm
+    from aphantasia_torch.ops import optim as to
+    from aphantasia_torch.params.fft import FFTParameterizer
+    from aphantasia_torch.step import (StepSettings, build_draw_fn,
+                                       build_train_loop_frames)
+    monkeypatch.delenv("APHANTASIA_FUSED_BLOCK", raising=False)
+    cfg = tm.CLIP_CONFIGS["ViT-B/16"]
+    par = FFTParameterizer((256, 256), 1.5, 1.8)
+    sampler = CutoutSampler((256, 256), 4, 224, "uniform")
+    settings = StepSettings(transform="fast", clip_dtype=torch.bfloat16)
+    opt = to.build_optimizer("adam", 0.05)
+    vis = {"visual": cast_weights(tm.clip_init(cuda, cfg)["visual"],
+                                  torch.bfloat16)}
+    prompts = ((torch.randn((1, 512), generator=cuda, device="cuda"),
+                torch.ones(1, device="cuda"),
+                torch.full((), -1.0, device="cuda")),)
+    params = par.init(cuda)
+    loop = build_train_loop_frames(par, sampler, cfg, settings, opt, 1, 2)
+    draw = build_draw_fn(sampler, settings, tuple(params.shape))
+    state = (params, opt.init(params), torch.zeros((4, 512), device="cuda"))
+    for c in range(2):
+        state = loop(*state, vis, None, None, prompts,
+                     lambda g: draw(cuda), 2 * c)[:3]
+    (group,) = loop.groups.values()
+    graph = group.graph
+    names = [n for n, _ in graph.marks]
+    assert names[:5] == ["decode", "cut", "tower", "attn", "tower"]
+    assert names.count("attn") == names.count("attn.bwd") == 12
+    assert graph.nodes["event_record"] == 10 + 4 * 12
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = graph.layer_ms()
+    assert set(ms) == {"decode", "cut", "tower", "attn", "loss", "step",
+                       "render"}
+    assert ms["attn"] > 0 < ms["tower"]
+
+
+def test_fused_tower_graph_keeps_its_node_count(cuda, monkeypatch):
+    """ViT-B/32's fused bf16 blocks hold no attention marks: a captured
+    tower (forward and image gradient, 4 images) has no event node and the
+    same nodes as with the marks turned off."""
+    from aphantasia_torch.models.clip import model as tm
+    monkeypatch.delenv("APHANTASIA_FUSED_BLOCK", raising=False)
+    cfg = tm.CLIP_CONFIGS["ViT-B/32"]
+    vis = {"visual": cast_weights(tm.clip_init(cuda, cfg)["visual"],
+                                  torch.bfloat16)}
+    x = torch.randn((4, 3, 224, 224), generator=cuda, device="cuda")
+    co = torch.randn((4, cfg.embed_dim), generator=cuda, device="cuda")
+
+    def fn():
+        xx = x.detach().requires_grad_(True)
+        emb = tm.encode_image(vis, cfg, xx, torch.bfloat16).float()
+        return torch.autograd.grad(emb, xx, co)[0]
+    counts = []
+    for off in (False, True):
+        if off:
+            monkeypatch.setattr(tm, "mark", lambda x, name: x)
+        graph = _counted(fn)
+        assert graph.marks == [] and graph.nodes["event_record"] == 0
+        counts.append(dict(graph.nodes))
+    assert counts[0] == counts[1] and counts[0]["kernel"] > 0

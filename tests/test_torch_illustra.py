@@ -210,6 +210,57 @@ def test_illustra_chain_matches_jax():
     assert len(scenes.loops) == 1      # the second scene reused the loop
 
 
+def test_scene_dispatch_by_dispatch_equals_the_scene(monkeypatch):
+    """A scene driven dispatch by dispatch through `SceneLoop.dispatch`
+    (3 dispatches of 2 frames, a frame a step) gives the parameters, the
+    optimizer state, the losses and the frames of `SceneLoop.scene` on
+    the same draws, bit for bit: `scene` is those calls in order."""
+    monkeypatch.setattr(illustra, "frames_per_dispatch", lambda size, n: 2)
+    h, w, s = 32, 48, 3
+    cfg = tm.CLIPConfig(**CFG_KW)
+    clip = tm.clip_init(torch.Generator().manual_seed(2), cfg)
+    p0 = FFTParameterizer((h, w), 1.5, 1.8).init(
+        torch.Generator().manual_seed(3))
+    prompts = [(torch.randn((2, 32), generator=torch.Generator()
+                            .manual_seed(4)), torch.tensor([1.0, 0.5]),
+                -1.0)]
+    sett = tstep.StepSettings(sim="mix", total_steps=6, transform="fast")
+    outs = []
+    for by_dispatch in (False, True):
+        sam = CutoutSampler((h, w), s, 32, "uniform", 0.4)
+        scenes = illustra.SceneLoop(FFTParameterizer((h, w), 1.5, 1.8), sam,
+                                    [cfg], sett,
+                                    to.build_optimizer("adam_custom", 0.05),
+                                    6, 1, 1.1)
+        assert scenes.chunked and (scenes.nf, scenes.dispatches) == (2, 3)
+        draw = tstep.build_draw_fn(sam, sett, tuple(p0.shape))
+        gen = torch.Generator().manual_seed(5)
+        frames = {}
+
+        def save(first, fr):
+            for j in range(len(fr)):
+                frames[first + j] = fr[j].clone()
+        p, st = p0.clone(), scenes.optimizer.init(p0.clone())
+        consts = [(clip, None, None, prompts)]
+
+        def feed(g, gen=gen):
+            return draw(gen)
+        if by_dispatch:
+            prev, losses = torch.zeros((s, 32)), []
+            for c in range(scenes.dispatches):
+                p, st, prev, dl = scenes.dispatch(c, p, st, prev, consts,
+                                                  feed, save)
+                losses += dl
+        else:
+            p, st, losses, _ = scenes.scene(p, st, consts, feed, save)
+        outs.append((p, st, losses, frames))
+    (pa, sa, la, fa), (pb, sb, lb, fb) = outs
+    assert torch.equal(pa, pb) and torch.equal(sa.nu, sb.nu)
+    assert la == lb and len(la) == 6
+    assert sorted(fa) == sorted(fb) == list(range(6))
+    assert all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
 def test_step_index_names():
     """"step" (the JAX name) and "global" both give the loss the global
     step (a stride through a frame group); anything else raises."""

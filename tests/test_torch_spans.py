@@ -251,7 +251,9 @@ def _tiny_step():
 def test_marks_sit_at_the_step_layer_boundaries_and_change_nothing():
     """In a capture the train step marks decode, cut, tower and loss going
     forward and each again at the end of its backward, the render its
-    start and end; the step's numbers equal an unmarked step's."""
+    start and end, and the unfused tower's one block its attention core
+    ("attn" before it, "tower" after it, and the same in the backward);
+    the step's numbers equal an unmarked step's."""
     par, opt, clip, params, prompts, draws, step = _tiny_step()
     render = tstep.build_render(par)
     outs = []
@@ -263,11 +265,50 @@ def test_marks_sit_at_the_step_layer_boundaries_and_change_nothing():
                                     None, prompts, draws, 0)
             frame = render(p)
         outs.append((p, st.mu, enc, loss, frame))
-    assert rec.names == ["decode", "cut", "tower", "loss", "loss.bwd",
-                         "tower.bwd", "cut.bwd", "decode.bwd", "render",
-                         "group"]
+    assert rec.names == ["decode", "cut", "tower", "attn", "tower", "loss",
+                         "loss.bwd", "tower.bwd", "attn.bwd", "tower.bwd",
+                         "cut.bwd", "decode.bwd", "render", "group"]
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def _autograd_names(t) -> set:
+    """The names of every node in the autograd graph behind t."""
+    seen, names, todo = set(), set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo += [f for f, _ in fn.next_functions]
+    return names
+
+
+def test_tower_attention_marks_are_the_identity_off_a_capture():
+    """Off a capture the unfused tower's "attn" and "tower" marks around
+    each attention core (`mha_flat`) return their inputs and add no
+    autograd node; under a capture's marking they record each layer's
+    pair going forward and again in the backward, and the embedding and
+    image gradient are the same."""
+    cfg = tm.CLIPConfig("tiny2", 16, 32, 2, 32, 16, transformer_width=32,
+                        transformer_heads=2, transformer_layers=1,
+                        vision_heads_override=2)
+    clip = tm.clip_init(torch.Generator().manual_seed(3), cfg)
+    x = torch.randn((2, 3, 32, 32), generator=torch.Generator().manual_seed(4))
+    outs, rec = [], _Recorder()
+    for marking in (None, rec):
+        xx = x.clone().requires_grad_(True)
+        with (profiling.marking(marking) if marking else collect()):
+            emb = tm.encode_image(clip, cfg, xx)
+            names = _autograd_names(emb)
+            (g,) = torch.autograd.grad(emb.square().sum(), xx)
+        outs.append((emb.detach(), g, names))
+    (e0, g0, n0), (e1, g1, n1) = outs
+    assert "_MarkBackward" not in n0 and "_MarkBackward" in n1
+    assert n1 - n0 == {"_MarkBackward"}
+    assert rec.names == ["attn", "tower"] * 2 + ["tower.bwd", "attn.bwd"] * 2
+    assert torch.equal(e0, e1) and torch.equal(g0, g1)
 
 
 def test_interval_names_give_each_layer_its_forward_and_backward():
