@@ -84,6 +84,25 @@
 // barriers, the weights and the two banded sums for every chunk of every
 // crop a tile meets.
 
+// The same two designs compute the card's default bf16 cut, the dense
+// contraction's function (ops/sampler.py:_Contract, ops/cutout.py:contract):
+//   contract_fwd: rows first, it is cutout_fwd's function.  Columns first
+//     (W first, h < w) it is that function of the transposed frame with
+//     the axes' taps swapped, its output transposed: the bf16 copy is made
+//     transposed (frame_bf16_t_kernel) and cutout_fwd_kernel<true> writes
+//     each band's outputs as rows of out[s,c,n,m].
+//   contract_bwd: cutout_bwd_kernel<*, true, *> rounds the weights and g
+//     to bf16, carries T over all the n chunks of an m chunk, rounds it
+//     once to bf16 and only then sums along m, one running float32 sum a
+//     pixel over its piece's samples and their m in order.  W first, it
+//     walks the transposed frame with g read transposed by TMA (the same
+//     map, the coordinates swapped) and writes d_img transposed, or
+//     transpose_sum_kernel adds the pieces in order into it.  A frame of
+//     4K's size takes tiles of 64 (the wrapper's choice; no sum's order
+//     depends on the tile).
+// The plain version (ops/cutout.py:contract_plain) takes every sum in
+// these orders, so the pair repeats it bit for bit.
+
 // The wrapper (ops/cutout.py) clamps every tap into the frame and zeroes
 // the weight of a tap that was outside it, so no read leaves the frame and
 // such taps count nowhere.
@@ -124,6 +143,27 @@ __global__ void frame_bf16_kernel(const float* __restrict__ img,
   }
 }
 
+// The bf16 copy of the frame transposed, dst [c,w,h] from img [c,h,w],
+// through a 32 x 32 tile in shared memory (blocks of 32 x 8 threads).
+__global__ void frame_bf16_t_kernel(const float* __restrict__ img,
+                                    __nv_bfloat16* __restrict__ dst, int h,
+                                    int w) {
+  __shared__ float tile[32][33];
+  const int ch = blockIdx.z, y0 = blockIdx.y * 32, x0 = blockIdx.x * 32;
+  const float* src = img + (int64_t)ch * h * w;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int y = y0 + i, x = x0 + threadIdx.x;
+    if (y < h && x < w) tile[i][threadIdx.x] = src[(int64_t)y * w + x];
+  }
+  __syncthreads();
+  __nv_bfloat16* out = dst + (int64_t)ch * h * w;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int x = x0 + i, y = y0 + threadIdx.x;
+    if (y < h && x < w)
+      out[(int64_t)x * h + y] = __float2bfloat16_rn(tile[threadIdx.x][i]);
+  }
+}
+
 // One row's (or column's) four taps, as the dense bf16 matrix holds them:
 // sorted by index (adjacent swaps, so taps on one index keep their
 // order), the first tap of each index carrying the float32 sum of that
@@ -155,6 +195,11 @@ __device__ __forceinline__ void distinct_taps(int4 iv, float4 wv,
     w[k] = __bfloat162float(__float2bfloat16_rn(sum[k]));
     if (w[k] == 0.f) ix[k] = -1;
   }
+}
+
+// v rounded to bf16 (RNE), as a float
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float bf_lo(uint32_t v) {
@@ -196,7 +241,10 @@ __device__ __forceinline__ void wait_ring(int n) {
 // columns 8 (t % 16) .. + 7 of each stage, and after a piece adds the
 // terms of output column t's taps in that piece to its sums for every
 // band row: pieces ascend in x, and a column's taps too, so each sum runs
-// in ascending x.
+// in ascending x.  kTransOut writes the output transposed, out[s,c,n,m]
+// for the kernel's row m and column n (the contraction of a transposed
+// frame, contract_fwd).
+template <bool kTransOut>
 __global__ void __launch_bounds__(kFwdThreads, 3)
 cutout_fwd_kernel(const __nv_bfloat16* __restrict__ img16,
                   const int* __restrict__ yidx, const float* __restrict__ yw,
@@ -422,10 +470,28 @@ cutout_fwd_kernel(const __nv_bfloat16* __restrict__ img16,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[i] = fmaf(wk[e], __bfloat162float(trow[off[e]]), acc[i]);
-          if (last) {
+          if (!kTransOut && last) {
             dst[(int64_t)i * m] = acc[i];
             acc[i] = 0.f;
           }
+        }
+        if (kTransOut && last) {
+          // the band's outputs of this column are one row of the
+          // transposed output: 16 consecutive floats
+          float* row =
+              out + (((int64_t)smp * c + cur.ch) * m + n0 + tid) * m + m0;
+          if (mr == kFwdRows && (m & 3) == 0) {
+#pragma unroll
+            for (int i = 0; i < kFwdRows; i += 4)
+              *reinterpret_cast<float4*>(row + i) =
+                  make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < kFwdRows; ++i)
+              if (i < mr) row[i] = acc[i];
+          }
+#pragma unroll
+          for (int i = 0; i < kFwdRows; ++i) acc[i] = 0.f;
         }
       }
     }
@@ -540,12 +606,13 @@ __device__ __forceinline__ Chunk next_chunk(Chunk cur, const Active* act,
 // A chunk's staged inputs, each brought by TMA: g for kGroup channels in
 // boxes of kBoxM m (box q / kBoxM holds [channel][q % kBoxM][n + the
 // chunk's n0 % 4]), the taps of its m and n, and the pixel ranges of the
-// tile's rows and columns.
+// rows and columns of a tile kT pixels a side.
+template <int kT>
 struct Staged {
   float g[2][kGroup][kBoxM][kBoxN];
   int yi[kChunk][4], xi[kChunk][4];
   float yw[kChunk][4], xw[kChunk][4];
-  int2 ry[kTile], rx[kTile];
+  int2 ry[kT], rx[kT];
 };
 
 // The tensor maps the main kernel reads its inputs through: g, the taps
@@ -555,16 +622,25 @@ struct Maps {
 };
 
 // Thread 0 asks TMA for chunk k's inputs into st, completing on bar.
-__device__ __forceinline__ void stage(Staged& st, uint64_t* bar, Chunk k,
+// kTransG reads g transposed (g[s,c,n,m] for the kernel's m and n): box
+// i then holds [channel][n % kBoxM][m + the chunk's m0 % 4] of the n in
+// [n0 + kBoxM i, +kBoxM).
+template <int kT, bool kTransG>
+__device__ __forceinline__ void stage(Staged<kT>& st, uint64_t* bar, Chunk k,
                                       int smp, const Maps& maps, int c,
                                       int c0, int m, int h, int w, int x0,
                                       int y0) {
-  const int bm = (k.mr + kBoxM - 1) / kBoxM;
+  const int bm = ((kTransG ? k.nr : k.mr) + kBoxM - 1) / kBoxM;
   mbar_expect_tx(bar, bm * (int)sizeof(st.g[0]) + 4 * kChunk * 16 +
-                          2 * kTile * 8);
-  for (int i = 0; i < bm; ++i)
-    tma_load_3d(st.g[i], maps.g, bar, k.n0 & ~3, k.m0 + kBoxM * i,
-                smp * c + c0);
+                          2 * kT * 8);
+  for (int i = 0; i < bm; ++i) {
+    if (kTransG)
+      tma_load_3d(st.g[i], maps.g, bar, k.m0 & ~3, k.n0 + kBoxM * i,
+                  smp * c + c0);
+    else
+      tma_load_3d(st.g[i], maps.g, bar, k.n0 & ~3, k.m0 + kBoxM * i,
+                  smp * c + c0);
+  }
   tma_load_2d(st.yi, maps.yi, bar, 0, smp * m + k.m0);
   tma_load_2d(st.yw, maps.yw, bar, 0, smp * m + k.m0);
   tma_load_2d(st.xi, maps.xi, bar, 0, smp * m + k.n0);
@@ -580,6 +656,21 @@ __device__ __forceinline__ int middle_out(int i, int n) {
   return (i & 1) ? mid + (i + 1) / 2 : mid - i / 2;
 }
 
+// The range of a tile of kT pixels, b-th along an axis of nb bands of
+// kTile: the union of its bands' ranges in the table row `row`.
+template <int kT>
+__device__ __forceinline__ int2 tile_range(const int2* row, int b, int nb) {
+  int2 r = make_int2(0x7fffffff, -1);
+#pragma unroll
+  for (int j = 0; j < kT / kTile; ++j) {
+    const int at = b * (kT / kTile) + j;
+    if (at >= nb) break;
+    const int2 o = row[at];
+    r = make_int2(min(r.x, o.x), max(r.y, o.y));
+  }
+  return r;
+}
+
 // The part of range r inside [0, len) of a chunk starting at at.
 __device__ __forceinline__ int2 clip(int2 r, int at, int len) {
   return make_int2(max(r.x, at) - at, min(r.y, at + len - 1) - at);
@@ -588,12 +679,19 @@ __device__ __forceinline__ int2 clip(int2 r, int at, int len) {
 // Block b takes piece b % split (the samples [piece * nsmp / split,
 // (piece + 1) * nsmp / split)) of tile b / split, the tiles counted from
 // the middle of the frame outwards, where the crops pile up, so that the
-// heaviest start first.  It writes d_img of that piece for the kTile x
-// kTile pixels of the tile, all channels, into part[piece].  Each chunk
-// of the walk is one iteration of the summing warps between their
-// barriers; the producer warp stages the chunks by TMA up to kBufs ahead,
-// off their path.  Summing warp w owns rows 4w .. 4w + 3 of the tile,
-// lane l column l.
+// heaviest start first.  It writes d_img of that piece for the kT x kT
+// pixels of the tile, all channels, into part[piece].  Each chunk of the
+// walk is one iteration of the summing warps between their barriers; the
+// producer warp stages the chunks by TMA up to kBufs ahead, off their
+// path.  Summing warp w owns rows kR w .. kR w + kR - 1 of the tile (kR =
+// kT / 8), lane l the columns l + 32 j, j < kT / 32.  Tiles of 64 (the
+// contraction's) take a quarter of the walks of tiles of 32 where crops
+// are much larger than a tile, as at 4K, each of a chunk.
+// kRound computes the dense contraction's gradient instead (contract_bwd):
+// the weights and g rounded to bf16, T summed over all the n of an m chunk
+// (its n chunks in order) and rounded to bf16 once, and the m pass run
+// after the chunk's last n chunk.  kTransG reads g transposed (stage).
+template <int kT, bool kRound, bool kTransG>
 __global__ void __launch_bounds__(kBwdBlock)
 cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
                   const __grid_constant__ CUtensorMap yimap,
@@ -602,17 +700,21 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
                   const __grid_constant__ CUtensorMap xwmap,
                   const __grid_constant__ CUtensorMap tmap,
                   const int2* __restrict__ table, float* __restrict__ part,
-                  int c, int h, int w, int nsmp, int m, int split) {
+                  int c, int h, int w, int nsmp, int m, int split,
+                  int tout) {
+  constexpr int kR = kT / 8, kC = kT / 32;   // rows a warp, columns a lane
   const Maps maps = {&gmap, &yimap, &ywmap, &ximap, &xwmap, &tmap};
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kBufs], empty[kBufs];
-  Staged* buf = reinterpret_cast<Staged*>(smem_align<128>(smem_raw));
-  float* wx = reinterpret_cast<float*>(buf + kBufs);       // [kChunk][kTile]
-  float* wy = wx + kChunk * kTile;                         // [kChunk][kTile]
-  float* tt = wy + kTile * kChunk;                 // [kGroup][kChunk][kTile]
-  int* counts = reinterpret_cast<int*>(tt + kGroup * kChunk * kTile);
+  Staged<kT>* buf = reinterpret_cast<Staged<kT>*>(smem_align<128>(smem_raw));
+  float* wx = reinterpret_cast<float*>(buf + kBufs);       // [kChunk][kT]
+  float* wy = wx + kChunk * kT;                            // [kChunk][kT]
+  float* tt = wy + kT * kChunk;                    // [kGroup][kChunk][kT]
+  int* counts = reinterpret_cast<int*>(tt + kGroup * kChunk * kT);
   Active* act = reinterpret_cast<Active*>(counts + kBwdBlock / 32);
-  const int nby = (h + kTile - 1) / kTile, nbx = (w + kTile - 1) / kTile;
+  const int nby = (h + kT - 1) / kT, nbx = (w + kT - 1) / kT;
+  // the table's bands of kTile
+  const int nty = (h + kTile - 1) / kTile, ntx = (w + kTile - 1) / kTile;
   const int tw = table_width(h, w);
   const int tile = blockIdx.x / split, piece = blockIdx.x % split;
   const int by = middle_out(tile / nbx, nby);
@@ -620,7 +722,7 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
   const int s0 = (int)((int64_t)piece * nsmp / split);
   const int s_end = (int)((int64_t)(piece + 1) * nsmp / split);
   float* dst = part + (int64_t)piece * c * h * w;
-  const int x0 = bx * kTile, y0 = by * kTile;
+  const int x0 = bx * kT, y0 = by * kT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
     for (int i = 0; i < kBufs; ++i) {
@@ -629,7 +731,7 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
     }
     mbar_fence_init();
   }
-  for (int i = tid; i < kChunk * kTile; i += kBwdBlock) wx[i] = wy[i] = 0.f;
+  for (int i = tid; i < kChunk * kT; i += kBwdBlock) wx[i] = wy[i] = 0.f;
   __syncthreads();
   // the samples of the piece that reach the tile, in order: a ballot per
   // warp, the warps' counts added up in order
@@ -638,8 +740,9 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
     const int smp = base + tid;
     int2 ry = make_int2(1, 0), rx = make_int2(1, 0);
     if (tid < kBwdThreads && smp < s_end) {
-      ry = table[(int64_t)smp * tw + by];
-      rx = table[(int64_t)smp * tw + nby + bx];
+      const int2* row = table + (int64_t)smp * tw;
+      ry = tile_range<kT>(row, by, nty);
+      rx = tile_range<kT>(row + nty, bx, ntx);
     }
     const bool hit = ry.x <= ry.y && rx.x <= rx.y;
     const unsigned vote = __ballot_sync(0xffffffffu, hit);
@@ -664,8 +767,8 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
         const int b = seq % kBufs;
         mbar_wait(&empty[b], ((seq / kBufs) & 1) ^ 1);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        stage(buf[b], &full[b], k, act[k.a].s, maps, c, c0, m, h, w, x0,
-              y0);
+        stage<kT, kTransG>(buf[b], &full[b], k, act[k.a].s, maps, c, c0, m,
+                           h, w, x0, y0);
       }
     return;
   }
@@ -675,7 +778,7 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
   int seq = 0;   // chunks walked so far: chunk seq sits in buf[seq % kBufs]
   for (int c0 = 0; c0 < c; c0 += kGroup) {
     const int cg = min(kGroup, c - c0);
-    float acc[kGroup][4] = {};
+    float acc[kGroup][kR][kC] = {};
     for (Chunk cur = first_chunk(act, 0, count); cur.a < count;
          cur = next_chunk(cur, act, count), ++seq) {
       const int b = seq % kBufs;
@@ -683,7 +786,7 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
       // this chunk's weights on the tile, each built by one thread (warp
       // 0: Wx [n][x] by lane n; warp 1: Wy [m][y] by lane m): a pixel's
       // weight is the sum of the thread's taps on it, in tap order
-      const Staged& st = buf[b];
+      const Staged<kT>& st = buf[b];
       if (warp < 2) {
         const bool cols = warp == 0;
         float* wt = cols ? wx : wy;
@@ -702,7 +805,7 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
           const float v[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
-            if (pix[t] < 0 || pix[t] >= kTile) continue;
+            if (pix[t] < 0 || pix[t] >= kT) continue;
             bool first = true;
             float sum = 0.f;
 #pragma unroll
@@ -711,80 +814,146 @@ cutout_bwd_kernel(const __grid_constant__ CUtensorMap gmap,
               first = first && u >= t;
               sum += v[u];
             }
+            if (kRound) sum = bf16r(sum);
             if (!first || sum == 0.f) continue;
-            mine[t] = lane * kTile + pix[t];
+            mine[t] = lane * kT + pix[t];
             wt[mine[t]] = sum;
           }
         }
       }
       sum_sync();
       // along n: T[cc][q][x] = sum_n Wx[n][x] g[cc][q][n], over the n of
-      // the chunk that reach column x
+      // the chunk that reach column x (kRound: carried on from the m
+      // chunk's earlier n chunks, rounded after its last)
+      const Active& ar = act[cur.a];
+      const bool carry = kRound && cur.n0 != ar.n0;
+      const bool fin = !kRound || cur.n0 + cur.nr > ar.n1;
       {
-        const int2 r = x0 + lane < w ? clip(st.rx[lane], cur.n0, cur.nr)
-                                     : make_int2(0, -1);
+        int2 r[kC];
+#pragma unroll
+        for (int j = 0; j < kC; ++j)
+          r[j] = x0 + lane + 32 * j < w
+                     ? clip(st.rx[lane + 32 * j], cur.n0, cur.nr)
+                     : make_int2(0, -1);
         // a warp takes the rows q and q + 8 of each 16 together, so that
         // they share the weight loads
-        const int off = cur.n0 & 3;
+        const int off = kTransG ? cur.m0 & 3 : cur.n0 & 3;
         for (int q = warp; q < cur.mr; q += 2 * (kBwdThreads / 32)) {
           const int q2 = q + kBwdThreads / 32 < cur.mr ? q + kBwdThreads / 32
                                                       : q;
-          float t[2][kGroup] = {};
-          const float* g0 = st.g[q / kBoxM][0][q % kBoxM] + off;
-          const float* g1 = st.g[q2 / kBoxM][0][q2 % kBoxM] + off;
-          for (int n = r.x; n <= r.y; ++n) {
-            const float v = wx[n * kTile + lane];
+          float t[2][kC][kGroup] = {};
+          if (carry) {
 #pragma unroll
-            for (int cc = 0; cc < kGroup; ++cc) {
-              t[0][cc] += v * g0[cc * kBoxM * kBoxN + n];
-              t[1][cc] += v * g1[cc * kBoxM * kBoxN + n];
+            for (int j = 0; j < kC; ++j)
+#pragma unroll
+              for (int cc = 0; cc < kGroup; ++cc) {
+                t[0][j][cc] = tt[(cc * kChunk + q) * kT + lane + 32 * j];
+                t[1][j][cc] = tt[(cc * kChunk + q2) * kT + lane + 32 * j];
+              }
+          }
+#pragma unroll
+          for (int j = 0; j < kC; ++j) {
+            const int x = lane + 32 * j;
+            if (kTransG) {
+              for (int n = r[j].x; n <= r[j].y; ++n) {
+                const float v = wx[n * kT + x];
+                const float* gn = st.g[n / kBoxM][0][n % kBoxM] + off;
+#pragma unroll
+                for (int cc = 0; cc < kGroup; ++cc) {
+                  t[0][j][cc] += v * bf16r(gn[cc * kBoxM * kBoxN + q]);
+                  t[1][j][cc] += v * bf16r(gn[cc * kBoxM * kBoxN + q2]);
+                }
+              }
+            } else {
+              const float* g0 = st.g[q / kBoxM][0][q % kBoxM] + off;
+              const float* g1 = st.g[q2 / kBoxM][0][q2 % kBoxM] + off;
+              for (int n = r[j].x; n <= r[j].y; ++n) {
+                const float v = wx[n * kT + x];
+#pragma unroll
+                for (int cc = 0; cc < kGroup; ++cc) {
+                  if (kRound) {
+                    t[0][j][cc] += v * bf16r(g0[cc * kBoxM * kBoxN + n]);
+                    t[1][j][cc] += v * bf16r(g1[cc * kBoxM * kBoxN + n]);
+                  } else {
+                    t[0][j][cc] += v * g0[cc * kBoxM * kBoxN + n];
+                    t[1][j][cc] += v * g1[cc * kBoxM * kBoxN + n];
+                  }
+                }
+              }
             }
           }
 #pragma unroll
-          for (int cc = 0; cc < kGroup; ++cc) {
-            tt[(cc * kChunk + q) * kTile + lane] = t[0][cc];
-            // q2 = q when q + 8 is past the chunk: the same value again
-            tt[(cc * kChunk + q2) * kTile + lane] = t[1][cc];
-          }
+          for (int j = 0; j < kC; ++j)
+#pragma unroll
+            for (int cc = 0; cc < kGroup; ++cc) {
+              if (kRound && fin) {
+                t[0][j][cc] = bf16r(t[0][j][cc]);
+                t[1][j][cc] = bf16r(t[1][j][cc]);
+              }
+              tt[(cc * kChunk + q) * kT + lane + 32 * j] = t[0][j][cc];
+              // q2 = q when q + 8 is past the chunk: the same value again
+              tt[(cc * kChunk + q2) * kT + lane + 32 * j] = t[1][j][cc];
+            }
         }
       }
       sum_sync();
-      // along m: acc[cc][i] += sum_q Wy[q][4 warp + i] T[cc][q][lane],
+      // along m: acc[cc][i][j] += sum_q Wy[q][kR warp + i] T[cc][q][x],
       // over the m of the chunk that reach the warp's rows
-      {
+      if (fin) {
         int q0 = 0x7fffffff, q1 = -1;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (y0 + 4 * warp + i >= h) continue;
-          const int2 r = clip(st.ry[4 * warp + i], cur.m0, cur.mr);
+        for (int i = 0; i < kR; ++i) {
+          if (y0 + kR * warp + i >= h) continue;
+          const int2 r = clip(st.ry[kR * warp + i], cur.m0, cur.mr);
           q0 = min(q0, r.x);
           q1 = max(q1, r.y);
         }
         for (int q = q0; q <= q1; ++q) {
-          float t[kGroup];
+          float t[kC][kGroup];
 #pragma unroll
-          for (int cc = 0; cc < kGroup; ++cc)
-            t[cc] = tt[(cc * kChunk + q) * kTile + lane];
-          const float4 v4 =
-              *reinterpret_cast<const float4*>(wy + q * kTile + 4 * warp);
-          const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+          for (int j = 0; j < kC; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int cc = 0; cc < kGroup; ++cc)
+              t[j][cc] = tt[(cc * kChunk + q) * kT + lane + 32 * j];
+          float v[kR];
 #pragma unroll
-            for (int cc = 0; cc < kGroup; ++cc) acc[cc][i] += v[i] * t[cc];
+          for (int i = 0; i < kR; i += 4) {
+            const float4 v4 = *reinterpret_cast<const float4*>(
+                wy + q * kT + kR * warp + i);
+            v[i] = v4.x;
+            v[i + 1] = v4.y;
+            v[i + 2] = v4.z;
+            v[i + 3] = v4.w;
+          }
+#pragma unroll
+          for (int i = 0; i < kR; ++i)
+#pragma unroll
+            for (int j = 0; j < kC; ++j)
+#pragma unroll
+              for (int cc = 0; cc < kGroup; ++cc)
+                acc[cc][i][j] += v[i] * t[j][cc];
         }
       }
       sum_sync();
       if (tid == 0) mbar_arrive(&empty[b]);   // buf[b] is free again
     }
-    const int x = x0 + lane;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int y = y0 + 4 * warp + i;
-      if (y >= h || x >= w) continue;
+    for (int i = 0; i < kR; ++i) {
+      const int y = y0 + kR * warp + i;
 #pragma unroll
-      for (int cc = 0; cc < kGroup; ++cc)
-        if (cc < cg) dst[((int64_t)(c0 + cc) * h + y) * w + x] = acc[cc][i];
+      for (int j = 0; j < kC; ++j) {
+        const int x = x0 + lane + 32 * j;
+        if (y >= h || x >= w) continue;
+#pragma unroll
+        for (int cc = 0; cc < kGroup; ++cc) {
+          if (cc >= cg) continue;
+          // tout: d_img of the transposed frame, [c, w, h]
+          if (tout)
+            dst[((int64_t)(c0 + cc) * w + x) * h + y] = acc[cc][i][j];
+          else
+            dst[((int64_t)(c0 + cc) * h + y) * w + x] = acc[cc][i][j];
+        }
+      }
     }
   }
 }
@@ -801,10 +970,38 @@ __global__ void cutout_sum_kernel(const float* __restrict__ part,
   }
 }
 
-// shared memory of cutout_bwd_kernel for a piece of `samples` samples
+// dimg [c,w,h] = the transpose of part[0] + ... + part[split - 1] [c,h,w],
+// the pieces added in that order; through a 32 x 32 tile in shared memory
+// (blocks of 32 x 8 threads).
+__global__ void transpose_sum_kernel(const float* __restrict__ part,
+                                     float* __restrict__ dimg, int h, int w,
+                                     int split) {
+  __shared__ float tile[32][33];
+  const int ch = blockIdx.z, y0 = blockIdx.y * 32, x0 = blockIdx.x * 32;
+  const int64_t size = (int64_t)gridDim.z * h * w;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int y = y0 + i, x = x0 + threadIdx.x;
+    if (y < h && x < w) {
+      const int64_t at = ((int64_t)ch * h + y) * w + x;
+      float v = part[at];
+      for (int p = 1; p < split; ++p) v += part[p * size + at];
+      tile[i][threadIdx.x] = v;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int x = x0 + i, y = y0 + threadIdx.x;
+    if (y < h && x < w)
+      dimg[((int64_t)ch * w + x) * h + y] = tile[threadIdx.x][i];
+  }
+}
+
+// shared memory of cutout_bwd_kernel<kT, ...> for a piece of `samples`
+// samples
+template <int kT>
 int bwd_smem(int samples) {
-  return (int)(128 + kBufs * sizeof(Staged) +
-               (2 * kChunk * kTile + kGroup * kChunk * kTile) * sizeof(float) +
+  return (int)(128 + kBufs * sizeof(Staged<kT>) +
+               (2 * kChunk * kT + kGroup * kChunk * kT) * sizeof(float) +
                kBwdBlock / 32 * sizeof(int) + samples * sizeof(Active));
 }
 
@@ -826,6 +1023,88 @@ bool map_4b(CUtensorMap* map, const void* base, bool is_float, int rank,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The separable forward on img16 (bf16 [c,h,w]) into out.
+template <bool kTransOut>
+int launch_fwd(const void* img16, const void* yidx, const void* yw,
+               const void* xidx, const void* xw, void* out, int c, int h,
+               int w, int s, int m, cudaStream_t st) {
+  // the output columns in chunks of at most kFwdCols, a multiple of 4
+  const int ncols = (m + kFwdCols - 1) / kFwdCols;
+  const int nb = ((m + ncols - 1) / ncols + 3) / 4 * 4;
+  // room for the whole span of a crop where the frame allows it: the
+  // span starts on a multiple of 8 at most 7 columns left of the crop
+  const int tw = min(kFwdSpan, (w + 7 + 7) / 8 * 8);
+  const int smem = fwd_smem(nb, tw);
+  cudaError_t err = cudaFuncSetAttribute(
+      cutout_fwd_kernel<kTransOut>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nbands = (m + kFwdRows - 1) / kFwdRows;
+  cutout_fwd_kernel<kTransOut><<<dim3(nbands * ncols, s), kFwdThreads, smem,
+                                 st>>>(
+      (const __nv_bfloat16*)img16, (const int*)yidx, (const float*)yw,
+      (const int*)xidx, (const float*)xw, (float*)out, c, h, w, m, nb, tw,
+      ncols, w % 8 == 0);
+  return (int)cudaGetLastError();
+}
+
+// The range pre-pass and the tile gather of an h x w frame into pieces
+// (split of them, [split, c, h, w]; tout: one piece, written transposed,
+// [c, w, h]).
+template <int kT, bool kRound, bool kTransG>
+int launch_bwd(const void* g, const void* yidx, const void* yw,
+               const void* xidx, const void* xw, void* table, float* pieces,
+               int c, int h, int w, int s, int m, int ldg, int split,
+               bool tout, cudaStream_t st) {
+  const int nty = (h + kTile - 1) / kTile, ntx = (w + kTile - 1) / kTile;
+  const int nby = (h + kT - 1) / kT, nbx = (w + kT - 1) / kT;
+  const int tw = table_width(h, w);
+  const int np = (nty > ntx ? nty : ntx) + (h > w ? h : w);
+  cutout_ranges_kernel<<<dim3(s, 2), 256, 2 * np * sizeof(int), st>>>(
+      (const int*)yidx, (const float*)yw, (const int*)xidx,
+      (const float*)xw, (int2*)table, m, h, w);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[6];
+  const cuuint64_t gd[3] = {(cuuint64_t)ldg, (cuuint64_t)m,
+                            (cuuint64_t)s * c};
+  const cuuint64_t gs[2] = {(cuuint64_t)ldg * 4, (cuuint64_t)ldg * m * 4};
+  const cuuint32_t gb[3] = {kBoxN, kBoxM, kGroup};
+  const cuuint64_t td[2] = {4, (cuuint64_t)s * m};
+  const cuuint64_t ts[1] = {16};
+  const cuuint32_t tb[2] = {4, kChunk};
+  const cuuint64_t rd[2] = {(cuuint64_t)2 * tw, (cuuint64_t)s};
+  const cuuint64_t rs[1] = {(cuuint64_t)tw * 8};
+  const cuuint32_t rb[2] = {2 * kT, 1};
+  if (!map_4b(&maps[0], g, true, 3, gd, gs, gb) ||
+      !map_4b(&maps[1], yidx, false, 2, td, ts, tb) ||
+      !map_4b(&maps[2], yw, true, 2, td, ts, tb) ||
+      !map_4b(&maps[3], xidx, false, 2, td, ts, tb) ||
+      !map_4b(&maps[4], xw, true, 2, td, ts, tb) ||
+      !map_4b(&maps[5], table, false, 2, rd, rs, rb))
+    return ERR_TENSOR_MAP;
+  const int smem = bwd_smem<kT>((s + split - 1) / split);
+  err = cudaFuncSetAttribute(cutout_bwd_kernel<kT, kRound, kTransG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  cutout_bwd_kernel<kT, kRound, kTransG><<<nby * nbx * split, kBwdBlock,
+                                           smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      (const int2*)table, pieces, c, h, w, s, m, split, tout);
+  return (int)cudaGetLastError();
+}
+
+// The pieces into dimg [c,h,w]: in place for one piece, else summed in
+// order (cutout_sum_kernel).
+int sum_pieces(float* pieces, void* dimg, int c, int h, int w, int split,
+               cudaStream_t st) {
+  if (split == 1) return cudaSuccess;
+  const int64_t size = (int64_t)c * h * w;
+  cutout_sum_kernel<<<264, 512, 0, st>>>(pieces, (float*)dimg, size, split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -841,25 +1120,31 @@ int cutout_fwd(const void* img, void* img16, const void* yidx,
   const int64_t n = (int64_t)c * h * w;
   frame_bf16_kernel<<<(unsigned)((n + 8 * 256 - 1) / (8 * 256)), 256, 0,
                       st>>>((const float*)img, (__nv_bfloat16*)img16, n);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // the output columns in chunks of at most kFwdCols, a multiple of 4
-  const int ncols = (m + kFwdCols - 1) / kFwdCols;
-  const int nb = ((m + ncols - 1) / ncols + 3) / 4 * 4;
-  // room for the whole span of a crop where the frame allows it: the
-  // span starts on a multiple of 8 at most 7 columns left of the crop
-  const int tw = min(kFwdSpan, (w + 7 + 7) / 8 * 8);
-  const int smem = fwd_smem(nb, tw);
-  err = cudaFuncSetAttribute(cutout_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  return launch_fwd<false>(img16, yidx, yw, xidx, xw, out, c, h, w, s, m,
+                           st);
+}
+
+// The dense contraction's forward (ops/sampler.py:_Contract at bf16),
+// arguments as cutout_fwd's and its pass order wf (ops/cutout.py:w_first).
+// H first is cutout_fwd's function.  W first is that function of the
+// transposed frame with the two axes' taps swapped, its output transposed:
+// the bf16 copy is made transposed, and the forward writes out[s,c,m,n]
+// by rows of n.
+int contract_fwd(const void* img, void* img16, const void* yidx,
+                 const void* yw, const void* xidx, const void* xw, void* out,
+                 int c, int h, int w, int s, int m, int wf, void* stream) {
+  if (!wf)
+    return cutout_fwd(img, img16, yidx, yw, xidx, xw, out, c, h, w, s, m,
+                      stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  frame_bf16_t_kernel<<<dim3((w + 31) / 32, (h + 31) / 32, c), dim3(32, 8),
+                        0, st>>>((const float*)img, (__nv_bfloat16*)img16, h,
+                                 w);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int nbands = (m + kFwdRows - 1) / kFwdRows;
-  cutout_fwd_kernel<<<dim3(nbands * ncols, s), kFwdThreads, smem, st>>>(
-      (const __nv_bfloat16*)img16, (const int*)yidx, (const float*)yw,
-      (const int*)xidx, (const float*)xw, (float*)out, c, h, w, m, nb, tw,
-      ncols, w % 8 == 0);
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(img16, xidx, xw, yidx, yw, out, c, w, h, s, m, st);
 }
 
 // The width, in int2, of a sample's row of cutout_bwd's range table for
@@ -877,48 +1162,60 @@ int cutout_bwd(const void* g, const void* yidx, const void* yw,
                int split, void* stream) {
   if (split < 1 || split > s || ldg % 4 || ldg < m)
     return (int)cudaErrorInvalidValue;
-  const int nby = (h + kTile - 1) / kTile, nbx = (w + kTile - 1) / kTile;
-  const int tw = table_width(h, w);
   const cudaStream_t st = (cudaStream_t)stream;
-  const int np = (nby > nbx ? nby : nbx) + (h > w ? h : w);
-  cutout_ranges_kernel<<<dim3(s, 2), 256, 2 * np * sizeof(int), st>>>(
-      (const int*)yidx, (const float*)yw, (const int*)xidx,
-      (const float*)xw, (int2*)table, m, h, w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap maps[6];
-  const cuuint64_t gd[3] = {(cuuint64_t)ldg, (cuuint64_t)m,
-                            (cuuint64_t)s * c};
-  const cuuint64_t gs[2] = {(cuuint64_t)ldg * 4, (cuuint64_t)ldg * m * 4};
-  const cuuint32_t gb[3] = {kBoxN, kBoxM, kGroup};
-  const cuuint64_t td[2] = {4, (cuuint64_t)s * m};
-  const cuuint64_t ts[1] = {16};
-  const cuuint32_t tb[2] = {4, kChunk};
-  const cuuint64_t rd[2] = {(cuuint64_t)2 * tw, (cuuint64_t)s};
-  const cuuint64_t rs[1] = {(cuuint64_t)tw * 8};
-  const cuuint32_t rb[2] = {2 * kTile, 1};
-  if (!map_4b(&maps[0], g, true, 3, gd, gs, gb) ||
-      !map_4b(&maps[1], yidx, false, 2, td, ts, tb) ||
-      !map_4b(&maps[2], yw, true, 2, td, ts, tb) ||
-      !map_4b(&maps[3], xidx, false, 2, td, ts, tb) ||
-      !map_4b(&maps[4], xw, true, 2, td, ts, tb) ||
-      !map_4b(&maps[5], table, false, 2, rd, rs, rb))
-    return ERR_TENSOR_MAP;
-  const int smem = bwd_smem((s + split - 1) / split);
-  err = cudaFuncSetAttribute(cutout_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
   // piece 0 goes straight into dimg's memory when there is one piece;
   // else the pieces fill part, piece p at p * c * h * w
   float* pieces = split == 1 ? (float*)dimg : (float*)part;
-  cutout_bwd_kernel<<<nby * nbx * split, kBwdBlock, smem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
-      (const int2*)table, pieces, c, h, w, s, m, split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const int64_t size = (int64_t)c * h * w;
-  cutout_sum_kernel<<<264, 512, 0, st>>>(pieces, (float*)dimg, size, split);
+  const int err = launch_bwd<kTile, false, false>(g, yidx, yw, xidx, xw, table,
+                                           pieces, c, h, w, s, m, ldg, split,
+                                           false, st);
+  if (err != cudaSuccess) return err;
+  return sum_pieces(pieces, dimg, c, h, w, split, st);
+}
+
+// The dense contraction's image gradient (ops/sampler.py:_contract_bwd at
+// bf16), arguments as cutout_bwd's and the pass order wf, the table sized
+// for the kernel's frame (w x h W first).  H first: the tile gather with
+// g, the weights and the n pass rounded to bf16 (kRound).  W first: the
+// same on the transposed frame with the axes' taps swapped and g read
+// transposed; one piece is written into dimg transposed, more (in part,
+// [split, c, w, h]) are summed in order and transposed into dimg.  `tile`, 32 or 64, is
+// the side of the gather's tiles (the result does not depend on it).
+int contract_bwd(const void* g, const void* yidx, const void* yw,
+                 const void* xidx, const void* xw, void* table, void* part,
+                 void* dimg, int c, int h, int w, int s, int m, int ldg,
+                 int split, int tile, int wf, void* stream) {
+  if (split < 1 || split > s || ldg % 4 || ldg < m ||
+      (tile != 32 && tile != 64))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* pieces = split == 1 ? (float*)dimg : (float*)part;
+  if (!wf) {
+    const int err =
+        tile == 64
+            ? launch_bwd<64, true, false>(g, yidx, yw, xidx, xw, table,
+                                          pieces, c, h, w, s, m, ldg, split,
+                                          false, st)
+            : launch_bwd<32, true, false>(g, yidx, yw, xidx, xw, table,
+                                          pieces, c, h, w, s, m, ldg, split,
+                                          false, st);
+    if (err != cudaSuccess) return err;
+    return sum_pieces(pieces, dimg, c, h, w, split, st);
+  }
+  // one piece goes straight into dimg, transposed; else the pieces fill
+  // part in the kernel's frame and are summed and transposed after
+  const int err =
+      tile == 64
+          ? launch_bwd<64, true, true>(g, xidx, xw, yidx, yw, table, pieces,
+                                       c, w, h, s, m, ldg, split, split == 1,
+                                       st)
+          : launch_bwd<32, true, true>(g, xidx, xw, yidx, yw, table, pieces,
+                                       c, w, h, s, m, ldg, split, split == 1,
+                                       st);
+  if (err != cudaSuccess || split == 1) return err;
+  transpose_sum_kernel<<<dim3((h + 31) / 32, (w + 31) / 32, c), dim3(32, 8),
+                         0, st>>>((const float*)part, (float*)dimg, w, h,
+                                  split);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,11 @@ Three apply paths, chosen in the JAX package's order:
   CUDA windowed forward (ops/cutout_win.py) over each sample's tier
   window, with the dense transpose as backward (`_WinCut`);
 * default: per-sample dense interpolation matrices, `cut[s] = Wy[s] @ img
-  @ Wx[s]^T`, as two large batched matmuls (`_contract`).
+  @ Wx[s]^T`, as two large batched matmuls (`_contract`).  On the card at
+  a bf16 compute dtype the same function runs from the taps as a
+  hand-written separable kernel pair (ops/cutout.py:`contract`), which
+  builds no dense matrix; the CPU and a float32 compute dtype keep
+  `_contract`.
 
 The `overscan`/`overmax` tile padding is folded into the tap indices
 through static index maps (ops/tile.py).
@@ -27,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from aphantasia_torch.ops.cutout import w_first as _w_first
 from aphantasia_torch.ops.cutout_win import (tier_plan, window_bases,
                                              windowed_cut_fwd)
 from aphantasia_torch.ops.resize import resize_axis_taps
@@ -79,8 +84,8 @@ class _Contract(torch.autograd.Function):
     def forward(ctx, img, wy, wx, dt, w_first=None):
         ctx.save_for_backward(wy, wx)
         ctx.dt = dt
-        ctx.w_first = (img.shape[1] < img.shape[2] if w_first is None
-                       else w_first)
+        ctx.w_first = (_w_first(img.shape[1], img.shape[2])
+                       if w_first is None else w_first)
         x = img.to(dt)
         s, m, _ = wy.shape
         c = x.shape[0]
@@ -115,7 +120,7 @@ class _WinCut(torch.autograd.Function):
         boxes = Boxes(csize, offx, offy)
         ctx.save_for_backward(csize, offx, offy)
         ctx.sampler, ctx.dt = sampler, dt
-        ctx.w_first = img.shape[1] < img.shape[2]
+        ctx.w_first = _w_first(img.shape[1], img.shape[2])
         h, w = sampler.frame_size
         bases = window_bases(boxes, h, w, sampler.modsize)
         wyw, wxt = sampler.weight_matrices_windowed(boxes, dtype=dt,
@@ -308,6 +313,10 @@ class CutoutSampler:
         dt = compute_dtype or torch.float32
         if self._win_eligible(img, dt):
             return _WinCut.apply(img, self, dt, *boxes)
+        if img.is_cuda and dt == torch.bfloat16:
+            # every sample in one call: chunking changes no sample's result
+            from aphantasia_torch.ops.cutout import contract
+            return contract(img, *self.tap_indices(boxes))
         wy, wx = self.weight_matrices(boxes, dtype=dt)
         if self.chunk and self.count > self.chunk:
             b = self.chunk

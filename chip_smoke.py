@@ -16,13 +16,17 @@ Phases, in order; any failure exits non-zero and no phase carries on past one:
            device time of the same calls replayed from a CUDA graph
            (`graph_ms`, no profiler needed).  The cutout pair also at
            cppn's 47 cutouts (overscan) of a 512x512 frame and clip_vqgan's
-           190 of 640x512; the VQGAN decode alone (f16 at 640x480, gumbel
+           190 of 640x512; the default cut's contraction pair at 190
+           cutouts of 224 from 1280x720 and 3840x2160, bit for bit its
+           plain version, beside the dense `_contract` it replaced; the
+           VQGAN decode alone (f16 at 640x480, gumbel
            f8 at 640x512): bf16 held to float32 by the JAX package's bound,
            each dtype's forward and forward + latent gradient by graph
            replay against their operation bounds.
   main     `aphantasia_torch.cli.clip_fft.run` at full width (ViT-B/32 with
            random weights, 1280x720, 200 samples, `--pallas`), then the same
-           run without `--pallas` (the default einsum cutout), then with
+           run without `--pallas` (the default cut, the contraction
+           kernel pair), then with
            `--pallas` and each augmentation path of the exact perspective
            and fractional-shift kernels: `--persp mixed`, `--persp exact`,
            `-tf elastic` with APHANTASIA_PALLAS_SHIFT=1 and without it; then
@@ -216,6 +220,12 @@ def b32(steps: int, text: int = 0, **more) -> dict:
         want["attn_fwd"] = text
     want.update(more)
     return want
+
+
+def dense_cut(steps: int) -> dict:
+    """The launches of `steps` default bf16 cuts on the card (no --pallas,
+    no windowed switch): the contraction kernel pair, one each way."""
+    return {"contract_fwd": steps, "contract_bwd": steps}
 
 
 def b32_dual(steps: int, second: int, text: int, **more) -> dict:
@@ -554,6 +564,66 @@ def check_cutout(seed=0, s=200, m=224, align="uniform", h=720, w=1280):
                              s * 3 * m * m * 40, "f32")
     res["bound_bwd"] = bound(s * 3 * m * m * 4 + tap_bytes + 3 * h * w * 4,
                              s * 3 * m * m * 40, "f32")
+    return res
+
+
+def check_contract(seed=0, s=190, m=224, align="uniform", h=720, w=1280):
+    """The card's default bf16 cut (the contraction kernel pair,
+    `contract_fwd_kernel` / `contract_bwd_kernel`) against its plain
+    version `contract_plain`, bit for bit, forward and image gradient, on
+    an h x w frame; each also against itself, two launches and a
+    CUDA-graph replay.  Timed beside the plain version and the dense
+    contraction it replaces (`_contract` at bf16: the dense matrices'
+    build and the cuBLAS products)."""
+    import torch
+    from aphantasia_torch.ops import cutout as C
+    from aphantasia_torch.ops.sampler import CutoutSampler, _contract
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sampler = CutoutSampler((h, w), s, m, align, 0.4)
+    boxes = sampler.sample_boxes(g)
+    taps = sampler.tap_indices(boxes)
+    img = torch.rand((3, h, w), generator=g, device="cuda")
+    gout = torch.randn((s, 3, m, m), generator=g, device="cuda")
+    fwd = lambda: C.contract_fwd_kernel(img, *taps)  # noqa: E731
+    bwd = lambda: C.contract_bwd_kernel(gout, *taps, (3, h, w))  # noqa
+    out, dimg = fwd(), bwd()
+    i_req = img.clone().requires_grad_(True)
+    ref = C.contract_plain(i_req, *taps)
+    (dref,) = torch.autograd.grad(ref, i_req, gout)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref.detach()) and torch.equal(dimg, dref),
+          f"contract {h}x{w} S={s}: kernel and plain version differ")
+    for k, first, fn in (("fwd", out, fwd), ("bwd", dimg, bwd)):
+        again = fn()
+        graph, replayed = capture(fn)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(again, first) and torch.equal(replayed, first),
+              f"contract {k}: two launches or a graph replay differ in "
+              "their bits")
+        del graph, again, replayed
+    del ref, dref
+    res = {"ms_fwd": cuda_ms(fwd), "ms_bwd": cuda_ms(bwd),
+           "graph_fwd": graph_ms(fwd), "graph_bwd": graph_ms(bwd)}
+    res["plain_fwd"] = cuda_ms(lambda: C.contract_plain(img, *taps),
+                               iters=3, warmup=1)
+    plain_fb = cuda_ms(lambda: torch.autograd.grad(
+        C.contract_plain(i_req, *taps), i_req, gout), iters=3, warmup=1)
+    res["plain_bwd"] = max(plain_fb - res["plain_fwd"], 0.0)
+    torch.cuda.empty_cache()
+
+    def dense():
+        return _contract(i_req, *sampler.weight_matrices(boxes, dtype=bf),
+                         bf)
+    res["lib_fwd"] = graph_ms(lambda: dense().detach(), iters=5)
+    res["lib_bwd"] = max(graph_ms(lambda: torch.autograd.grad(
+        dense(), i_req, gout)[0], iters=5) - res["lib_fwd"], 0.0)
+    torch.cuda.empty_cache()
+    # the benchmark's bound (benchmark/harness/flops.py:cut_bytes): the
+    # frame and the cutouts once each way
+    res["bound_fwd"] = bound(3 * h * w * 4 + s * 3 * m * m * 4, 0, "f32")
+    res["bound_bwd"] = res["bound_fwd"]
     return res
 
 
@@ -1383,6 +1453,15 @@ def phase_kernels(report):
                   f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} ms, "
                   f"einsum {r['lib_' + k]:.4f} ms, bound "
                   f"{r['bound_' + k][0]:.4f} ms ({r['bound_' + k][1]})")
+    for h, w in ((720, 1280), (2160, 3840)):
+        r = check_contract(h=h, w=w)
+        for k in ("fwd", "bwd"):
+            print(f"[kernels] contract {k} S=190 M=224 {h}x{w}: kernel "
+                  f"{r['ms_' + k]:.4f} ms (graph replay "
+                  f"{r['graph_' + k]:.4f}), plain {r['plain_' + k]:.4f} ms, "
+                  f"_contract bf16 {r['lib_' + k]:.4f} ms (graph replay), "
+                  f"bound {r['bound_' + k][0]:.4f} ms "
+                  f"({r['bound_' + k][1]}); bit for bit the plain version")
     for name, h, w in (("imagenet_f16_16384", 480, 640),
                        ("gumbel_f8_8192", 512, 640)):
         r = check_vqgan_decode(name, h, w)
@@ -1649,13 +1728,17 @@ def phase_main(report, steps: int):
     res2 = _run_cli(argv2)
     torch.cuda.synchronize()
     launches2 = dict(kernels.LAUNCHES)
-    print(f"[main] default (einsum cutout) run: launches {launches2}")
+    print(f"[main] default (contraction kernel cut) run: launches "
+          f"{launches2}")
     check(all(math.isfinite(x) for x in res2.losses),
-          f"einsum path losses not finite: {res2.losses}")
+          f"default path losses not finite: {res2.losses}")
     check(all(launches2.get(k, 0) > 0 for k in BLOCK_KERNELS),
           "default path never launched the fused block kernels")
     check(launches2.get("cutout_fwd", 0) == 0,
           "default path launched the cutout kernel")
+    check(launches2 == b32(steps, 12, **dense_cut(steps)),
+          f"default path: launches {launches2} != expected "
+          f"{b32(steps, 12, **dense_cut(steps))}")
     steady2 = sorted(res2.step_seconds[1:] or res2.step_seconds)
     print(f"[main] default path: {steps} steps, first step "
           f"{res2.step_seconds[0]:.3f} s, steady "
@@ -2250,10 +2333,10 @@ def phase_main_illustrip():
     rgb = ["-t", trip_file(), "--steps", "24", "--fstep", "12"] + base
     fft = (["-t", "benchmark scene", "--steps", "24", "--fstep", "24",
             "--opt_step", "3", "--gen", "FFT", "-tf", "fast"] + base)
-    _run_illustrip("(s) illustrip --gen RGB, 2 scenes", rgb, b32(48, 24),
-                   48, 95)
-    _run_illustrip("(t) illustrip --gen FFT --opt_step 3", fft, b32(72, 12),
-                   24, 95)
+    _run_illustrip("(s) illustrip --gen RGB, 2 scenes", rgb,
+                   b32(48, 24, **dense_cut(48)), 48, 95)
+    _run_illustrip("(t) illustrip --gen FFT --opt_step 3", fft,
+                   b32(72, 12, **dense_cut(72)), 24, 95)
     _run_illustrip("(u) illustrip --gen RGB --pallas, 2 scenes",
                    rgb + ["--pallas"],
                    b32(48, 24, cutout_fwd=48, cutout_bwd=48), 48, 95)
@@ -2262,11 +2345,11 @@ def phase_main_illustrip():
     dfft[dfft.index("--steps") + 1] = dfft[dfft.index("--fstep") + 1] = "16"
     _run_illustrip("(v) illustrip --gen FFT --opt_step 3 --depth 1",
                    dfft + ["--depth", "1", "--depth_dir", ddir],
-                   b32(48, 12), 16, 95, depth_dir=ddir)
+                   b32(48, 12, **dense_cut(48)), 16, 95, depth_dir=ddir)
     _run_illustrip("(w) illustrip --gen FFT --smooth --dualmod 2",
                    ["-t", "benchmark scene", "--steps", "24", "--gen", "FFT",
                     "--smooth", "--dualmod", "2"] + base,
-                   b32_dual(24, 11, 24), 24, 21, dual=2)
+                   b32_dual(24, 11, 24, **dense_cut(24)), 24, 21, dual=2)
     src = depth_images()
     out = os.path.join(OUT_DIR, "depth")
     torch.cuda.synchronize()
@@ -2387,8 +2470,8 @@ def phase_main_coord(steps: int):
     from aphantasia_torch.models import vqgan as V
     text = ["-t", "a lighthouse on a cliff at dawn", "--steps", str(steps),
             "--seed", "1"]
-    attn = b32(steps, 12)
-    cut = dict(attn, cutout_fwd=steps, cutout_bwd=steps)
+    attn = b32(steps, 12, **dense_cut(steps))
+    cut = b32(steps, 12, cutout_fwd=steps, cutout_bwd=steps)
     for label, extra, want, samples, fstep in (
             ("(y) cppn", [], attn, 50, 1),
             ("(z) cppn --gen siren", ["--gen", "siren"], attn, 50, 1),
@@ -2484,9 +2567,10 @@ def phase_main_switches(report, steps: int):
              dict(text, win_cut_fwd=steps, **halves)),
             ("(b) ViT-L/14, both switches", "ViT-L/14", SWITCHES, 7,
              unfused(24, True)),
-            ("(c) ViT-L/14", "ViT-L/14", None, 7, unfused(24, False)),
+            ("(c) ViT-L/14", "ViT-L/14", None, 7,
+             dict(unfused(24, False), **dense_cut(steps))),
             ("(d) ViT-B/32, fused block", "ViT-B/32", FUSED, 190,
-             dict(text, **halves)),
+             dict(text, **halves, **dense_cut(steps))),
             ("(e) ViT-B/32, all three switches", "ViT-B/32",
              dict(SWITCHES, **FUSED), 190,
              dict(text, win_cut_fwd=steps, **halves))):
@@ -2530,8 +2614,9 @@ def phase_main_switches(report, steps: int):
 # replays, each against its eager steps
 _B32 = {k: 12 for k in BLOCK_KERNELS}     # the fused halves, by default
 _PALLAS = dict(_B32, cutout_fwd=1, cutout_bwd=1)
+_DENSE = dict(_B32, **dense_cut(1))           # and the default cut
 LOOP_PATHS = (
-    ("default", [], None, 1, _B32),
+    ("default", [], None, 1, _DENSE),
     ("--pallas, opt_step 2", ["--pallas"], None, 2, _PALLAS),
     ("--pallas --persp exact", ["--pallas", "--persp", "exact"], None, 1,
      dict(_PALLAS, persp_fwd=2, persp_bwd=2)),
@@ -2542,12 +2627,13 @@ LOOP_PATHS = (
     ("(b) ViT-L/14, cutout + LN switches", ["-m", "ViT-L/14"], SWITCHES, 1,
      {"attn_fwd": 24, "attn_bwd": 24, "win_cut_fwd": 1, "ln_fwd": 48,
       "ln_bwd": 48}),
-    ("(d) ViT-B/32, fused block", [], FUSED, 1,
-     {k: 12 for k in BLOCK_KERNELS}),
+    ("(d) ViT-B/32, fused block", [], FUSED, 1, _DENSE),
     ("(f) --dualmod 3, opt_step 2", ["--dualmod", "3"], None, 2,
-     lambda steps: b32_dual(steps, len(range(3, steps, 3)), 0)),
-    ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", "{img}"], None, 1, _B32),
-    ("(i) --dwt", ["--dwt"], None, 1, _B32),
+     lambda steps: b32_dual(steps, len(range(3, steps, 3)), 0,
+                            **dense_cut(steps))),
+    ("(g) --sync 0.4 -i", ["--sync", "0.4", "-i", "{img}"], None, 1,
+     _DENSE),
+    ("(i) --dwt", ["--dwt"], None, 1, _DENSE),
     ("(j) -m RN50 --pallas", ["-m", "RN50", "--pallas"], None, 1,
      {"cutout_fwd": 1, "cutout_bwd": 1}),
 )
@@ -3827,7 +3913,7 @@ def _mesh_data_axis(steps: int):
     runs, (got, rep) = launch(replay_vs_eager, (), Plan(
         1, f"127.0.0.1:{free_port()}", "cuda"))
     (want, eager), (again, _) = runs
-    per_step = dict(_B32, **{k: 1 for k in coll})
+    per_step = dict(_DENSE, **{k: 1 for k in coll})
     want_launches = {k: v * steps for k, v in per_step.items()}
     check(eager["launches"] == want_launches == rep["launches"],
           f"(ad) loop: launches eager {eager['launches']}, replayed "
@@ -3887,7 +3973,7 @@ def _mesh_illustra_fleet(steps: int) -> str:
     one = illustra.run(illustra.get_args(argv + ["--out_dir", ref,
                                                  "--separate"]))
     torch.cuda.synchronize()
-    want = b32(3 * steps, 36)
+    want = b32(3 * steps, 36, **dense_cut(3 * steps))
     check(len(one.out_names) == 3 and dict(kernels.LAUNCHES) == want,
           f"(ae): {one.out_names}, launches {dict(kernels.LAUNCHES)}, "
           f"expected {want}")
@@ -4099,8 +4185,12 @@ def _spatial_clip_fft(label: str, kind: str, flags, steps: int):
     check(sp.samples == dense.samples == 190 and len(sp.losses) == steps
           and all(math.isfinite(x) for x in sp.losses),
           f"{label}: cutouts {sp.samples}, losses {sp.losses}")
+    # the spatial cut contracts its shard of the frame through `_contract`
+    # (no kernel of the port), the dense run through the contraction pair
+    dl_rest = {k: v for k, v in dl.items() if k not in dense_cut(0)}
     check(_sp_counts(sl) == cli and {k: v for k, v in sl.items()
-                                      if k not in SP_KEYS} == dl,
+                                      if k not in SP_KEYS} == dl_rest
+          and dl == dict(dl_rest, **dense_cut(steps)),
           f"{label}: launches {sl}, dense {dl}, spatial collectives "
           f"expected {cli}")
 

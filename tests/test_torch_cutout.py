@@ -148,6 +148,117 @@ def test_contract_bf16_sums_in_float32_as_jax(h, w):
     np.testing.assert_allclose(g_t, g_j, atol=1e-5 * np.abs(g_j).max())
 
 
+# (h, w, modsize, align, crops pushed against the frame's edges): the
+# cells' 720p and 480p frames and ViT-L/14@336px's 336 px (W first), a
+# square frame (H first), and a frame smaller than the crops
+_CONTRACT_CASES = [
+    pytest.param(720, 1280, 224, "uniform", False, id="720p"),
+    pytest.param(720, 1280, 224, "overscan", False, id="720p-overscan"),
+    pytest.param(720, 1280, 336, "uniform", False, id="720p-m336"),
+    pytest.param(720, 1280, 224, "uniform", True, id="720p-edge"),
+    pytest.param(480, 640, 224, "uniform", False, id="480p"),
+    pytest.param(512, 512, 224, "uniform", False, id="512-h-first"),
+    pytest.param(512, 512, 224, "overscan", True,
+                 id="512-h-first-overscan-edge"),
+    pytest.param(160, 200, 224, "uniform", False,
+                 id="crops-larger-than-the-frame")]
+
+
+def _contract_setup(h, w, m, align, edge, s=3):
+    """JAX-drawn boxes for both packages (`edge` puts every crop at offset
+    0 or the largest on each axis, so its clamped taps repeat the frame's
+    first or last index), the port's sampler, a frame and a gradient."""
+    js, boxes, ts, tb, img, co = _setup(h, w, s, m, align)
+    if edge:
+        hp, wp = ts.padded_size
+        low = np.random.RandomState(7).rand(2, s) < 0.5
+        csize = np.array(boxes[0])
+        offx = np.where(low[0], 0, wp - csize).astype(np.int32)
+        offy = np.where(low[1], 0, hp - csize).astype(np.int32)
+        boxes = type(boxes)(*(jnp.asarray(a) for a in (csize, offx, offy)))
+        tb = Boxes(*(torch.as_tensor(a) for a in (csize, offx, offy)))
+    return js, boxes, ts, tb, img, co
+
+
+def _near_midpoint(exact, mag):
+    """Where two float32 sums of the same terms in different orders may
+    round to bf16 differently: the exact sum within 2^-21 of its terms'
+    magnitude (each sum's own rounding error, a few terms of a float32
+    ulp each) of a bf16 rounding midpoint."""
+    a = exact.abs()
+    ulp = 2.0 ** (torch.floor(torch.log2(a.clamp(min=1e-30))) - 7)
+    return ((a / ulp) % 1.0 - 0.5).abs() * ulp <= 2.0 ** -21 * mag
+
+
+def _flipped(ts, tb, img, co):
+    """The outputs and image-gradient pixels that read a first-pass value
+    (the forward's intermediate, the backward's d_tmp) near a bf16
+    rounding midpoint, from the dense bf16 weights in float64."""
+    wy, wx = (t.double() for t in ts.weight_matrices(tb, torch.bfloat16))
+    x = torch.as_tensor(img).bfloat16().double()
+    gb = torch.as_tensor(co).bfloat16().double()
+    h, w = img.shape[1:]
+    if h < w:   # W first
+        pairs = (("snw,chw->scnh", wx, x), ("scmn,smh->scnh", gb, wy))
+        spread = ("smh,scnh->scmn", "scnh,snw->chw")
+        other = (wy, wx)
+    else:
+        pairs = (("smh,chw->scmw", wy, x), ("scmn,snw->scmw", gb, wx))
+        spread = ("scmw,snw->scmn", "smh,scmw->chw")
+        other = (wx, wy)
+    out = []
+    for (eq, a, b), sp, o in zip(pairs, spread, other):
+        near = _near_midpoint(torch.einsum(eq, a, b),
+                              torch.einsum(eq, a.abs(), b.abs()))
+        reach = (o != 0).double()
+        near = near.double()
+        out.append((torch.einsum(sp, near, reach) if sp.startswith("sc")
+                    else torch.einsum(sp, reach, near)) > 0)
+    return out
+
+
+@pytest.mark.parametrize("h,w,m,align,edge", _CONTRACT_CASES)
+def test_contract_plain_float32_matches_contract_and_jax(h, w, m, align,
+                                                         edge):
+    """The plain version of the card's default bf16 cut, computed in
+    float32 (no roundings), against the dense contraction `_contract` and
+    the JAX package's default cut, at the float32 tolerances of
+    `test_einsum_cut_matches_jax`: both pass orders, overscan's folded
+    taps, repeated edge taps and crops larger than the frame."""
+    js, boxes, ts, tb, img, co = _contract_setup(h, w, m, align, edge)
+    taps = ts.tap_indices(tb)
+    out_p, g_p = _torch_vjp(
+        lambda x: C.contract_plain(x, *taps, torch.float32), img, co)
+    out_t, g_t = _torch_vjp(lambda x: ts.cut(x, tb), img, co)
+    out_j, g_j = _jax_vjp(lambda x: js.cut(x, boxes), img, co)
+    for out, g in ((out_t, g_t), (out_j, g_j)):
+        np.testing.assert_allclose(out_p, out, atol=1e-5)
+        np.testing.assert_allclose(g_p, g, atol=1e-4)
+
+
+@pytest.mark.parametrize("h,w,m,align,edge", _CONTRACT_CASES)
+def test_contract_plain_bf16_matches_contract(h, w, m, align, edge):
+    """The plain version of the card's default cut against `_contract` at
+    bf16 on the CPU, forward and image gradient: the same roundings at the
+    same points, so the two differ only by the order of their float32
+    sums (held to 1e-5 of the largest entry, as
+    `test_contract_bf16_sums_in_float32_as_jax`), except where a
+    first-pass value's float32 sum lies near a bf16 rounding midpoint
+    (`_flipped`), which a sum in another order may round the other way:
+    those few outputs and pixels are left out."""
+    _, _, ts, tb, img, co = _contract_setup(h, w, m, align, edge)
+    taps = ts.tap_indices(tb)
+    bf = torch.bfloat16
+    out_p, g_p = _torch_vjp(lambda x: C.contract_plain(x, *taps, bf),
+                            img, co)
+    out_t, g_t = _torch_vjp(lambda x: ts.cut(x, tb, compute_dtype=bf),
+                            img, co)
+    flip_out, flip_img = (f.numpy() for f in _flipped(ts, tb, img, co))
+    assert flip_out.mean() < 0.05 and flip_img.mean() < 0.05
+    for got, ref, flip in ((out_p, out_t, flip_out), (g_p, g_t, flip_img)):
+        assert np.abs(got - ref)[~flip].max() <= 1e-5 * np.abs(ref).max()
+
+
 def test_in_frame_drops_outside_taps():
     idx = torch.tensor([[[-1, 0, 3, 4]]], dtype=torch.int32)
     wts = torch.ones((1, 1, 4))

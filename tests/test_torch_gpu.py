@@ -57,7 +57,7 @@ from aphantasia_torch.ops.perspective import (perspective_coeffs,
                                               perspective_endpoints,
                                               rotation_coeffs_for)
 from aphantasia_torch.models.clip.model import cast_weights
-from aphantasia_torch.ops.sampler import Boxes, CutoutSampler
+from aphantasia_torch.ops.sampler import Boxes, CutoutSampler, _contract
 
 pytestmark = pytest.mark.gpu
 
@@ -193,6 +193,118 @@ def test_cutout_kernels_are_deterministic(cuda, kind, align):
     assert torch.equal(a, b)
     eager, replayed = _captured(run)
     assert torch.equal(eager, a) and torch.equal(replayed, a)
+
+
+def _contract_taps(cuda, h, w, s, m, align="uniform", edge=False):
+    """The default sampler's boxes and taps (`edge` as `_cutout_taps`)."""
+    sampler = CutoutSampler((h, w), s, m, align, 0.4)
+    boxes = sampler.sample_boxes(cuda)
+    if edge:
+        hp, wp = sampler.padded_size
+        low = torch.rand((2, s), generator=cuda, device="cuda") < 0.5
+        boxes = Boxes(boxes.csize,
+                      torch.where(low[0], 0, wp - boxes.csize).int(),
+                      torch.where(low[1], 0, hp - boxes.csize).int())
+    return sampler, boxes
+
+
+@pytest.mark.parametrize("h,w,s,m,align,edge", [
+    pytest.param(720, 1280, 190, 224, "uniform", False, id="720p-190"),
+    pytest.param(2160, 3840, 190, 224, "uniform", False, id="4k-190"),
+    pytest.param(720, 1280, 95, 224, "overscan", False,
+                 id="video-overscan-95"),
+    pytest.param(480, 640, 190, 224, "uniform", False, id="480-640-190"),
+    pytest.param(720, 1280, 38, 336, "uniform", False, id="720p-38-m336"),
+    pytest.param(512, 512, 47, 224, "overscan", False,
+                 id="h-first-512-512-47"),
+    pytest.param(900, 600, 24, 224, "uniform", True,
+                 id="h-first-900-600-edge"),
+    pytest.param(720, 1280, 24, 224, "uniform", True, id="edge-pushed"),
+    pytest.param(40, 56, 6, 64, "overscan", True,
+                 id="crops-larger-than-the-frame")])
+def test_contract_kernel_matches_plain(cuda, h, w, s, m, align, edge):
+    """The default bf16 cut on the card (`sampler.cut`, the contraction
+    kernel pair) against its plain version, bit for bit, forward and
+    image gradient: both sum every term in the same order and round at
+    the same points, and a product of two bf16 values is exact in
+    float32.  The cells' shapes (W first), two frames that take H first,
+    crops pushed against the frame's edges (their taps repeat an index)
+    and crops larger than the frame; one count of each kernel a call."""
+    sampler, boxes = _contract_taps(cuda, h, w, s, m, align, edge)
+    img = torch.rand((1, 3, h, w), generator=cuda, device="cuda",
+                     requires_grad=True)
+    co = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
+    before = kernels.LAUNCHES.copy()
+    out = sampler.cut(img, boxes, compute_dtype=torch.bfloat16)
+    (gk,) = torch.autograd.grad(out, img, co)
+    assert kernels.LAUNCHES - before == {"contract_fwd": 1,
+                                         "contract_bwd": 1}
+    x = img.detach()[0].requires_grad_(True)
+    ref = C.contract_plain(x, *sampler.tap_indices(boxes))
+    (gp,) = torch.autograd.grad(ref, x, co)
+    assert torch.equal(out, ref)
+    assert torch.equal(gk[0], gp)
+
+
+@pytest.mark.parametrize("h,w,s,m,align,edge", [
+    pytest.param(720, 1280, 190, 224, "uniform", False, id="720p-190"),
+    pytest.param(512, 512, 47, 224, "overscan", False,
+                 id="h-first-512-512-47"),
+    pytest.param(900, 600, 24, 224, "uniform", True,
+                 id="h-first-900-600-edge"),
+    pytest.param(40, 56, 6, 64, "overscan", True,
+                 id="crops-larger-than-the-frame")])
+def test_contract_backward_tiles_of_64_match_plain(cuda, h, w, s, m, align,
+                                                   edge):
+    """The backward's tiles of 64, which only 4K-sized frames take by
+    default, on the other shapes too: bit for bit the plain version (the
+    tile side changes no sum's order), with tiles cut by the frame's edge
+    on both axes."""
+    sampler, boxes = _contract_taps(cuda, h, w, s, m, align, edge)
+    taps = sampler.tap_indices(boxes)
+    co = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
+    got = C.contract_bwd_kernel(co, *taps, (3, h, w), tile=64)
+    assert torch.equal(got, C.contract_bwd_plain(co, *taps, (3, h, w)))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("h,w,align", [(720, 1280, "uniform"),
+                                       (720, 1280, "overscan"),
+                                       (512, 512, "overscan"),
+                                       (2160, 3840, "uniform")])
+def test_contract_kernels_are_deterministic(cuda, kind, h, w, align):
+    """Each kernel at 190 crops of 224 gives the same bits on two launches
+    and when captured into a CUDA graph and replayed twice (no atomics; at
+    4K the backward's tiles of 64), one count a call."""
+    s, m = 190, 224
+    sampler, boxes = _contract_taps(cuda, h, w, s, m, align)
+    taps = sampler.tap_indices(boxes)
+    if kind == "fwd":
+        img = torch.rand((3, h, w), generator=cuda, device="cuda")
+        run = lambda: C.contract_fwd_kernel(img, *taps)  # noqa: E731
+    else:
+        g = torch.randn((s, 3, m, m), generator=cuda, device="cuda")
+        run = lambda: C.contract_bwd_kernel(g, *taps,  # noqa: E731
+                                            (3, h, w))
+    before = kernels.LAUNCHES["contract_" + kind]
+    a, b = run(), run()
+    assert kernels.LAUNCHES["contract_" + kind] == before + 2
+    assert torch.equal(a, b)
+    graph = kernels.CountedGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    with graph.capture():
+        out = run()
+    before = kernels.LAUNCHES["contract_" + kind]
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, a)
+    assert kernels.LAUNCHES["contract_" + kind] == before + 2
 
 
 @pytest.mark.parametrize("h,w", [(720, 1280), (40, 56), (33, 97)])
@@ -468,13 +580,15 @@ def test_windowed_cut_and_fused_layer_norm_capture_into_a_graph(
 def test_windowed_switch_routes_the_cut_through_the_kernel(cuda,
                                                            monkeypatch):
     """APHANTASIA_WIN_CUTOUT=1 sends a bf16 cut through the kernel; its
-    gradient is the dense transpose, equal to the dense path's."""
+    gradient is the dense transpose, equal to the dense contraction's
+    (`_contract`, which the card's default bf16 cut no longer runs)."""
     sampler = CutoutSampler((720, 1280), 16, 224, "uniform", 0.4)
     boxes = sampler.sample_boxes(cuda)
     img = torch.rand((3, 720, 1280), generator=cuda, device="cuda",
                      requires_grad=True)
     co = torch.randn((16, 3, 224, 224), generator=cuda, device="cuda")
-    dense = sampler.cut(img, boxes, compute_dtype=torch.bfloat16)
+    dense = _contract(img, *sampler.weight_matrices(
+        boxes, dtype=torch.bfloat16), torch.bfloat16)
     (g_dense,) = torch.autograd.grad(dense, img, co)
     monkeypatch.setenv("APHANTASIA_WIN_CUTOUT", "1")
     before = kernels.LAUNCHES["win_cut_fwd"]
